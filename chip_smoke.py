@@ -1,0 +1,484 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``wtracker_tpu_torch``) on one NVIDIA card.
+
+Drives the port's main path, the real-video tracking loop, at full width:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds every hand-written kernel from ``wtracker_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and prints the compiler's
+   register report;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   main path's shapes and at edge crops, and times kernel, plain version and
+   the library call of the same function, beside the kernel's memory bound;
+4. loads the trained YOLOv8s@416 checkpoint (BN-fused, bfloat16) and a
+   seeded ResMLP with the reference topology;
+5. runs ``run_video_live`` over a seeded 1430x1671 recording (40 cycles of
+   12 imaging + 3 moving frames, chunks of 16 cycles) through the crop +
+   letterbox kernel, with the launch counters set to 0 just before and read
+   just after;
+6. runs the same loop through the plain crop -> letterbox -> detect branch,
+   then both branches again with a float32 detector, and holds kernel loop
+   against plain loop (float32: positions exact, boxes to 1e-2 px;
+   bfloat16: within 2 px, since the branches round at different places),
+   the kernel loop's detections against the worm's true track, and the
+   card's bfloat16 detector against the float32 detector on the CPU.
+
+Prints one JSON line of kernel results, one of loop results (with
+``--profile``, one more of a ``torch.profiler`` run of the loop), the card
+line, and last ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
+exit code is not 0.  Needs one CUDA card and the repository checkout around
+this file; run it as ``python3 chip_smoke.py`` from the checkout's root.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+CHECKPOINT = ROOT / "models" / "yolov8s_worm416.npz"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s outside
+# the tensor cores.  Bounds below are for the full 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# crop_letterbox work per output pixel: three 2-tap lerps (sub, mul, add each)
+# and the 1/255 scale
+OPS_PER_OUTPUT_PIXEL = 10
+
+N_CYCLES = 40
+CYCLES_PER_CHUNK = 16
+SEED = 0
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# kernels: build, check against the plain version, time
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> float:
+    """Median device time of ``fn`` in ms, one call per CUDA event pair.
+
+    Before each call a write of more than the 50 MB L2 evicts the inputs (the
+    loop finds the frame chunk cold: the detector runs between two
+    preprocessing calls), and a spin of about 0.5 ms keeps the card busy
+    while the host queues the call, so the host's own overhead does not show
+    up as device time."""
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def crop_letterbox_bound(n: int, cam: int, imgsz: int, out_bytes: int) -> tuple[float, str]:
+    """Least time (ms) for n views: each crop byte and index read once, each
+    output written once; or the arithmetic, whichever is larger."""
+    moved = n * (cam * cam + 4 + 8) + n * imgsz * imgsz * out_bytes
+    ops = n * imgsz * imgsz * OPS_PER_OUTPUT_PIXEL
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, rng: np.random.Generator) -> dict:
+    """Kernel vs plain version at the loop's view counts, both output types,
+    with crops at both far corners of the frame.  Returns the errors."""
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_reference, crop_letterbox_views
+
+    c, h, w = frames.shape
+    errs = {}
+    for n in (12, 3):
+        tls = np.stack([rng.integers(0, w - cam + 1, n), rng.integers(0, h - cam + 1, n)], axis=1)
+        tls[0], tls[-1] = (0, 0), (w - cam, h - cam)
+        idx = rng.integers(0, c, n)
+        idx[-1] = c - 1
+        idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
+        tls_t = torch.from_numpy(tls.astype(np.int32)).cuda()
+        for dtype, atol in ((torch.float32, 2e-6), (torch.bfloat16, 0.01)):
+            got = crop_letterbox_views(frames, idx_t, tls_t, cam, imgsz, out_dtype=dtype)
+            torch.cuda.synchronize()
+            want = crop_letterbox_reference(frames, idx_t, tls_t, cam, imgsz, out_dtype=dtype)
+            torch.cuda.synchronize()
+            if got.shape != (n, imgsz, imgsz, 3) or got.dtype != dtype:
+                raise AssertionError(f"kernel output {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= atol:
+                raise AssertionError(f"crop_letterbox N={n} {dtype}: max error {err} > {atol}")
+            errs[(n, dtype)] = err
+    return errs
+
+
+def time_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, n: int, rng: np.random.Generator) -> dict:
+    """Kernel, plain version and ``F.interpolate`` at n views, bfloat16 out."""
+    from wtracker_tpu_torch.ops.image import crop_views
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_reference, crop_letterbox_views
+
+    c, h, w = frames.shape
+    idx = torch.from_numpy(rng.integers(0, c, n).astype(np.int32)).cuda()
+    tls = torch.from_numpy(
+        np.stack([rng.integers(0, w - cam + 1, n), rng.integers(0, h - cam + 1, n)], axis=1).astype(np.int32)
+    ).cuda()
+    # the library call gets the gathered, normalized float32 crops: the same
+    # bilinear function (half-pixel centres, edge clamp) on the same pixels
+    crops = crop_views(frames, tls, (cam, cam), frame_idx=idx)[:, None].float() * (1.0 / 255.0)
+    lib = F.interpolate(crops, size=(imgsz, imgsz), mode="bilinear", align_corners=False)[:, 0]
+    plain = crop_letterbox_reference(frames, idx, tls, cam, imgsz, out_dtype=torch.float32)[..., 0]
+    lib_err = (lib - plain).abs().max().item()
+    if not lib_err <= 1e-4:  # its weights are computed in another order
+        raise AssertionError(f"F.interpolate differs from the plain version by {lib_err}")
+
+    def host_ms(fn, reps: int = 50) -> float:
+        """Host time to queue one call (the card is kept busy meanwhile)."""
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return t
+
+    kernel = lambda: crop_letterbox_views(frames, idx, tls, cam, imgsz, out_dtype=torch.bfloat16)
+    bound_ms, bound_by = crop_letterbox_bound(n, cam, imgsz, out_bytes=2)
+    return {
+        "host_ms": host_ms(kernel),
+        "plain_host_ms": host_ms(lambda: crop_letterbox_reference(frames, idx, tls, cam, imgsz, out_dtype=torch.bfloat16)),
+        "ms": time_ms(kernel),
+        "plain_ms": time_ms(lambda: crop_letterbox_reference(frames, idx, tls, cam, imgsz, out_dtype=torch.bfloat16)),
+        "library_ms": time_ms(
+            lambda: F.interpolate(crops, size=(imgsz, imgsz), mode="bilinear", align_corners=False)
+        ),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_max_abs_err": lib_err,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the recording and the loop
+# ---------------------------------------------------------------------------
+
+
+class Recording:
+    """Seeded synthetic recording: a static noisy agar background plus an
+    elongated Gaussian worm blob on a smooth random-walk track.  Rendered in
+    bulk into host memory at set-up, so the loop's frame source is a slice,
+    as a decoder's output buffer would be."""
+
+    def __init__(self, num_frames: int, hw: tuple[int, int], seed: int):
+        from wtracker_tpu_torch.sim.synthetic import make_trajectory
+
+        rng = np.random.default_rng(seed)
+        self.hw = hw
+        self.traj = make_trajectory(num_frames, hw, seed=seed + 1, margin=200)
+        bg = np.clip(rng.normal(40.0, 6.0, hw), 0, 255).astype(np.uint8)
+        self.data = np.repeat(bg[None], num_frames, axis=0)
+        win = 32  # half side of the window the blob is drawn in
+        dy, dx = np.mgrid[-win:win, -win:win].astype(np.float32)
+        for i, (cx, cy) in enumerate(self.traj):
+            x0, y0 = int(round(cx)), int(round(cy))
+            blob = 160.0 * np.exp(-0.5 * (((dx + x0 - cx) / 5.0) ** 2 + ((dy + y0 - cy) / 3.0) ** 2))
+            # the track keeps a 200 px margin, so the window lies inside the frame
+            patch = self.data[i, y0 - win : y0 + win, x0 - win : x0 + win]
+            patch[:] = np.clip(patch + blob, 0, 255).astype(np.uint8)
+
+    def frames(self, start: int, count: int) -> np.ndarray:
+        return self.data[start : start + count]
+
+    def view(self, f: int, cam: int) -> np.ndarray:
+        """The cam x cam view of frame ``f`` centred on the worm."""
+        h, w = self.hw
+        x0 = int(np.clip(round(self.traj[f][0]) - cam // 2, 0, w - cam))
+        y0 = int(np.clip(round(self.traj[f][1]) - cam // 2, 0, h - cam))
+        return self.data[f, y0 : y0 + cam, x0 : x0 + cam]
+
+
+def run_loop(params, config, recording, num_frames, detector, predictor, device):
+    from wtracker_tpu_torch.sim.engine_video import run_video_live
+
+    init = tuple(int(round(v)) for v in recording.traj[0])
+    t0 = time.perf_counter()
+    logs = run_video_live(
+        params, config, recording.frames, num_frames, detector, predictor, init,
+        cycles_per_chunk=CYCLES_PER_CHUNK, device=device,
+    )
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return logs, time.perf_counter() - t0
+
+
+def profile_loop(params, config, recording, num_frames, model, predictor, top: int = 12) -> dict:
+    """One more run of the loop under ``torch.profiler``: the device's busy
+    share of the run's wall time and the kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_s = run_loop(params, config, recording, num_frames, model, predictor, "cuda")
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return {
+        "wall_s": wall_s,
+        "device_busy_s": busy_us * 1e-6,
+        "device_busy_share": busy_us * 1e-6 / wall_s,
+        "top": [
+            {"name": e.key[:80], "calls": e.count, "device_ms": e.self_device_time_total * 1e-3} for e in rows[:top]
+        ],
+    }
+
+
+def log_diffs(a, b) -> tuple[int, float]:
+    """Largest position difference (px) and box difference (px) of two runs;
+    a box found in one run and missed in the other fails."""
+    pos = int(np.abs(a.positions.numpy() - b.positions.numpy()).max())
+    ba, bb = a.worm_bboxes.numpy(), b.worm_bboxes.numpy()
+    if not np.array_equal(np.isnan(ba), np.isnan(bb)):
+        raise AssertionError("the two runs detected the worm in different frames")
+    return pos, float(np.nanmax(np.abs(ba - bb))) if np.isfinite(ba).any() else 0.0
+
+
+def tracking_quality(params, logs, recording) -> dict:
+    """Detection rate and centre error of the logged worm boxes against the
+    true track, and how far the platform strayed from the worm."""
+    pos = logs.positions.numpy().reshape(-1, 2).astype(np.float64)
+    boxes = logs.worm_bboxes.numpy().reshape(-1, 4)
+    gt = recording.traj[: len(pos)]
+    ok = np.isfinite(boxes).all(axis=1)
+    err = np.hypot(*(boxes[ok, :2] + boxes[ok, 2:] / 2 - gt[ok]).T)
+    stray = np.hypot(*(pos - gt).T)[params.cycle_n * 3 :]
+    return {
+        "detection_rate": float(ok.mean()),
+        "median_center_err_px": float(np.median(err)) if ok.any() else float("nan"),
+        "max_platform_stray_px": float(stray.max()),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
+        return 2
+    if not (ROOT / "wtracker_tpu_torch" / "__init__.py").is_file() or not CHECKPOINT.is_file():
+        log(f"chip_smoke: {ROOT} is not a checkout of the repository (package or checkpoint missing)")
+        return 2
+
+    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector, detect_top1, detect_top1_preprocessed
+    from wtracker_tpu_torch.neural.config import IOConfig
+    from wtracker_tpu_torch.ops import _build
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
+    from wtracker_tpu_torch.sim.engine import EngineParams
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
+
+    # -- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"nvcc {name}: {line.strip()}")
+    log(f"built {len(reports)} kernel libraries in {build_s:.1f} s")
+
+    # -- 2. kernels against their plain versions, and their times -----------
+    exp = ExperimentConfig.load_json(str(ROOT / "configs" / "exp_config.json"))
+    timing = TimingConfig.load_json(str(ROOT / "configs" / "timing_config.json"))
+    H, W = (int(v) for v in exp.orig_resolution)
+    params = EngineParams.from_timing(timing, (H, W))
+    cam, imgsz = params.cam_w, 416
+    if not (params.cam_w == params.cam_h == 360 and (params.imaging_n, params.moving_n) == (12, 3)):
+        raise AssertionError(f"the deployment config changed: {params}")
+
+    rng = np.random.default_rng(SEED)
+    chunk_frames = CYCLES_PER_CHUNK * params.cycle_n
+    frames = torch.from_numpy(rng.integers(0, 256, (chunk_frames, H, W), dtype=np.uint8)).cuda()
+    errs = check_crop_letterbox(frames, cam, imgsz, rng)
+    log(f"crop_letterbox vs plain: {({f'N={n} {str(d)[6:]}': e for (n, d), e in errs.items()})}")
+    times = {n: time_crop_letterbox(frames, cam, imgsz, n, rng) for n in (params.imaging_n, params.moving_n)}
+    del frames
+    torch.cuda.synchronize()
+    for n, t in times.items():
+        log(f"crop_letterbox N={n}: {t}")
+
+    # -- 3. models ----------------------------------------------------------
+    detector = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cuda").fuse().to(torch.bfloat16)
+    model = detector.model
+    predictor = make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"detector YOLOv8{model.scale} nc={model.nc} {n_params} parameters, {model.compute_dtype}")
+    # warm the detector's convolutions at both batch sizes outside the timed loop
+    with torch.inference_mode():
+        for n in (params.imaging_n, params.moving_n):
+            detect_top1_preprocessed(
+                model, torch.zeros((n, imgsz, imgsz, 3), dtype=torch.bfloat16, device="cuda"),
+                (imgsz / cam, 0, 0), (imgsz, imgsz), 0.1,
+            )
+    torch.cuda.synchronize()
+
+    # -- 4. the main path through the kernel --------------------------------
+    num_frames = N_CYCLES * params.cycle_n + 1
+    recording = Recording(num_frames, (H, W), SEED)
+    base = dict(imgsz=(imgsz, imgsz), conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=40.0, fold_stem=False)
+    crop_letterbox_views.launches = 0
+    logs_k, secs_k = run_loop(
+        params, LiveLoopConfig(**base, use_fused_preproc=True), recording, num_frames, model, predictor, "cuda"
+    )
+    launches = crop_letterbox_views.launches
+    n_cycles = params.n_logged_cycles(num_frames)
+    if launches != 2 * n_cycles:
+        raise AssertionError(f"crop_letterbox launched {launches} times in {n_cycles} cycles, expected 2 per cycle")
+
+    # -- 5. the plain branch, in bfloat16 and in float32 -------------------
+    crop_letterbox_views.launches = 0
+    logs_p, secs_p = run_loop(
+        params, LiveLoopConfig(**base, use_fused_preproc=False), recording, num_frames, model, predictor, "cuda"
+    )
+    if crop_letterbox_views.launches != 0:
+        raise AssertionError("the plain branch launched the kernel")
+    # in bfloat16 the two branches round at different places (the plain
+    # letterbox rounds between its two passes, the kernel once at the store),
+    # so a rounded move may differ by a pixel and the tracks by a few
+    pos_bf16, box_bf16 = log_diffs(logs_k, logs_p)
+    log(f"bf16 kernel vs plain loop: positions differ by <= {pos_bf16} px, boxes by <= {box_bf16} px")
+    if not (pos_bf16 <= 2 and box_bf16 <= 2.0):
+        raise AssertionError(f"bf16 kernel and plain loops drifted apart: {pos_bf16} px, {box_bf16} px")
+
+    # in float32 both branches compute the same numbers up to summation order:
+    # the tracks must be identical and the boxes agree to 1e-2 px
+    model32 = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cuda").fuse().model
+    crop_letterbox_views.launches = 0
+    logs_k32, _ = run_loop(
+        params, LiveLoopConfig(**base, use_fused_preproc=True), recording, num_frames, model32, predictor, "cuda"
+    )
+    if crop_letterbox_views.launches != 2 * n_cycles:
+        raise AssertionError(f"the float32 kernel loop launched {crop_letterbox_views.launches} kernels")
+    logs_p32, _ = run_loop(
+        params, LiveLoopConfig(**base, use_fused_preproc=False), recording, num_frames, model32, predictor, "cuda"
+    )
+    for logs in (logs_k, logs_p, logs_k32, logs_p32):
+        if logs.positions.shape != (n_cycles, params.cycle_n, 2) or logs.worm_bboxes.shape != (n_cycles, params.cycle_n, 4):
+            raise AssertionError(f"log shapes {tuple(logs.positions.shape)} {tuple(logs.worm_bboxes.shape)}")
+    np.testing.assert_array_equal(logs_k32.positions.numpy(), logs_p32.positions.numpy())
+    np.testing.assert_allclose(logs_k32.worm_bboxes.numpy(), logs_p32.worm_bboxes.numpy(), atol=1e-2, equal_nan=True)
+    _, box_f32 = log_diffs(logs_k32, logs_p32)
+    log(f"f32 kernel vs plain loop: positions identical, boxes differ by <= {box_f32} px")
+    del model32
+
+    # more bf16 runs in turns (plain, kernel, kernel, plain) for the loop's
+    # throughput: the host's clock varies from run to run
+    cfg_k, cfg_p = LiveLoopConfig(**base, use_fused_preproc=True), LiveLoopConfig(**base, use_fused_preproc=False)
+    secs = {"kernel": [secs_k], "plain": [secs_p]}
+    for branch in ("plain", "kernel", "kernel", "plain"):
+        cfg = cfg_k if branch == "kernel" else cfg_p
+        secs[branch].append(run_loop(params, cfg, recording, num_frames, model, predictor, "cuda")[1])
+    profile = None
+    if "--profile" in sys.argv:
+        profile = {b: profile_loop(params, c, recording, num_frames, model, predictor) for b, c in (("kernel", cfg_k), ("plain", cfg_p))}
+
+    quality = tracking_quality(params, logs_k, recording)
+    log(f"tracking: {quality}")
+    if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
+        raise AssertionError(f"the loop lost the worm: {quality}")
+    if not quality["max_platform_stray_px"] < cam / 2:
+        raise AssertionError(f"the worm left the camera view: {quality}")
+
+    # the card's bfloat16 detector against the float32 detector on the CPU,
+    # on four views centred on the worm
+    cpu_model = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cpu").fuse().model
+    views = np.stack([recording.view(f, cam) for f in (0, 150, 300, 450)])
+    with torch.inference_mode():
+        ref = detect_top1(cpu_model, torch.from_numpy(views), (imgsz, imgsz), 0.1).numpy()
+        got = detect_top1(model, torch.from_numpy(views).cuda(), (imgsz, imgsz), 0.1).cpu().numpy()
+    lo = np.maximum(ref[:, :2], got[:, :2])
+    hi = np.minimum(ref[:, :2] + ref[:, 2:], got[:, :2] + got[:, 2:])
+    inter = np.prod(np.clip(hi - lo, 0, None), axis=1)
+    iou = inter / (ref[:, 2] * ref[:, 3] + got[:, 2] * got[:, 3] - inter)
+    log(f"bf16 card vs f32 CPU detector, IoU per view: {iou.tolist()}")
+    if not (np.isfinite(iou).all() and (iou >= 0.9).all()):
+        raise AssertionError(f"card detector disagrees with the CPU float32 detector: IoU {iou}")
+
+    # -- 6. results ---------------------------------------------------------
+    err = errs[(params.imaging_n, torch.bfloat16)]
+    t12, t3 = times[params.imaging_n], times[params.moving_n]
+    kernels = {
+        "kernels": [
+            {
+                "name": "crop_letterbox",
+                "route": "cuda",
+                "source": "wtracker_tpu_torch/csrc/crop_letterbox.cu",
+                "replaces": "wtracker_tpu/ops/pallas_preproc.py:198",
+                "launches": launches,
+                "max_abs_err": err,
+                "ms": t12["ms"],
+                "plain_ms": t12["plain_ms"],
+                "bound_ms": t12["bound_ms"],
+                "bound_by": t12["bound_by"],
+                "library_ms": t12["library_ms"],
+                "views": params.imaging_n,
+                "max_abs_err_f32": errs[(params.imaging_n, torch.float32)],
+                "ms_n3": t3["ms"],
+                "plain_ms_n3": t3["plain_ms"],
+                "bound_ms_n3": t3["bound_ms"],
+                "library_ms_n3": t3["library_ms"],
+                "launches_per_cycle": launches / n_cycles,
+            }
+        ]
+    }
+    loop = {
+        "loop": {
+            "cycles": n_cycles,
+            "frames": n_cycles * params.cycle_n,
+            "kernel_cycles_per_s": n_cycles / float(np.median(secs["kernel"])),
+            "plain_cycles_per_s": n_cycles / float(np.median(secs["plain"])),
+            "kernel_s": secs["kernel"],
+            "plain_s": secs["plain"],
+            "bf16_pos_max_abs_diff_kernel_vs_plain": pos_bf16,
+            "bf16_box_max_abs_diff_kernel_vs_plain": box_bf16,
+            "f32_box_max_abs_diff_kernel_vs_plain": box_f32,
+            **quality,
+            "build_s": build_s,
+            "card": card,
+        }
+    }
+    print(json.dumps(kernels))
+    print(json.dumps(loop))
+    if profile is not None:
+        print(json.dumps({"profile": {**profile, "card": card}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

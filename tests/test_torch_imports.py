@@ -1,0 +1,66 @@
+"""The port stands alone: no module of ``wtracker_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, Flax, Optax or the JAX package, neither in
+its source nor when imported."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "wtracker_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "wtracker_tpu")
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__") for p in PKG.rglob("*.py")
+)
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_package_has_the_slice_modules():
+    want = {
+        "wtracker_tpu_torch", "wtracker_tpu_torch.convert", "wtracker_tpu_torch.utils.config_base",
+        "wtracker_tpu_torch.sim.config", "wtracker_tpu_torch.sim.motor", "wtracker_tpu_torch.neural.config",
+        "wtracker_tpu_torch.ops.image", "wtracker_tpu_torch.ops.preproc", "wtracker_tpu_torch.ops._build",
+        "wtracker_tpu_torch.models.yolov8", "wtracker_tpu_torch.models.resmlp", "wtracker_tpu_torch.sim.engine",
+        "wtracker_tpu_torch.sim.engine_live", "wtracker_tpu_torch.sim.engine_video",
+        "wtracker_tpu_torch.sim.synthetic",
+    }
+    assert want <= set(MODULES)
+    assert (PKG / "csrc" / "crop_letterbox.cu").is_file()
+
+
+@pytest.mark.parametrize(
+    "path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad = [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            bad = [node.module] if node.level == 0 and node.module and _forbidden(node.module) else []
+        else:
+            continue
+        assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('LOADED', bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LOADED []" in out.stdout

@@ -1,0 +1,419 @@
+"""YOLOv8 detector (CSPDarknet + PAN + decoupled DFL head) in PyTorch.
+
+Port of :mod:`wtracker_tpu.models.yolov8`: the same module tree, layer names
+and arithmetic, so Flax weights carry over one to one
+(:func:`wtracker_tpu_torch.convert.yolov8_from_flax`).
+
+Layouts at the public functions are the JAX package's: images are NHWC
+``(B, H, W, 3)``, per-level logits come back NHWC, boxes are ``(B, 4)``.
+Inside :class:`YoloV8` the tensors are NCHW (a permuted view, no copy).
+
+The compute dtype is the dtype of the module's parameters: cast the module
+with ``.to(torch.bfloat16)`` for the bf16 detector (the JAX package keeps
+float32 parameters and casts them to its ``compute_dtype`` at each layer,
+which gives the same values).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wtracker_tpu_torch.ops.image import letterbox
+from wtracker_tpu_torch.utils.device import resolve_device
+
+# scale presets: (depth_multiple, width_multiple, max_channels)
+SCALES = {
+    "n": (1 / 3, 0.25, 1024),
+    "s": (1 / 3, 0.50, 1024),
+    "m": (2 / 3, 0.75, 768),
+    "l": (1.0, 1.00, 512),
+    "x": (1.0, 1.25, 512),
+}
+
+STRIDES = (8, 16, 32)
+
+
+def _make_divisible(x: float, divisor: int = 8) -> int:
+    return int(math.ceil(x / divisor) * divisor)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as ``0.5·x·(tanh(x/2)+1)``, the JAX package's form of x·σ(x)."""
+    return 0.5 * x * (torch.tanh(0.5 * x) + 1.0)
+
+
+class ConvBN(nn.Module):
+    """Conv2d + BatchNorm + SiLU (NCHW).  ``fused=True``: biased conv + SiLU,
+    the deployment form after :func:`fuse_conv_bn`."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 1, stride: int = 1, fused: bool = False):
+        super().__init__()
+        self.fused = fused
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2, bias=fused)
+        # Flax BatchNorm(epsilon=1e-3, momentum=0.97) = torch momentum 0.03
+        self.bn = None if fused else nn.BatchNorm2d(out_ch, eps=1e-3, momentum=0.03)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return _silu(x)
+
+
+class Bottleneck(nn.Module):
+    """Two 3x3 ConvBN blocks with an optional residual."""
+
+    def __init__(self, in_ch: int, out_ch: int, shortcut: bool = True, fused: bool = False):
+        super().__init__()
+        self.cv1 = ConvBN(in_ch, out_ch, 3, fused=fused)
+        self.cv2 = ConvBN(out_ch, out_ch, 3, fused=fused)
+        self.add = shortcut and in_ch == out_ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Cross-stage-partial block: split, chain bottlenecks, concat, fuse."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1, shortcut: bool = False, fused: bool = False):
+        super().__init__()
+        self.hidden = hidden = out_ch // 2
+        self.n = n
+        self.cv1 = ConvBN(in_ch, 2 * hidden, 1, fused=fused)
+        for i in range(n):  # named m_{i} like the Flax tree
+            setattr(self, f"m_{i}", Bottleneck(hidden, hidden, shortcut, fused=fused))
+        self.cv2 = ConvBN((2 + n) * hidden, out_ch, 1, fused=fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        parts = list(self.cv1(x).split(self.hidden, dim=1))
+        for i in range(self.n):
+            parts.append(getattr(self, f"m_{i}")(parts[-1]))
+        return self.cv2(torch.cat(parts, dim=1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): 3 chained 5x5 max-pools, concatenated."""
+
+    def __init__(self, in_ch: int, out_ch: int, pool: int = 5, fused: bool = False):
+        super().__init__()
+        hidden = in_ch // 2
+        self.pool = pool
+        self.cv1 = ConvBN(in_ch, hidden, 1, fused=fused)
+        self.cv2 = ConvBN(4 * hidden, out_ch, 1, fused=fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pools = [self.cv1(x)]
+        for _ in range(3):  # implicit -inf padding, as Flax max_pool pads
+            pools.append(F.max_pool2d(pools[-1], self.pool, 1, self.pool // 2))
+        return self.cv2(torch.cat(pools, dim=1))
+
+
+class DetectHead(nn.Module):
+    """Decoupled per-scale head: box-distribution branch + class branch."""
+
+    def __init__(self, in_chs: Sequence[int], nc: int, reg_max: int = 16, fused: bool = False):
+        super().__init__()
+        self.n_levels = len(in_chs)
+        c2 = max(16, in_chs[0] // 4, reg_max * 4)
+        c3 = max(in_chs[0], min(nc, 100))
+        for i, ch in enumerate(in_chs):
+            setattr(self, f"cv2_{i}_0", ConvBN(ch, c2, 3, fused=fused))
+            setattr(self, f"cv2_{i}_1", ConvBN(c2, c2, 3, fused=fused))
+            setattr(self, f"cv2_{i}_2", nn.Conv2d(c2, 4 * reg_max, 1))
+            setattr(self, f"cv3_{i}_0", ConvBN(ch, c3, 3, fused=fused))
+            setattr(self, f"cv3_{i}_1", ConvBN(c3, c3, 3, fused=fused))
+            setattr(self, f"cv3_{i}_2", nn.Conv2d(c3, nc, 1))
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        box_out, cls_out = [], []
+        for i, f in enumerate(feats):
+            b = f
+            c = f
+            for j in range(3):
+                b = getattr(self, f"cv2_{i}_{j}")(b)
+                c = getattr(self, f"cv3_{i}_{j}")(c)
+            box_out.append(b)
+            cls_out.append(c)
+        return box_out, cls_out
+
+
+class YoloV8(nn.Module):
+    """Full detector graph: NHWC ``(B, H, W, 3)`` images → per-level NHWC
+    ``(box_logits, cls_logits)``."""
+
+    def __init__(self, nc: int = 1, scale: str = "s", reg_max: int = 16, fused: bool = False):
+        super().__init__()
+        self.nc, self.scale, self.reg_max, self.fused = nc, scale, reg_max, fused
+        depth, width, max_ch = SCALES[scale]
+
+        def chn(c):
+            return _make_divisible(min(c, max_ch) * width)
+
+        def rep(n):
+            return max(round(n * depth), 1)
+
+        kw = dict(fused=fused)
+        c64, c128, c256, c512, c1024 = chn(64), chn(128), chn(256), chn(512), chn(1024)
+        self.b0 = ConvBN(3, c64, 3, 2, **kw)  # /2
+        self.b1 = ConvBN(c64, c128, 3, 2, **kw)  # /4
+        self.b2 = C2f(c128, c128, rep(3), True, **kw)
+        self.b3 = ConvBN(c128, c256, 3, 2, **kw)  # /8
+        self.b4 = C2f(c256, c256, rep(6), True, **kw)
+        self.b5 = ConvBN(c256, c512, 3, 2, **kw)  # /16
+        self.b6 = C2f(c512, c512, rep(6), True, **kw)
+        self.b7 = ConvBN(c512, c1024, 3, 2, **kw)  # /32
+        self.b8 = C2f(c1024, c1024, rep(3), True, **kw)
+        self.b9 = SPPF(c1024, c1024, 5, **kw)
+        # PAN neck: top-down, then bottom-up
+        self.n12 = C2f(c1024 + c512, c512, rep(3), False, **kw)
+        self.n15 = C2f(c512 + c256, c256, rep(3), False, **kw)
+        self.n16 = ConvBN(c256, c256, 3, 2, **kw)
+        self.n18 = C2f(c256 + c512, c512, rep(3), False, **kw)
+        self.n19 = ConvBN(c512, c512, 3, 2, **kw)
+        self.n21 = C2f(c512 + c1024, c1024, rep(3), False, **kw)
+        self.head = DetectHead((c256, c512, c1024), nc, reg_max, **kw)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.b1.conv.weight.dtype
+
+    def forward(self, x: torch.Tensor):
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        x = self.b2(self.b1(self.b0(x)))
+        p3 = self.b4(self.b3(x))
+        p4 = self.b6(self.b5(p3))
+        p5 = self.b9(self.b8(self.b7(p4)))
+
+        def up2(t):  # x2 nearest: output pixel i reads input pixel i // 2
+            return F.interpolate(t, scale_factor=2, mode="nearest")
+
+        n4 = self.n12(torch.cat([up2(p5), p4], dim=1))
+        n3 = self.n15(torch.cat([up2(n4), p3], dim=1))  # /8 out
+        n4out = self.n18(torch.cat([self.n16(n3), n4], dim=1))  # /16 out
+        n5out = self.n21(torch.cat([self.n19(n4out), p5], dim=1))  # /32 out
+        box, cls = self.head([n3, n4out, n5out])
+        nhwc = [t.permute(0, 2, 3, 1) for t in box], [t.permute(0, 2, 3, 1) for t in cls]
+        return nhwc
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm folding (inference deployment)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def fuse_conv_bn(model: YoloV8) -> YoloV8:
+    """Fold every ConvBN's BatchNorm into its conv weight + bias.
+
+    Returns a new ``fused=True`` model on the same device and dtype:
+    ``W' = W · s/√(v+ε)``, ``b' = β − μ·s/√(v+ε)``, computed in float32 in the
+    JAX package's order.
+    """
+    fused = YoloV8(model.nc, model.scale, model.reg_max, fused=True)
+    src = dict(model.named_modules())
+    state = {}
+    for name, mod in fused.named_modules():
+        if isinstance(mod, ConvBN):
+            old = src[name]
+            w = old.conv.weight.float()
+            if old.bn is None:
+                bias = old.conv.bias.float()
+            else:
+                bn = old.bn
+                factor = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+                w = w * factor[:, None, None, None]
+                bias = bn.bias.float() - bn.running_mean.float() * factor
+            state[f"{name}.conv.weight"] = w
+            state[f"{name}.conv.bias"] = bias
+        elif isinstance(mod, nn.Conv2d) and not name.endswith(".conv"):
+            old = src[name]
+            state[f"{name}.weight"] = old.weight.float()
+            state[f"{name}.bias"] = old.bias.float()
+    fused.load_state_dict(state)
+    ref = model.b1.conv.weight
+    return fused.to(device=ref.device, dtype=ref.dtype).eval()
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def make_anchors(imgsz: tuple[int, int], strides: Sequence[int] = STRIDES, offset: float = 0.5):
+    """Anchor-center coordinates (in stride units) and per-anchor strides
+    (host numpy, float32)."""
+    points, strd = [], []
+    h, w = imgsz
+    for s in strides:
+        gh, gw = h // s, w // s
+        ys, xs = np.meshgrid(np.arange(gh) + offset, np.arange(gw) + offset, indexing="ij")
+        points.append(np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1))
+        strd.append(np.full((gh * gw, 1), s, dtype=np.float32))
+    return np.concatenate(points, 0).astype(np.float32), np.concatenate(strd, 0)
+
+
+def decode_top1(
+    box_logits: Sequence[torch.Tensor],
+    cls_logits: Sequence[torch.Tensor],
+    imgsz: tuple[int, int],
+    reg_max: int = 16,
+    strides: Sequence[int] = STRIDES,
+):
+    """Top-1 decode of NHWC per-level logits: best xyxy box (B, 4) float32 +
+    its sigmoid score (B,).
+
+    The winning anchor is picked on raw class logits, level by level, with
+    first-maximum tie-breaks within a level and across levels (concatenation
+    order); the DFL expectation runs for that one anchor only.  Anchor
+    centres are computed from the winning index on the device (the same
+    values as :func:`make_anchors`), so no table crosses from the host.
+    """
+    del imgsz  # the feature maps carry the grid
+    b = box_logits[0].shape[0]
+    dev = box_logits[0].device
+    rows = torch.arange(b, device=dev)
+
+    lvl_best, lvl_dist, lvl_anchor, lvl_stride = [], [], [], []
+    for box_t, cls_t, s in zip(box_logits, cls_logits, strides):
+        gw = cls_t.shape[2]
+        top_l = cls_t.float().amax(dim=-1).reshape(b, -1)  # (B, Al)
+        idx_l = top_l.argmax(dim=-1)  # first maximum
+        iy, ix = idx_l // gw, idx_l % gw
+        lvl_best.append(top_l[rows, idx_l])
+        lvl_dist.append(box_t[rows, iy, ix])  # (B, 4·reg_max)
+        lvl_anchor.append(torch.stack([ix, iy], dim=-1).float() + 0.5)
+        lvl_stride.append(torch.full((b, 1), float(s), dtype=torch.float32, device=dev))
+
+    best = torch.stack(lvl_best, dim=1)  # (B, L)
+    lvl = best.argmax(dim=-1)
+    best_score = torch.sigmoid(best[rows, lvl])
+
+    dist = torch.stack(lvl_dist, dim=1)[rows, lvl].float().reshape(b, 4, reg_max)
+    bins = torch.arange(reg_max, dtype=torch.float32, device=dev)
+    e = torch.exp(dist - dist.amax(dim=-1, keepdim=True))
+    ltrb = (e * bins).sum(dim=-1) / e.sum(dim=-1)  # (B, 4)
+
+    anchor = torch.stack(lvl_anchor, dim=1)[rows, lvl]
+    stride = torch.stack(lvl_stride, dim=1)[rows, lvl]
+    tl = (anchor - ltrb[:, :2]) * stride
+    br = (anchor + ltrb[:, 2:]) * stride
+    return torch.cat([tl, br], dim=-1), best_score
+
+
+def top1_source_boxes(
+    box_logits,
+    cls_logits,
+    imgsz: tuple[int, int],
+    reg_max: int,
+    geometry: tuple[float, int, int],
+    conf: float,
+) -> torch.Tensor:
+    """Top-1 decode → letterbox un-mapping → confidence mask: (B, 4) float32
+    xywh in source pixels, NaN rows below ``conf``.  ``geometry`` is the
+    letterbox ``(scale, pad_top, pad_left)`` shared by the batch."""
+    scale, pad_top, pad_left = geometry
+    best_box, best_score = decode_top1(box_logits, cls_logits, imgsz, reg_max)
+    xy = torch.stack([best_box[:, 0] - pad_left, best_box[:, 1] - pad_top], dim=-1) / scale
+    wh = (best_box[:, 2:] - best_box[:, :2]) / scale
+    out = torch.cat([xy, wh], dim=-1)
+    return torch.where((best_score >= conf)[:, None], out, torch.nan)
+
+
+# ---------------------------------------------------------------------------
+# preprocessing (letterbox) and the end-to-end detector
+# ---------------------------------------------------------------------------
+
+
+def letterbox_params(src_hw: tuple[int, int], dst_hw: tuple[int, int]):
+    """Scale + padding of a ratio-preserving letterbox resize (pad value 114):
+    ``(scale, new_h, new_w, pad_top, pad_left)``."""
+    sh, sw = src_hw
+    dh, dw = dst_hw
+    scale = min(dh / sh, dw / sw)
+    new_h, new_w = round(sh * scale), round(sw * scale)
+    pad_top = (dh - new_h) // 2
+    pad_left = (dw - new_w) // 2
+    return scale, new_h, new_w, pad_top, pad_left
+
+
+def preprocess_batch(frames: torch.Tensor, imgsz: tuple[int, int], dtype=torch.float32):
+    """uint8 (B, H, W[, C]) frames → normalized letterboxed (B, h, w, 3)
+    ``dtype`` plus the (scale, pad_top, pad_left) geometry."""
+    return letterbox(frames, imgsz, dtype=dtype)
+
+
+def detect_top1_preprocessed(
+    model: YoloV8,
+    x: torch.Tensor,
+    geometry: tuple[float, int, int],
+    imgsz: tuple[int, int],
+    conf: float,
+) -> torch.Tensor:
+    """Top-1 detection on an already-letterboxed (B, h, w, 3) tensor, e.g.
+    the output of :func:`wtracker_tpu_torch.ops.preproc.crop_letterbox_views`."""
+    box_logits, cls_logits = model(x)
+    return top1_source_boxes(box_logits, cls_logits, imgsz, model.reg_max, geometry, conf)
+
+
+def detect_top1(model: YoloV8, frames: torch.Tensor, imgsz: tuple[int, int], conf: float) -> torch.Tensor:
+    """(B, H, W[, C]) uint8 frames → (B, 4) xywh in source pixels; NaN rows
+    when the best score is below ``conf``."""
+    x, geometry = preprocess_batch(frames, imgsz, dtype=model.compute_dtype)
+    return detect_top1_preprocessed(model, x, geometry, imgsz, conf)
+
+
+@dataclass
+class YoloV8Detector:
+    """End-to-end worm-head detector: preprocess → forward → decode → top-1.
+
+    The model holds its weights (the JAX package's ``variables`` argument has
+    no counterpart here).
+    """
+
+    model: YoloV8
+    imgsz: tuple[int, int] = (384, 384)
+    conf: float = 0.1
+
+    @torch.inference_mode()
+    def detect(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, H, W[, C]) uint8 → (B, 4) xywh in source pixels; NaN = no hit."""
+        return detect_top1(self.model, frames, self.imgsz, self.conf)
+
+    def fuse(self) -> "YoloV8Detector":
+        """Inference-fused copy: BN folded into conv weights and biases."""
+        return YoloV8Detector(fuse_conv_bn(self.model), self.imgsz, self.conf)
+
+    def to(self, dtype: torch.dtype) -> "YoloV8Detector":
+        """Copy computing in ``dtype`` (e.g. ``torch.bfloat16``)."""
+        return YoloV8Detector(copy.deepcopy(self.model).to(dtype), self.imgsz, self.conf)
+
+    @staticmethod
+    def load(
+        path: str,
+        imgsz: int | tuple[int, int] = 384,
+        conf: float = 0.1,
+        device: str | torch.device = "cuda",
+    ) -> "YoloV8Detector":
+        """Load a Flax ``.npz`` export (``__meta__`` plus ``/``-joined keys,
+        as ``wtracker_tpu``'s ``YoloV8Detector.save`` writes it)."""
+        from wtracker_tpu_torch.convert import load_flax_npz, yolov8_from_flax
+
+        dev = resolve_device(device)
+        if isinstance(imgsz, int):
+            imgsz = (imgsz, imgsz)
+        meta, variables = load_flax_npz(path)
+        state = yolov8_from_flax(variables)
+        fused = not any(k.endswith(".bn.weight") for k in state)
+        model = YoloV8(nc=meta["nc"], scale=meta["scale"], fused=fused)
+        model.load_state_dict(state)
+        return YoloV8Detector(model.to(dev).eval(), imgsz, conf)

@@ -1,0 +1,1 @@
+"""Image ops and the hand-written CUDA kernels with their plain versions."""
