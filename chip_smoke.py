@@ -8,8 +8,10 @@ Drives the port's main path, the real-video tracking loop, at full width:
    ``nvcc`` per source, all started together) and prints the compiler's
    register report;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge crops, and times kernel, plain version and
-   the library call of the same function, beside the kernel's memory bound;
+   main path's shapes and others, 1 to 64 views, crop origins at every
+   residue mod 16, the chunk's last byte and a chunk view that is not
+   16-byte aligned; times kernel, plain version and the library call of the
+   same function beside the kernel's memory bound;
 4. loads the trained YOLOv8s@416 checkpoint (BN-fused, bfloat16) and a
    seeded ResMLP with the reference topology;
 5. runs ``run_video_live`` over a seeded 1430x1671 recording (40 cycles of
@@ -56,6 +58,10 @@ OPS_PER_OUTPUT_PIXEL = 10
 N_CYCLES = 40
 CYCLES_PER_CHUNK = 16
 SEED = 0
+# crop_letterbox checks: the loop's shape, an upscale with clamped edges and a
+# downscale, at 1 to 64 views
+CHECK_SHAPES = ((360, 416), (48, 64), (480, 416))
+CHECK_VIEWS = (1, 3, 12, 64)
 
 
 def card_line() -> str:
@@ -82,14 +88,16 @@ def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> float:
     loop finds the frame chunk cold: the detector runs between two
     preprocessing calls), and a spin of about 0.5 ms keeps the card busy
     while the host queues the call, so the host's own overhead does not show
-    up as device time."""
+    up as device time.  With ``flush_bytes=0`` the inputs stay in L2 from the
+    call before."""
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if flush_bytes:
+            flush.zero_()
         torch.cuda._sleep(1_000_000)
         s.record()
         fn()
@@ -107,31 +115,43 @@ def crop_letterbox_bound(n: int, cam: int, imgsz: int, out_bytes: int) -> tuple[
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, rng: np.random.Generator) -> dict:
-    """Kernel vs plain version at the loop's view counts, both output types,
-    with crops at both far corners of the frame.  Returns the errors."""
+def check_crop_letterbox(frames: torch.Tensor, rng: np.random.Generator) -> dict:
+    """Kernel vs plain version at each of CHECK_SHAPES and CHECK_VIEWS, both
+    output types: crop x origins at every residue mod 16, the first view at
+    (0, 0) and the last on the chunk's last frame at (W - cam, H - cam),
+    which reads the chunk's last byte; all of it once more on a view of the
+    chunk that starts 7 bytes in, so not 16-byte aligned.  Returns the
+    largest error of each output type."""
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_reference, crop_letterbox_views
 
     c, h, w = frames.shape
-    errs = {}
-    for n in (12, 3):
-        tls = np.stack([rng.integers(0, w - cam + 1, n), rng.integers(0, h - cam + 1, n)], axis=1)
-        tls[0], tls[-1] = (0, 0), (w - cam, h - cam)
-        idx = rng.integers(0, c, n)
-        idx[-1] = c - 1
-        idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
-        tls_t = torch.from_numpy(tls.astype(np.int32)).cuda()
-        for dtype, atol in ((torch.float32, 2e-6), (torch.bfloat16, 0.01)):
-            got = crop_letterbox_views(frames, idx_t, tls_t, cam, imgsz, out_dtype=dtype)
-            torch.cuda.synchronize()
-            want = crop_letterbox_reference(frames, idx_t, tls_t, cam, imgsz, out_dtype=dtype)
-            torch.cuda.synchronize()
-            if got.shape != (n, imgsz, imgsz, 3) or got.dtype != dtype:
-                raise AssertionError(f"kernel output {tuple(got.shape)} {got.dtype}")
-            err = (got.float() - want.float()).abs().max().item()
-            if not err <= atol:
-                raise AssertionError(f"crop_letterbox N={n} {dtype}: max error {err} > {atol}")
-            errs[(n, dtype)] = err
+    shifted = frames.view(-1)[7 : 7 + (c - 1) * h * w].view(c - 1, h, w)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for chunk in (frames, shifted):
+        for cam, imgsz in CHECK_SHAPES:
+            for n in CHECK_VIEWS:
+                x = rng.integers(0, w - cam + 1, n)
+                x = np.clip(x - x % 16 + np.arange(n) % 16, 0, w - cam)
+                tls = np.stack([x, rng.integers(0, h - cam + 1, n)], axis=1)
+                idx = rng.integers(0, chunk.shape[0], n)
+                tls[0] = (0, 0)
+                tls[-1], idx[-1] = (w - cam, h - cam), chunk.shape[0] - 1
+                idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
+                tls_t = torch.from_numpy(tls.astype(np.int32)).cuda()
+                for dtype, atol in ((torch.float32, 2e-6), (torch.bfloat16, 0.01)):
+                    got = crop_letterbox_views(chunk, idx_t, tls_t, cam, imgsz, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    want = crop_letterbox_reference(chunk, idx_t, tls_t, cam, imgsz, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    if got.shape != (n, imgsz, imgsz, 3) or got.dtype != dtype:
+                        raise AssertionError(f"kernel output {tuple(got.shape)} {got.dtype}")
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not err <= atol:
+                        raise AssertionError(
+                            f"crop_letterbox {cam}->{imgsz} N={n} {dtype} at {chunk.data_ptr() % 16}: "
+                            f"max error {err} > {atol}"
+                        )
+                    errs[dtype] = max(errs[dtype], err)
     return errs
 
 
@@ -171,6 +191,7 @@ def time_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, n: int, rng:
         "host_ms": host_ms(kernel),
         "plain_host_ms": host_ms(lambda: crop_letterbox_reference(frames, idx, tls, cam, imgsz, out_dtype=torch.bfloat16)),
         "ms": time_ms(kernel),
+        "ms_l2_warm": time_ms(kernel, flush_bytes=0),
         "plain_ms": time_ms(lambda: crop_letterbox_reference(frames, idx, tls, cam, imgsz, out_dtype=torch.bfloat16)),
         "library_ms": time_ms(
             lambda: F.interpolate(crops, size=(imgsz, imgsz), mode="bilinear", align_corners=False)
@@ -178,6 +199,8 @@ def time_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, n: int, rng:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_max_abs_err": lib_err,
+        # the same timing of a kernel that does nothing: the floor of the method
+        "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
     }
 
 
@@ -307,7 +330,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
                 log(f"nvcc {name}: {line.strip()}")
     log(f"built {len(reports)} kernel libraries in {build_s:.1f} s")
 
@@ -323,8 +346,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     chunk_frames = CYCLES_PER_CHUNK * params.cycle_n
     frames = torch.from_numpy(rng.integers(0, 256, (chunk_frames, H, W), dtype=np.uint8)).cuda()
-    errs = check_crop_letterbox(frames, cam, imgsz, rng)
-    log(f"crop_letterbox vs plain: {({f'N={n} {str(d)[6:]}': e for (n, d), e in errs.items()})}")
+    errs = check_crop_letterbox(frames, rng)
+    log(f"crop_letterbox vs plain, largest error: {({str(d)[6:]: e for d, e in errs.items()})}")
     times = {n: time_crop_letterbox(frames, cam, imgsz, n, rng) for n in (params.imaging_n, params.moving_n)}
     del frames
     torch.cuda.synchronize()
@@ -429,7 +452,6 @@ def main() -> int:
         raise AssertionError(f"card detector disagrees with the CPU float32 detector: IoU {iou}")
 
     # -- 6. results ---------------------------------------------------------
-    err = errs[(params.imaging_n, torch.bfloat16)]
     t12, t3 = times[params.imaging_n], times[params.moving_n]
     kernels = {
         "kernels": [
@@ -439,18 +461,25 @@ def main() -> int:
                 "source": "wtracker_tpu_torch/csrc/crop_letterbox.cu",
                 "replaces": "wtracker_tpu/ops/pallas_preproc.py:198",
                 "launches": launches,
-                "max_abs_err": err,
+                "max_abs_err": errs[torch.bfloat16],
                 "ms": t12["ms"],
                 "plain_ms": t12["plain_ms"],
                 "bound_ms": t12["bound_ms"],
                 "bound_by": t12["bound_by"],
                 "library_ms": t12["library_ms"],
                 "views": params.imaging_n,
-                "max_abs_err_f32": errs[(params.imaging_n, torch.float32)],
+                "max_abs_err_f32": errs[torch.float32],
+                "bound_share": t12["bound_ms"] / t12["ms"],
+                "host_ms": t12["host_ms"],
                 "ms_n3": t3["ms"],
                 "plain_ms_n3": t3["plain_ms"],
                 "bound_ms_n3": t3["bound_ms"],
                 "library_ms_n3": t3["library_ms"],
+                "bound_share_n3": t3["bound_ms"] / t3["ms"],
+                "host_ms_n3": t3["host_ms"],
+                "empty_kernel_ms": t12["empty_kernel_ms"],
+                "ms_l2_warm": t12["ms_l2_warm"],
+                "ms_n3_l2_warm": t3["ms_l2_warm"],
                 "launches_per_cycle": launches / n_cycles,
             }
         ]

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``wtracker_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, Flax, Optax or the JAX package, neither in
+``chip_smoke.py`` and ``sweep_band_rows.py``) imports JAX, Flax, Optax or the JAX package, neither in
 its source nor when imported."""
 
 import ast
@@ -36,7 +36,7 @@ def test_package_has_the_slice_modules():
 
 
 @pytest.mark.parametrize(
-    "path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+    "path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "sweep_band_rows.py"], ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text(), str(path))

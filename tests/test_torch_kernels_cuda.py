@@ -6,6 +6,12 @@ on a machine without it: ``python -m pytest --noconftest
 tests/test_torch_kernels_cuda.py``.
 """
 
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -13,29 +19,70 @@ import torch
 from wtracker_tpu_torch.ops.preproc import crop_letterbox_reference, crop_letterbox_views
 
 H, W, CAM, IMGSZ = 1430, 1671, 360, 416  # the video loop's frame, camera and detector sizes
+C = 32
+DTYPES = [(torch.float32, 2e-6), (torch.bfloat16, 0.01)]
+
+
+@pytest.fixture(scope="module")
+def chunk():
+    """A seeded (C, H, W) uint8 chunk on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, 256, (C, H, W), dtype=np.uint8)).cuda()
+
+
+def _views(rng, n, cam, c=C):
+    """n crop origins whose x covers every residue mod 16, with the first view
+    at (0, 0) and the last on the chunk's last frame at (W - cam, H - cam),
+    which reads the chunk's last byte."""
+    x = rng.integers(0, W - cam + 1, n)
+    x = np.clip(x - x % 16 + np.arange(n) % 16, 0, W - cam)
+    tls = np.stack([x, rng.integers(0, H - cam + 1, n)], axis=1)
+    idx = rng.integers(0, c, n)
+    tls[0] = (0, 0)
+    tls[-1], idx[-1] = (W - cam, H - cam), c - 1
+    return torch.from_numpy(idx.astype(np.int32)).cuda(), torch.from_numpy(tls.astype(np.int32)).cuda()
+
+
+def _check(frames, idx, tls, cam, imgsz, dtype, atol):
+    before = crop_letterbox_views.launches
+    got = crop_letterbox_views(frames, idx, tls, cam, imgsz, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert crop_letterbox_views.launches == before + 1
+    assert got.shape == (len(idx), imgsz, imgsz, 3) and got.dtype == dtype
+    want = crop_letterbox_reference(frames, idx, tls, cam, imgsz, out_dtype=dtype)
+    assert (got.float() - want.float()).abs().max().item() <= atol
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [12, 3], ids=["imaging", "moving"])
-@pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-6), (torch.bfloat16, 0.01)], ids=["f32", "bf16"])
-def test_crop_letterbox_matches_plain_version(n, dtype, atol):
+@pytest.mark.parametrize("dtype, atol", DTYPES, ids=["f32", "bf16"])
+def test_crop_letterbox_matches_plain_version(chunk, n, dtype, atol):
     """At the loop's shapes, crops at both far corners of the frame included."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    rng = np.random.default_rng(n)
-    frames = torch.from_numpy(rng.integers(0, 256, (32, H, W), dtype=np.uint8)).cuda()
-    tls = np.stack([rng.integers(0, W - CAM + 1, n), rng.integers(0, H - CAM + 1, n)], axis=1)
-    tls[0], tls[-1] = (0, 0), (W - CAM, H - CAM)
-    idx = torch.from_numpy(rng.integers(0, 32, n).astype(np.int32)).cuda()
-    tls = torch.from_numpy(tls.astype(np.int32)).cuda()
+    _check(chunk, *_views(np.random.default_rng(n), n, CAM), CAM, IMGSZ, dtype, atol)
 
-    before = crop_letterbox_views.launches
-    got = crop_letterbox_views(frames, idx, tls, CAM, IMGSZ, out_dtype=dtype)
-    torch.cuda.synchronize()
-    assert crop_letterbox_views.launches == before + 1
-    assert got.shape == (n, IMGSZ, IMGSZ, 3) and got.dtype == dtype
-    want = crop_letterbox_reference(frames, idx, tls, CAM, IMGSZ, out_dtype=dtype)
-    assert (got.float() - want.float()).abs().max().item() <= atol
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cam, imgsz", [(360, 416), (48, 64), (480, 416)], ids=["deploy", "up", "down"])
+@pytest.mark.parametrize("n", [1, 3, 12, 64])
+@pytest.mark.parametrize("dtype, atol", DTYPES, ids=["f32", "bf16"])
+def test_crop_letterbox_shapes_counts_and_residues(chunk, cam, imgsz, n, dtype, atol):
+    """Every crop origin residue mod 16 (each source row has its own shift
+    into its 16-byte-aligned staging), and the chunk's last byte."""
+    _check(chunk, *_views(np.random.default_rng(n + cam), n, cam), cam, imgsz, dtype, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 7, 15])
+@pytest.mark.parametrize("dtype, atol", DTYPES, ids=["f32", "bf16"])
+def test_crop_letterbox_on_a_chunk_view_not_16_byte_aligned(chunk, offset, dtype, atol):
+    """``frames`` as a view that starts ``offset`` bytes into an allocation:
+    the 16-byte copies that would cross its ends are read byte by byte."""
+    flat = chunk.view(-1)
+    frames = flat[offset : offset + (C - 1) * H * W].view(C - 1, H, W)
+    assert frames.data_ptr() % 16 != 0
+    _check(frames, *_views(np.random.default_rng(offset), 16, CAM, c=C - 1), CAM, IMGSZ, dtype, atol)
 
 
 @pytest.mark.cuda
@@ -49,3 +96,104 @@ def test_crop_letterbox_refuses_what_it_cannot_take():
         crop_letterbox_views(frames, idx.cpu(), tls, 32, 48)
     with pytest.raises(ValueError, match="contiguous"):
         crop_letterbox_views(frames[:, :, :48], idx, tls, 32, 48)
+
+
+def _guarded_chunk(c: int) -> torch.Tensor:
+    """A (c, H, W) uint8 chunk on the card whose last byte is the last byte
+    of mapped device memory: the page after it is reserved and never mapped,
+    so any read past the chunk's end is an illegal address.  Mapped with
+    cuMemAddressReserve, cuMemCreate and cuMemMap; the process keeps the
+    mapping until it exits."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    torch.zeros(1, device="cuda")  # makes the primary context current
+    dev = torch.cuda.current_device()
+
+    class Location(ctypes.Structure):
+        _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+    class Prop(ctypes.Structure):  # CUmemAllocationProp
+        _fields_ = [
+            ("type", ctypes.c_int), ("handle_types", ctypes.c_int), ("location", Location),
+            ("win32_meta", ctypes.c_void_p), ("compression", ctypes.c_ubyte), ("rdma", ctypes.c_ubyte),
+            ("usage", ctypes.c_ushort), ("reserved", ctypes.c_ubyte * 4),
+        ]
+
+    class Access(ctypes.Structure):  # CUmemAccessDesc
+        _fields_ = [("location", Location), ("flags", ctypes.c_int)]
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    device_loc = Location(1, dev)  # CU_MEM_LOCATION_TYPE_DEVICE
+    prop = Prop(type=1, location=device_loc)  # CU_MEM_ALLOCATION_TYPE_PINNED
+    gran = ctypes.c_size_t()
+    check(cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0), "cuMemGetAllocationGranularity")
+    nbytes = c * H * W
+    mapped = -(-nbytes // gran.value) * gran.value
+    va, handle = ctypes.c_uint64(), ctypes.c_uint64()
+    check(cu.cuMemAddressReserve(ctypes.byref(va), ctypes.c_size_t(mapped + gran.value), ctypes.c_size_t(0),
+                                 ctypes.c_uint64(0), ctypes.c_uint64(0)), "cuMemAddressReserve")
+    check(cu.cuMemCreate(ctypes.byref(handle), ctypes.c_size_t(mapped), ctypes.byref(prop), ctypes.c_uint64(0)),
+          "cuMemCreate")
+    check(cu.cuMemMap(va, ctypes.c_size_t(mapped), ctypes.c_size_t(0), handle, ctypes.c_uint64(0)), "cuMemMap")
+    access = Access(device_loc, 3)  # CU_MEM_ACCESS_FLAGS_PROT_READWRITE
+    check(cu.cuMemSetAccess(va, ctypes.c_size_t(mapped), ctypes.byref(access), ctypes.c_size_t(1)), "cuMemSetAccess")
+
+    chunk = _uint8_at(va.value + mapped - nbytes, (c, H, W))
+    assert chunk.data_ptr() == va.value + mapped - nbytes
+    return chunk
+
+
+def _uint8_at(ptr: int, shape: tuple) -> torch.Tensor:
+    """A uint8 tensor over device memory at ``ptr``, not copied."""
+    interface = {"shape": shape, "typestr": "|u1", "data": (ptr, False), "version": 3, "strides": None}
+    return torch.as_tensor(type("DeviceBytes", (), {"__cuda_array_interface__": interface})(), device="cuda")
+
+
+def _guard_run(mode: str) -> int:
+    """Child process of the test below: crops of each checked shape and both
+    output types on the guarded chunk, the last view at (W - cam, H - cam)
+    of its last frame, against the plain version on a copy.  ``control``
+    hands the kernel a chunk that starts 16 bytes later, so that its last 16
+    bytes lie past the mapping: that run must fault."""
+    c = 4
+    chunk = _guarded_chunk(c)
+    rng = np.random.default_rng(1)
+    chunk.copy_(torch.from_numpy(rng.integers(0, 256, (c, H, W), dtype=np.uint8)))
+    copy = chunk.clone()
+    if mode == "control":
+        chunk = _uint8_at(chunk.data_ptr() + 16, (c, H, W))
+    for cam, imgsz in [(360, 416), (48, 64), (480, 416)]:
+        for dtype, atol in DTYPES:
+            idx, tls = _views(rng, 16, cam, c=c)
+            got = crop_letterbox_views(chunk, idx, tls, cam, imgsz, out_dtype=dtype)
+            torch.cuda.synchronize()
+            want = crop_letterbox_reference(copy, idx, tls, cam, imgsz, out_dtype=dtype)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= atol:
+                raise AssertionError(f"{cam}->{imgsz} {dtype}: max error {err}")
+    print("guarded chunk: no fault, outputs match")
+    return 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["kernel", "control"])
+def test_crop_letterbox_reads_nothing_past_the_chunk(mode):
+    """The kernel on a chunk whose end is the end of mapped memory does not
+    fault, while the control, the kernel told that the chunk reaches 16 bytes
+    further, does.  Run in a child process: a fault ends the process's CUDA
+    context."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, __file__, mode], env=env, capture_output=True, text=True, timeout=600)
+    if mode == "kernel":
+        assert proc.returncode == 0, proc.stderr[-3000:]
+    else:
+        assert proc.returncode != 0 and "illegal memory access" in proc.stderr, (proc.returncode, proc.stderr[-3000:])
+
+
+if __name__ == "__main__":
+    sys.exit(_guard_run(sys.argv[1]))

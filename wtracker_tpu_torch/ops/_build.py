@@ -28,7 +28,7 @@ _I = ctypes.c_int
 # C signature of each kernel's entry point: (argtypes, restype).  Pointers and
 # the stream are c_void_p: the default int conversion would cut them to 32 bits.
 SIGNATURES = {
-    "crop_letterbox": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "crop_letterbox": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 NVCC_FLAGS = [
