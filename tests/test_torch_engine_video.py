@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 from tests.test_torch_yolov8 import _decisive_class_head
 from wtracker_tpu.models.resmlp import make_rmlp_predictor as jax_make_predictor
 from wtracker_tpu.models.yolov8 import YoloV8 as JaxYoloV8
+from wtracker_tpu.models.yolov8 import fuse_conv_bn as jax_fuse_conv_bn
 from wtracker_tpu.neural.config import IOConfig as JaxIOConfig
 from wtracker_tpu.sim import engine as jax_engine
 from wtracker_tpu.sim.config import ExperimentConfig as JaxExperimentConfig
@@ -29,11 +30,11 @@ from wtracker_tpu.sim.engine_video import run_video_live as jax_run_video_live
 from wtracker_tpu.sim.synthetic import make_trajectory as jax_make_trajectory
 from wtracker_tpu_torch.convert import resmlp_from_flax, yolov8_from_flax
 from wtracker_tpu_torch.models.resmlp import RMLP, WormPredictor
-from wtracker_tpu_torch.models.yolov8 import YoloV8
+from wtracker_tpu_torch.models.yolov8 import YoloV8, fuse_conv_bn
 from wtracker_tpu_torch.neural.config import IOConfig
-from wtracker_tpu_torch.sim import engine
+from wtracker_tpu_torch.sim import engine, engine_video
 from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
-from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, _resolve_detect
 from wtracker_tpu_torch.sim.engine_video import run_video_live
 from wtracker_tpu_torch.sim.synthetic import make_trajectory
 
@@ -96,12 +97,12 @@ def jax_logs(video, models):
     return np.asarray(logs.positions), np.asarray(logs.worm_bboxes)
 
 
-def _port_run(video, models, cycles_per_chunk, **cfg_kw):
+def _port_run(video, models, cycles_per_chunk, model=None, **cfg_kw):
     _, (tmodel, tpred) = models
     params = engine.EngineParams.from_timing(_timing(ExperimentConfig, TimingConfig), (H, W))
     cfg = LiveLoopConfig(**LOOP_KW, **cfg_kw)
     logs = run_video_live(
-        params, cfg, lambda s, n: video[s : s + n], F, tmodel, tpred, INIT,
+        params, cfg, lambda s, n: video[s : s + n], F, model or tmodel, tpred, INIT,
         cycles_per_chunk=cycles_per_chunk, device="cpu",
     )
     return logs.positions.numpy(), logs.worm_bboxes.numpy()
@@ -146,7 +147,32 @@ def test_video_loop_refuses_unported_options(video, models):
     source = lambda s, n: video[s : s + n]
     with pytest.raises(NotImplementedError, match="ROI"):
         run_video_live(params, LiveLoopConfig(**LOOP_KW), source, F, tmodel, tpred, INIT, roi_window=168, device="cpu")
-    with pytest.raises(NotImplementedError, match="folded-stem"):
+    # the fold needs BN-fused weights, as in the JAX package
+    with pytest.raises(ValueError, match="fold_stem=True needs BN-fused"):
         run_video_live(params, LiveLoopConfig(**LOOP_KW, fold_stem=True), source, F, tmodel, tpred, INIT, device="cpu")
     with pytest.raises(ValueError, match="detector is on"):
         run_video_live(params, LiveLoopConfig(**LOOP_KW), source, F, tmodel, tpred, INIT, device="meta")
+
+
+def test_video_loop_folded_stem_matches_jax(video, models, monkeypatch):
+    """BN-fused weights at the padding-free 108 -> 64 geometry: the default
+    (``fold_stem=None``) folds the stem in both packages, and the port's loop
+    then leaves the kernel branch off even when it is asked for."""
+    (jmodel, jvars, jpred), (tmodel, tpred) = models
+    params_j = jax_engine.EngineParams.from_timing(_timing(JaxExperimentConfig, JaxTimingConfig), (H, W))
+    with pytest.MonkeyPatch.context() as mp:  # the JAX loop must fold, so its Pallas branch stays off
+        mp.setattr("wtracker_tpu.ops.pallas_preproc.crop_letterbox_views", None)
+        want = jax_run_video_live(
+            params_j, JaxLiveLoopConfig(**LOOP_KW, use_pallas_preproc=True), lambda s, n: video[s : s + n], F,
+            JaxYoloV8(nc=1, scale="n", fused=True), jax_fuse_conv_bn(jvars), jpred, INIT, cycles_per_chunk=16,
+        )
+
+    calls = []
+    monkeypatch.setattr(engine_video, "crop_letterbox_views", lambda *a, **k: calls.append(a))
+    fused = fuse_conv_bn(tmodel)
+    pos, boxes = _port_run(video, models, 16, model=fused, use_fused_preproc=True)
+    assert not calls
+    assert _resolve_detect(None, LiveLoopConfig(**LOOP_KW), fused, (108, 108)).folds_preproc
+    assert np.isfinite(boxes).all()
+    np.testing.assert_array_equal(pos, np.asarray(want.positions))
+    np.testing.assert_allclose(boxes, np.asarray(want.worm_bboxes), atol=1e-3)

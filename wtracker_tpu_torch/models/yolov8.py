@@ -11,7 +11,10 @@ Inside :class:`YoloV8` the tensors are NCHW (a permuted view, no copy).
 The compute dtype is the dtype of the module's parameters: cast the module
 with ``.to(torch.bfloat16)`` for the bf16 detector (the JAX package keeps
 float32 parameters and casts them to its ``compute_dtype`` at each layer,
-which gives the same values).
+which gives the same values).  The one place that needs the float32 values
+of a cast model is the folded stem, which sums the stem kernel over its input
+channels before rounding: :class:`YoloV8` keeps a float32 copy of ``b0``'s
+weight and bias across casts (:meth:`YoloV8.stem_float32`).
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ from __future__ import annotations
 import copy
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from functools import lru_cache
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wtracker_tpu_torch.ops.image import letterbox
+from wtracker_tpu_torch.ops.image import _interp_matrix, letterbox
 from wtracker_tpu_torch.utils.device import resolve_device
 
 # scale presets: (depth_multiple, width_multiple, max_channels)
@@ -147,6 +151,12 @@ class DetectHead(nn.Module):
         return box_out, cls_out
 
 
+def _drop_stem_copy(module: "YoloV8", _incompatible_keys) -> None:
+    """Weights loaded into a cast model would leave its float32 stem copy
+    stale: drop it, so :meth:`YoloV8.stem_float32` raises instead."""
+    module._stem_f32 = None
+
+
 class YoloV8(nn.Module):
     """Full detector graph: NHWC ``(B, H, W, 3)`` images → per-level NHWC
     ``(box_logits, cls_logits)``."""
@@ -182,14 +192,59 @@ class YoloV8(nn.Module):
         self.n19 = ConvBN(c512, c512, 3, 2, **kw)
         self.n21 = C2f(c512 + c1024, c1024, rep(3), False, **kw)
         self.head = DetectHead((c256, c512, c1024), nc, reg_max, **kw)
+        # float32 copy of b0's parameters and buffers while they are in
+        # another dtype (see _apply); None while they are float32
+        self._stem_f32: dict | None = None
+        self.register_load_state_dict_post_hook(_drop_stem_copy)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.b1.conv.weight.dtype
 
-    def forward(self, x: torch.Tensor):
+    def _apply(self, fn, recurse=True):
+        """Every ``.to``/``.cuda``/``.float`` goes through here: keep b0's
+        float32 values when the cast leaves float32, move them with the
+        module otherwise, and put them back when a cast returns to float32."""
+        was_f32 = self.b0.conv.weight.dtype == torch.float32
+        keep = {k: v.detach().clone() for k, v in self.b0.state_dict().items()} if was_f32 else self._stem_f32
+        out = super()._apply(fn, recurse)
+        w = self.b0.conv.weight
+        if w.dtype == torch.float32:
+            if keep is not None and not was_f32:
+                self.b0.load_state_dict(keep)
+            self._stem_f32 = None
+        else:
+            self._stem_f32 = None if keep is None else {k: v.to(w.device) for k, v in keep.items()}
+        return out
+
+    def stem_state_float32(self) -> dict:
+        """``b0``'s state dict (``conv.weight``, ``bn.running_var``, ...) in
+        float32: the model's own values while it is float32, else the copy
+        kept when it was cast (the JAX package's parameters stay float32
+        whatever its compute dtype)."""
+        if self.b0.conv.weight.dtype == torch.float32:
+            return self.b0.state_dict()
+        if self._stem_f32 is None:
+            raise ValueError(
+                f"the stem's float32 values are unknown: the model was cast to {self.b0.conv.weight.dtype} "
+                "and then loaded; load the weights in float32 before the cast"
+            )
+        return self._stem_f32
+
+    def stem_float32(self) -> dict:
+        """``{"weight": (out, 3, 3, 3), "bias": (out,) or None}`` of ``b0``'s
+        conv in float32 (:meth:`stem_state_float32`)."""
+        state = self.stem_state_float32()
+        return {"weight": state["conv.weight"], "bias": state.get("conv.bias")}
+
+    def forward(self, x: torch.Tensor, external_stem: bool = False):
+        """``external_stem=True``: ``x`` is the NHWC output of ``b0`` (the
+        folded stem, :func:`make_folded_detect`), and the graph starts at
+        ``b1``; the JAX package's ``YoloV8(external_stem=True)``."""
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        x = self.b2(self.b1(self.b0(x)))
+        if not external_stem:
+            x = self.b0(x)
+        x = self.b2(self.b1(x))
         p3 = self.b4(self.b3(x))
         p4 = self.b6(self.b5(p3))
         p5 = self.b9(self.b8(self.b7(p4)))
@@ -217,10 +272,14 @@ def fuse_conv_bn(model: YoloV8) -> YoloV8:
 
     Returns a new ``fused=True`` model on the same device and dtype:
     ``W' = W · s/√(v+ε)``, ``b' = β − μ·s/√(v+ε)``, computed in float32 in the
-    JAX package's order.
+    JAX package's order.  ``b0`` of a cast model is fused from its kept
+    float32 values (:meth:`YoloV8.stem_state_float32`).
     """
     fused = YoloV8(model.nc, model.scale, model.reg_max, fused=True)
     src = dict(model.named_modules())
+    if model.b0.conv.weight.dtype != torch.float32:  # b0 from its float32 copy
+        src["b0"] = copy.deepcopy(model.b0).float()
+        src["b0"].load_state_dict(model.stem_state_float32())
     state = {}
     for name, mod in fused.named_modules():
         if isinstance(mod, ConvBN):
@@ -329,6 +388,15 @@ def top1_source_boxes(
     return torch.where((best_score >= conf)[:, None], out, torch.nan)
 
 
+def stem_weff(stem_weight: torch.Tensor) -> torch.Tensor:
+    """Channel-summed (9, out_ch) float32 stem kernel for the folded-stem
+    matmul chain, taps in ``p·3 + q`` order (grayscale sources broadcast to 3
+    identical channels, so the kernel's input-channel axis sums out).
+    ``stem_weight`` is the (out, 3, 3, 3) conv weight in float32: the sum is
+    taken before any rounding to the compute dtype."""
+    return stem_weight.float().sum(dim=1).permute(1, 2, 0).reshape(9, -1)
+
+
 # ---------------------------------------------------------------------------
 # preprocessing (letterbox) and the end-to-end detector
 # ---------------------------------------------------------------------------
@@ -370,6 +438,126 @@ def detect_top1(model: YoloV8, frames: torch.Tensor, imgsz: tuple[int, int], con
     when the best score is below ``conf``."""
     x, geometry = preprocess_batch(frames, imgsz, dtype=model.compute_dtype)
     return detect_top1_preprocessed(model, x, geometry, imgsz, conf)
+
+
+# ---------------------------------------------------------------------------
+# folded stem: b0 computed as part of the letterbox matmuls
+# ---------------------------------------------------------------------------
+
+
+class FoldedStem(NamedTuple):
+    """Geometry part of the letterbox + stem-conv fusion (weight-free).
+
+    For grayscale sources the letterbox is two constant matmuls
+    ``img = Ah @ V @ Awᵀ`` (:mod:`wtracker_tpu_torch.ops.image`), and each of
+    the nine taps of the 3×3 stride-2 stem conv is a row/column-shifted
+    variant of the same product, so the stem output is exactly
+
+        z[b, y, x, oc] = Σ_{p,q} Weff[p·3+q, oc] · (Ah[2y+p-1] @ V[b] @ Aw[2x+q-1]ᵀ)
+
+    — twelve matmuls plus a (9 → out_ch) projection, with no (B, h, w, 3)
+    letterboxed tensor and no 3-channel convolution.  Only the interpolation
+    matrices live here; ``Weff`` is computed from the model at each call.
+    """
+
+    by: torch.Tensor  # (3, h/2, src_h) row matrices, 1/255 normalize folded in
+    bx: torch.Tensor  # (3, w/2, src_w) column matrices
+    geometry: tuple  # (scale, pad_top, pad_left) of the letterbox
+
+
+def _shifted(a: np.ndarray, tap: int, n_out: int) -> np.ndarray:
+    """Rows ``2i + tap - 1`` of ``a`` (stride 2, pad 1), zero outside."""
+    m = np.zeros((n_out, a.shape[1]), np.float32)
+    r = 2 * np.arange(n_out) + tap - 1
+    ok = (r >= 0) & (r < a.shape[0])
+    m[ok] = a[r[ok]]
+    return m
+
+
+@lru_cache(maxsize=16)
+def _fold_stem_matrices(src_hw, imgsz, dtype, device):
+    scale, new_h, new_w, pad_top, pad_left = letterbox_params(src_hw, imgsz)
+    if (new_h, new_w) != imgsz or pad_top or pad_left or new_h % 2 or new_w % 2:
+        return None
+    ah = _interp_matrix(src_hw[0], new_h) * np.float32(1.0 / 255.0)
+    aw = _interp_matrix(src_hw[1], new_w)
+    by = np.stack([_shifted(ah, t, new_h // 2) for t in range(3)])
+    bx = np.stack([_shifted(aw, t, new_w // 2) for t in range(3)])
+    by, bx = (torch.tensor(m, dtype=torch.float32, device=device).to(dtype) for m in (by, bx))
+    return FoldedStem(by, bx, (scale, pad_top, pad_left))
+
+
+def fold_stem_matrices(
+    src_hw: tuple[int, int],
+    imgsz: tuple[int, int],
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> FoldedStem | None:
+    """The :class:`FoldedStem` matrices on ``device``, built in float32 and
+    rounded once to ``dtype``, or ``None`` when the letterbox pads (source
+    and target aspect ratios differ) or the target size is odd.  Cached per
+    geometry, dtype and device: callers must not modify the tensors."""
+    return _fold_stem_matrices(tuple(src_hw), tuple(imgsz), dtype, resolve_device(device))
+
+
+def stem_apply_weff(folded: FoldedStem, weff: torch.Tensor, bias: torch.Tensor, views: torch.Tensor) -> torch.Tensor:
+    """Folded-stem matmul chain on a channel-summed (9, out_ch) float32
+    kernel: (B, H, W[, 1]) views → (B, h/2, w/2, out_ch) in the matrices'
+    dtype.
+
+    As in the JAX package, the views, ``weff`` and both intermediate
+    products are rounded to the compute dtype and the bias is added in
+    float32.  The products run in float32 on the rounded values (exact
+    products, float32 sums: the JAX package's einsums with
+    ``preferred_element_type=float32``).
+    """
+    if views.ndim == 4:  # tolerate a trailing singleton channel
+        views = views[..., 0]
+    dt = folded.by.dtype
+    v = views.to(dt).float()
+    u = torch.einsum("pyh,bhw->pbyw", folded.by.float(), v).to(dt).float()
+    t = torch.einsum("pbyw,qxw->byxpq", u, folded.bx.float()).to(dt).float()
+    b, h, w = t.shape[:3]
+    z = torch.matmul(t.reshape(b, h, w, 9), weff.to(dt).float())
+    return _silu((z + bias.float()).to(dt))
+
+
+def stem_apply(folded: FoldedStem, stem_params: dict, views: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) grayscale views → (B, h/2, w/2, out_ch) stem output.
+    ``stem_params`` is the BN-fused ``b0`` conv in float32,
+    ``{"weight", "bias"}`` (:meth:`YoloV8.stem_float32`)."""
+    return stem_apply_weff(folded, stem_weff(stem_params["weight"]), stem_params["bias"], views)
+
+
+def can_fold_stem(model: YoloV8) -> bool:
+    """BN-fused model with the standard 3×3×3 stem kernel?"""
+    conv = model.b0.conv
+    return model.fused and conv.bias is not None and tuple(conv.weight.shape[1:]) == (3, 3, 3)
+
+
+def make_folded_detect(model: YoloV8, src_hw: tuple[int, int], imgsz: tuple[int, int]):
+    """Engine-hook detect function running the folded-stem graph, or
+    ``None`` where the geometry pads.
+
+    Returns ``detect(model, views, imgsz, conf) -> (B, 4)`` xywh (the
+    engines' ``detect_fn`` contract); its ``imgsz`` argument is ignored in
+    favour of the folded geometry, and the model argument supplies the
+    weights.  The matrices are built on ``model``'s device in its compute
+    dtype.  Requires a BN-fused model (check with :func:`can_fold_stem`).
+    ``detect.folds_preproc`` is ``True``: the engines hand it raw views, not
+    the crop+letterbox kernel's output.
+    """
+    folded = fold_stem_matrices(src_hw, imgsz, dtype=model.compute_dtype, device=model.b1.conv.weight.device)
+    if folded is None:
+        return None
+
+    def detect(model, views, _imgsz, conf):
+        z = stem_apply(folded, model.stem_float32(), views)
+        box_logits, cls_logits = model(z, external_stem=True)
+        return top1_source_boxes(box_logits, cls_logits, imgsz, model.reg_max, folded.geometry, conf)
+
+    detect.folds_preproc = True
+    return detect
 
 
 @dataclass

@@ -16,8 +16,13 @@ Reference semantics kept exactly:
   ``jnp.round``), carrying the residual into the next step;
 * the final (possibly partial) cycle is never logged.
 
-The playback controllers of the JAX module (csv, optimal, polyfit, mlp) and
-its multi-stream runners are not ported yet.
+:func:`run_engine_streams` runs S independent streams: a controller that owns
+the stream axis (``batched_controller``, ``delayed_log``) sees stacked
+``(S, ...)`` inputs; any other controller steps each stream over its slice of
+the stacked state in turn, which gives what the JAX package's ``vmap`` gives.
+
+The playback controllers of the JAX module (csv, optimal, polyfit, mlp) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -76,8 +81,21 @@ class EngineParams:
         return (num_frames - 1) // self.cycle_n
 
 
+def headless_frame_shape(timing: TimingConfig, orig_resolution_hw: tuple[int, int]) -> tuple[int, int]:
+    """Frame bounds of the simulator's headless (no-video) mode.
+
+    The host simulator builds its dummy reader at the padded resolution
+    ``orig + camera//2·2`` — the reference zips the (w, h) camera padding
+    onto the (h, w) resolution (simulator.py:41-43), benign for square
+    cameras; reproduced verbatim for parity.
+    """
+    h, w = orig_resolution_hw
+    return (h + timing.camera_size_px[0] // 2 * 2, w + timing.camera_size_px[1] // 2 * 2)
+
+
 class DecideCtx(NamedTuple):
-    """Everything a controller may consult at decision time."""
+    """Everything a controller may consult at decision time (one stream's,
+    or stacked ``(S, ...)`` for a controller that owns the stream axis)."""
 
     cycle: int  # current cycle index (host integer: the loop runs on the host)
     position: torch.Tensor  # (2,) int32 — platform center during imaging
@@ -115,34 +133,36 @@ def _clamp(pos: torch.Tensor, params: EngineParams) -> torch.Tensor:
     )
 
 
+def _move(params: EngineParams, pos: torch.Tensor, dxdy: torch.Tensor, clamp) -> tuple[torch.Tensor, torch.Tensor]:
+    """The motor over one cycle, for (2,) or stacked (S, 2) positions:
+    residual-carrying integer rounding in float64 over the (small) moving
+    phase, with ``clamp`` after every step.  Returns the final position and
+    the cycle's per-frame positions (..., cycle_n, 2)."""
+    d = dxdy.to(torch.float64)
+    resid = torch.zeros_like(d)
+    moving_positions = []
+    p = pos
+    for w in map(float, params.motor_weights):
+        moving_positions.append(p)  # logged before this step's move
+        raw = w * d + resid
+        s = torch.round(raw)
+        resid = raw - s
+        p = clamp(p + s.to(pos.dtype))
+    imaging = pos.unsqueeze(-2).expand(*pos.shape[:-1], params.imaging_n, 2)
+    return p, torch.cat([imaging, torch.stack(moving_positions, dim=-2)], dim=-2)
+
+
 def make_cycle_step(params: EngineParams, controller: CycleController):
     """Build the step simulating one full cycle:
     ``cycle_step(consts, (pos, prev_positions, state), cycle) -> (carry, CycleLog)``.
     """
-    weights = tuple(float(w) for w in params.motor_weights)
 
     def cycle_step(consts, carry, cycle_idx: int):
         pos, prev_positions, state = carry
 
         ctx = DecideCtx(cycle=cycle_idx, position=pos, prev_positions=prev_positions)
         state, dxdy = controller.decide(consts, state, ctx)
-
-        # Motor: residual-carrying integer rounding in float64 over the (small)
-        # moving phase, with the per-step position clamp.
-        d = dxdy.to(torch.float64)
-        resid = torch.zeros_like(d)
-        moving_positions = []
-        p = pos
-        for w in weights:
-            moving_positions.append(p)  # logged before this step's move
-            raw = w * d + resid
-            s = torch.round(raw)
-            resid = raw - s
-            p = _clamp(p + s.to(pos.dtype), params)
-
-        positions = torch.cat(
-            [pos.expand(params.imaging_n, 2), torch.stack(moving_positions, dim=0)], dim=0
-        )
+        p, positions = _move(params, pos, dxdy, lambda q: _clamp(q, params))
         worm_bboxes = controller.predict_all(consts, state, cycle_idx, positions)
         return (p, positions, state), CycleLog(positions=positions, worm_bboxes=worm_bboxes)
 
@@ -193,6 +213,176 @@ def run_engine(
             bboxes.append(log.worm_bboxes)
     logs = CycleLog(positions=torch.stack(positions), worm_bboxes=torch.stack(bboxes))
     return (logs, carry) if return_carry else logs
+
+
+# ---------------------------------------------------------------------------
+# multi-stream runner
+# ---------------------------------------------------------------------------
+
+
+def _rebuild(like, items: list):
+    """A tuple, named tuple or list of ``like``'s type holding ``items``."""
+    return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a state made of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return _rebuild(tree, [_tree_map(fn, v) for v in tree])
+    return fn(tree)
+
+
+def _tree_stack(trees: list):
+    """Stack per-stream states (same structure) along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return _rebuild(first, [_tree_stack(list(parts)) for parts in zip(*trees)])
+    return torch.stack(trees)
+
+
+def _has_stream_bounds(controller: CycleController) -> bool:
+    """Heterogeneous-geometry sweeps put per-stream (w, h) clamp bounds into
+    ``consts["stream_bounds"]`` — each stream then clamps to its own arena."""
+    return isinstance(controller.consts, dict) and "stream_bounds" in controller.consts
+
+
+def _make_stream_motor(params: EngineParams):
+    """Per-stream motor: residual-carrying integer rounding with a per-stream
+    (w, h) clamp bound, over stacked (S, 2) positions, moves and bounds.
+    Returns ``motor(pos, dxdy, bound) -> (final (S, 2), positions (S, cycle_n, 2))``."""
+
+    def motor(pos, dxdy, bound):
+        return _move(params, pos, dxdy, lambda q: torch.minimum(q.clamp_min(0), bound - 1))
+
+    return motor
+
+
+def _stream_bounds_of(params: EngineParams, controller: CycleController, consts, pos: torch.Tensor) -> torch.Tensor:
+    if _has_stream_bounds(controller):
+        return consts["stream_bounds"]
+    common = torch.tensor([params.frame_w, params.frame_h], dtype=pos.dtype, device=pos.device)
+    return common.expand(pos.shape)
+
+
+def make_batched_cycle_step(params: EngineParams, controller: CycleController):
+    """Cycle step where the *controller* owns the stream axis.
+
+    ``decide``/``predict_all`` receive stacked (S, ...) inputs and return
+    stacked outputs, so they can form flat S·frames device batches; the
+    motor and clamp run over the stacked positions.
+    """
+    motor = _make_stream_motor(params)
+
+    def cycle_step(consts, carry, cycle_idx: int):
+        pos, prev_positions, state = carry
+        ctx = DecideCtx(cycle=cycle_idx, position=pos, prev_positions=prev_positions)
+        state, dxdy = controller.decide(consts, state, ctx)
+        p, positions = motor(pos, dxdy, _stream_bounds_of(params, controller, consts, pos))
+        worm_bboxes = controller.predict_all(consts, state, cycle_idx, positions)
+        return (p, positions, state), CycleLog(positions=positions, worm_bboxes=worm_bboxes)
+
+    return cycle_step
+
+
+def make_delayed_cycle_step(params: EngineParams, controller: CycleController):
+    """Batched cycle step with a one-cycle log delay.
+
+    For controllers that fold the *previous* cycle's trailing work (e.g.
+    moving-phase detection) into the current decision batch — one detector
+    batch per cycle instead of two.  ``predict_all(consts, state, cycle,
+    prev_positions)`` must return the rows of cycle ``cycle − 1``; the step
+    emits them with the previous cycle's positions.  The runner runs one
+    extra cycle and drops the first (cycle −1) output row.
+    """
+    motor = _make_stream_motor(params)
+
+    def cycle_step(consts, carry, cycle_idx: int):
+        pos, prev_positions, state = carry
+        ctx = DecideCtx(cycle=cycle_idx, position=pos, prev_positions=prev_positions)
+        state, dxdy = controller.decide(consts, state, ctx)
+        prev_rows = controller.predict_all(consts, state, cycle_idx, prev_positions)
+        p, positions = motor(pos, dxdy, _stream_bounds_of(params, controller, consts, pos))
+        return (p, positions, state), CycleLog(positions=prev_positions, worm_bboxes=prev_rows)
+
+    return cycle_step
+
+
+def _restack(stacked, slices: list, outs: list):
+    """Stack per-stream outputs; a leaf that every stream returned as the
+    very slice it was given (a trajectory table) stays the stacked tensor,
+    uncopied."""
+    if isinstance(stacked, dict):
+        return {k: _restack(stacked[k], [s[k] for s in slices], [o[k] for o in outs]) for k in stacked}
+    if isinstance(stacked, (tuple, list)):
+        return _rebuild(stacked, [_restack(*t) for t in zip(stacked, zip(*slices), zip(*outs))])
+    if all(o is s for o, s in zip(outs, slices)):
+        return stacked
+    return torch.stack(outs)
+
+
+def _make_per_stream_step(params: EngineParams, controller: CycleController):
+    """Cycle step of a single-stream controller over stacked streams: each
+    stream steps over its slice of the carry in turn (the JAX package
+    ``vmap``s the single-stream step)."""
+    step = make_cycle_step(params, controller)
+
+    def cycle_step(consts, carry, cycle_idx: int):
+        slices = [_tree_map(lambda x: x[s], carry) for s in range(carry[0].shape[0])]
+        outs = [step(consts, c, cycle_idx) for c in slices]
+        return _restack(carry, slices, [c for c, _ in outs]), _tree_stack([log for _, log in outs])
+
+    return cycle_step
+
+
+def run_engine_streams(
+    params: EngineParams,
+    controller: CycleController,
+    init_positions,
+    n_cycles: int,
+    batched_controller: bool = False,
+    delayed_log: bool = False,
+    device: str | torch.device = "cuda",
+) -> CycleLog:
+    """Run S independent worm streams.
+
+    ``controller.init()`` must return per-stream state (leading axis S);
+    stream-specific data (trajectories, detection rings) lives in that state.
+    With ``batched_controller=True`` the controller's decide/predict_all
+    receive the full (S, ...) batch themselves; with ``delayed_log=True`` the
+    controller logs with a one-cycle delay (see :func:`make_delayed_cycle_step`).
+    Returns logs with leading axes ``(n_cycles, S, cycle_n)``, on the
+    controller's device.
+    """
+    dev = resolve_device(device)
+    if delayed_log:
+        step = make_delayed_cycle_step(params, controller)
+    elif batched_controller:
+        step = make_batched_cycle_step(params, controller)
+    else:
+        step = _make_per_stream_step(params, controller)
+
+    init = torch.as_tensor(np.asarray(init_positions), dtype=torch.int32).to(dev)
+    if _has_stream_bounds(controller):
+        pos0 = torch.minimum(init.clamp_min(0), controller.consts["stream_bounds"].to(torch.int32) - 1)
+    else:
+        pos0 = _clamp(init, params)
+    prev0 = pos0[:, None, :].expand(pos0.shape[0], params.cycle_n, 2).clone()
+    carry = (pos0, prev0, controller.init())
+
+    cycles = range(n_cycles + 1) if delayed_log else range(n_cycles)
+    positions, bboxes = [], []
+    with torch.inference_mode():
+        for cycle in cycles:
+            carry, log = step(controller.consts, carry, cycle)
+            positions.append(log.positions)
+            bboxes.append(log.worm_bboxes)
+    if delayed_log:  # the first row is cycle −1's
+        positions, bboxes = positions[1:], bboxes[1:]
+    return CycleLog(positions=torch.stack(positions), worm_bboxes=torch.stack(bboxes))
 
 
 # ---------------------------------------------------------------------------

@@ -42,12 +42,13 @@ from wtracker_tpu_torch.sim.engine import (
     init_carry,
     run_engine,
 )
-from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, _batched_move_from_history, _resolve_detect
+from wtracker_tpu_torch.sim.engine_live import (
+    LiveLoopConfig,
+    _batched_move_from_history,
+    _check_models_on,
+    _resolve_detect,
+)
 from wtracker_tpu_torch.utils.device import resolve_device
-
-
-def _model_device(module: torch.nn.Module) -> torch.device:
-    return next(module.parameters()).device
 
 
 def video_live_controller(
@@ -71,12 +72,12 @@ def video_live_controller(
     ``detect_fn(model, views, imgsz, conf)`` /
     ``detect_preprocessed_fn(model, x, geometry, imgsz, conf)`` swap the
     detector implementation.  When only ``detect_fn`` is given, the fused
-    preprocessing branch is off (it needs the preprocessed-input form).
+    preprocessing branch is off (it needs the preprocessed-input form); so it
+    is for a folded-stem detector (``config.fold_stem``), which takes the raw
+    views.
     """
     dev = resolve_device(device)
-    for name, module in (("detector", detector_model), ("predictor", predictor.model)):
-        if _model_device(module) != dev:
-            raise ValueError(f"{name} is on {_model_device(module)}, expected {dev}")
+    _check_models_on(dev, detector_model, predictor)
 
     R = config.ring_size
     L = params.cycle_n
@@ -91,13 +92,17 @@ def video_live_controller(
     view_hw = (params.cam_h, params.cam_w)
     _, H, W = chunk_shape
 
-    _detect = _resolve_detect(detect_fn, config)
+    _detect = _resolve_detect(detect_fn, config, detector_model, view_hw)
     square = params.cam_w == params.cam_h and config.imgsz[0] == config.imgsz[1]
     if config.use_fused_preproc is None:  # auto: the kernel runs on the card
         use_fused = square and dev.type == "cuda"
     else:
         use_fused = config.use_fused_preproc and square
-    if detect_fn is not None and detect_preprocessed_fn is None:
+    if getattr(_detect, "folds_preproc", False):
+        # a folded-stem detector letterboxes inside its stem matmuls: the
+        # kernel branch would route around the fold
+        use_fused = False
+    elif detect_fn is not None and detect_preprocessed_fn is None:
         use_fused = False  # custom detector without a preprocessed-input form
     _detect_pre = detect_preprocessed_fn or detect_top1_preprocessed
     scale, _, _, pad_top, pad_left = letterbox_params(view_hw, config.imgsz)
