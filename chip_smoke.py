@@ -38,10 +38,26 @@ live loop over many streams, at full width:
    runs, held to the trained-tracking bar; and in float32 at S=4 the folded
    and standard stems give the same tracks;
 10. times the standalone 40 ms decision (``make_decision_step``) at S=1 and
-    S=4, 200 decisions each, host to synchronise and by CUDA events.
+    S=4, 200 decisions each, host to synchronise and by CUDA events;
+11. runs ROI streaming (``roi_window``) over the same recording at 480 and
+    364 px (4 px of slack: chunks replay), through the kernel in bfloat16
+    and float32 and at the default ``fold_stem=None``: each run bit-identical
+    to the whole-frame loop of steps 5, 6 and 8, the kernel launched 2 times
+    a cycle plus 2 per replayed cycle; then ROI and whole-frame cycles/s in
+    turns;
+12. writes the recording's first 16 cycles as 8-bit BMPs (numpy writer: the
+    card's host need not have OpenCV) into a temporary directory, reads them back
+    with the port's ``FrameReader`` byte for byte, and runs ``python -m
+    wtracker_tpu_torch.workflows.track_video`` on them with the trained
+    checkpoint, whole-frame and with ``--roi 480``: the two ``bboxes.csv``
+    files must be the same text and hold the tracking bar;
+13. runs ``run_video_live_sharded`` over 4 seeded recordings at full width
+    (8 cycles in chunks of 4), each stream held against its own
+    ``run_video_live`` (float32: positions exact, boxes to 1e-2 px;
+    bfloat16: within 2 px), and its stream-cycles/s.
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 10 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 13 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -52,6 +68,7 @@ from the checkout's root.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -87,6 +104,16 @@ SYNTH_CYCLES = 12
 SYNTH_TIMED_RUNS = 3
 DECISION_WARMUP = 10
 DECISION_REPS = 200
+# ROI streaming: windows of 480 px (60 px of slack around the camera) and of
+# 364 px (4 px: the speculation misses and chunks replay; a 364-byte row is
+# not a multiple of 16 bytes)
+ROI_WINDOWS = ((480, 480), (364, 364))
+ROI_CHUNK_CYCLES = 8
+CLI_FRAMES = 16 * 15 + 1  # 16 cycles of the recording as BMPs, 0.58 GB
+# the multi-recording loop, depth cut to 8 cycles in chunks of 4
+STREAMS = 4
+STREAM_CYCLES = 8
+STREAM_CHUNK_CYCLES = 4
 
 
 def card_line() -> str:
@@ -260,6 +287,14 @@ class Recording:
     def frames(self, start: int, count: int) -> np.ndarray:
         return self.data[start : start + count]
 
+    def windows(self, start: int, count: int, top_lefts: np.ndarray, out: np.ndarray) -> np.ndarray:
+        """ROI streaming's window source: one window of each frame, at its
+        (x, y) origin, into ``out`` (count, win_h, win_w)."""
+        win_h, win_w = out.shape[1:3]
+        for i, (x, y) in enumerate(np.asarray(top_lefts, dtype=np.int64)):
+            out[i] = self.data[start + i, y : y + win_h, x : x + win_w]
+        return out
+
     def view(self, f: int, cam: int) -> np.ndarray:
         """The cam x cam view of frame ``f`` centred on the worm."""
         h, w = self.hw
@@ -268,14 +303,37 @@ class Recording:
         return self.data[f, y0 : y0 + cam, x0 : x0 + cam]
 
 
-def run_loop(params, config, recording, num_frames, detector, predictor, device):
+def write_gray_bmp(path, frame: np.ndarray) -> None:
+    """Write a (H, W) uint8 frame as an 8-bit BMP with a gray palette, the
+    layout OpenCV's ``imwrite`` gives a gray frame (the card's host need not have
+    OpenCV): 54 bytes of headers, 256 palette entries, rows bottom-up, each
+    padded to a multiple of 4 bytes."""
+    h, w = frame.shape
+    row_bytes = (w + 3) // 4 * 4
+    offset = 14 + 40 + 256 * 4
+    header = (
+        b"BM" + np.array([offset + row_bytes * h, 0, offset], "<u4").tobytes()
+        + np.array([40, w, h], "<i4").tobytes() + np.array([1, 8], "<u2").tobytes()
+        + np.array([0, row_bytes * h, 2835, 2835, 256, 0], "<u4").tobytes()
+    )
+    palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, axis=1)
+    palette[:, 3] = 0
+    rows = np.zeros((h, row_bytes), np.uint8)
+    rows[:, :w] = frame[::-1]
+    with open(path, "wb") as f:
+        f.write(header + palette.tobytes() + rows.tobytes())
+
+
+def run_loop(params, config, recording, num_frames, detector, predictor, device, **kw):
+    """One ``run_video_live`` over the recording (``kw``: its ROI arguments);
+    returns the logs and the wall seconds."""
     from wtracker_tpu_torch.sim.engine_video import run_video_live
 
     init = tuple(int(round(v)) for v in recording.traj[0])
     t0 = time.perf_counter()
     logs = run_video_live(
         params, config, recording.frames, num_frames, detector, predictor, init,
-        cycles_per_chunk=CYCLES_PER_CHUNK, device=device,
+        cycles_per_chunk=CYCLES_PER_CHUNK, device=device, **kw,
     )
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -608,6 +666,225 @@ def decision_latency(model, predictor, S: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# ROI streaming, the track_video command, the multi-recording loop
+# ---------------------------------------------------------------------------
+
+
+def assert_same_logs(a, b, what: str) -> None:
+    """Bit-identical positions and boxes (NaN where the other has NaN)."""
+    if a.positions.shape != b.positions.shape or a.worm_bboxes.shape != b.worm_bboxes.shape:
+        raise AssertionError(f"{what}: log shapes differ")
+    if not np.array_equal(a.positions.numpy(), b.positions.numpy()):
+        raise AssertionError(f"{what}: positions differ by up to {log_diffs(a, b)[0]} px")
+    if not np.array_equal(a.worm_bboxes.numpy(), b.worm_bboxes.numpy(), equal_nan=True):
+        raise AssertionError(f"{what}: boxes differ by up to {log_diffs(a, b)[1]} px")
+
+
+def roi_loop(params, base, recording, num_frames, models, predictor, refs) -> dict:
+    """ROI streaming at 480 px and at 364 px (4 px of slack: the speculation
+    misses and chunks replay), through K1 in bfloat16 and float32, then at
+    the default ``fold_stem=None``: each run bit-identical to the whole-frame
+    loop of the same detector (``refs``); K1 launched 2 times a cycle plus 2
+    per replayed cycle.  Then ROI and whole-frame cycles/s in turns."""
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+
+    n_cycles = params.n_logged_cycles(num_frames)
+    if n_cycles % ROI_CHUNK_CYCLES:
+        raise AssertionError("the launch count below assumes whole ROI chunks")
+    H, W = recording.hw
+    cfg_k = LiveLoopConfig(**base, use_fused_preproc=True)
+    cfg_auto = LiveLoopConfig(**{**base, "fold_stem": None}, use_fused_preproc=True)
+
+    def roi_run(cfg, model, window):
+        stats = {}
+        crop_letterbox_views.launches = 0
+        logs, secs = run_loop(
+            params, cfg, recording, num_frames, model, predictor, "cuda", window_source=recording.windows,
+            roi_window=window, roi_chunk_cycles=ROI_CHUNK_CYCLES, roi_stats=stats,
+        )
+        return logs, secs, stats, crop_letterbox_views.launches
+
+    runs = {}
+    for dtype, model in models.items():
+        for window in ROI_WINDOWS:
+            logs, secs, stats, launches = roi_run(cfg_k, model, window)
+            name = f"{dtype}_k1_roi{window[0]}"
+            assert_same_logs(logs, refs[dtype], name)
+            want = 2 * n_cycles + 2 * ROI_CHUNK_CYCLES * stats["replays"]
+            if launches != want:
+                raise AssertionError(f"{name}: K1 launched {launches} times, expected {want} ({stats})")
+            runs[name] = {**stats, "crop_letterbox_launches": launches, "run_s": secs}
+            log(f"ROI {name}: {runs[name]}")
+        if runs[f"{dtype}_k1_roi{ROI_WINDOWS[-1][0]}"]["replays"] == 0:
+            raise AssertionError(f"{dtype}: the {ROI_WINDOWS[-1]} window never missed, so no replay was checked")
+    logs, secs, stats, launches = roi_run(cfg_auto, models["bf16"], ROI_WINDOWS[0])
+    assert_same_logs(logs, refs["folded"], "folded ROI")
+    if launches != 0:
+        raise AssertionError(f"the folded ROI loop launched K1 {launches} times")
+    runs[f"bf16_folded_roi{ROI_WINDOWS[0][0]}"] = {**stats, "crop_letterbox_launches": launches, "run_s": secs}
+
+    # cycles/s, ROI at 480 px against whole frames, in turns, on both paths
+    secs = {}
+    for path, cfg in (("k1", cfg_k), ("folded", cfg_auto)):
+        for which in ("roi", "whole", "whole", "roi"):
+            kw = dict(window_source=recording.windows, roi_window=ROI_WINDOWS[0], roi_chunk_cycles=ROI_CHUNK_CYCLES)
+            run = run_loop(
+                params, cfg, recording, num_frames, models["bf16"], predictor, "cuda", **(kw if which == "roi" else {})
+            )
+            secs.setdefault(f"{path}_{which}", []).append(run[1])
+    upload = {"whole_frames": params.cycle_n * H * W}
+    upload.update({f"roi{h}x{w}": params.cycle_n * h * w for h, w in ROI_WINDOWS})
+    return {
+        "cycles": n_cycles,
+        "roi_chunk_cycles": ROI_CHUNK_CYCLES,
+        "runs": runs,
+        "cycles_per_s": {k: n_cycles / float(np.median(v)) for k, v in secs.items()},
+        "run_s": secs,
+        "upload_bytes_per_cycle": upload,
+    }
+
+
+def logs_from_csv(path, cycle_n: int):
+    """A ``bboxes.csv`` read back as logs (a 0.0 box is a missed frame)."""
+    import pandas as pd
+
+    from wtracker_tpu_torch.sim.engine import CycleLog
+
+    df = pd.read_csv(path)
+    if len(df.columns) != 17:
+        raise AssertionError(f"{path} has {len(df.columns)} columns, expected 17")
+    pos = df[["plt_x", "plt_y"]].to_numpy().reshape(-1, cycle_n, 2)
+    boxes = df[["wrm_x", "wrm_y", "wrm_w", "wrm_h"]].to_numpy(dtype=np.float64).reshape(-1, cycle_n, 4)
+    boxes[(boxes == 0).all(axis=-1)] = np.nan
+    return CycleLog(torch.from_numpy(pos), torch.from_numpy(boxes))
+
+
+def track_video_cli(params, recording, cam: int, detector: Path, timing_config: Path) -> dict:
+    """The first CLI_FRAMES frames of the recording as 8-bit BMPs in a
+    temporary directory: the port's ``FrameReader`` reads them back byte for
+    byte, whole and as windows, then ``python -m
+    wtracker_tpu_torch.workflows.track_video`` tracks them with ``detector``
+    (the trained checkpoint), once on whole frames and once with
+    ``--roi 480``.  Both ``bboxes.csv`` files must be the same text and hold
+    the tracking bar."""
+    import tempfile
+
+    from wtracker_tpu_torch.utils.frame_reader import FrameReader
+
+    n = CLI_FRAMES
+    frames = recording.data[:n]
+    out = {"frames": n, "bytes_on_disk": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bmp_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "frames").mkdir()
+        t0 = time.perf_counter()
+        for i, frame in enumerate(frames):
+            write_gray_bmp(tmp / "frames" / f"frame_{i:06d}.bmp", frame)
+        out["write_s"] = time.perf_counter() - t0
+        out["bytes_on_disk"] = sum(p.stat().st_size for p in (tmp / "frames").iterdir())
+
+        reader = FrameReader.create_from_directory(str(tmp / "frames"))
+        if len(reader) != n or reader.frame_size != recording.hw:
+            raise AssertionError(f"reader sees {len(reader)} frames of {reader.frame_size}")
+        t0 = time.perf_counter()
+        got = reader.read_batch()
+        out["read_batch_s"] = time.perf_counter() - t0
+        if not np.array_equal(got, frames):
+            raise AssertionError("FrameReader.read_batch differs from the frames written")
+        h, w = recording.hw
+        rng = np.random.default_rng(SEED)
+        win = ROI_WINDOWS[0]
+        tls = np.stack([rng.integers(0, w - win[1] + 1, n), rng.integers(0, h - win[0] + 1, n)], axis=1)
+        tls[-1] = (w - win[1], h - win[0])
+        t0 = time.perf_counter()
+        got = reader.read_window_batch(range(n), tls, win)
+        out["read_window_batch_s"] = time.perf_counter() - t0
+        want = np.stack([frames[i, y : y + win[0], x : x + win[1]] for i, (x, y) in enumerate(tls)])
+        if not np.array_equal(got, want):
+            raise AssertionError("FrameReader.read_window_batch differs from the frames written")
+        del got, want
+
+        exp = json.loads((ROOT / "configs" / "exp_config.json").read_text())
+        exp.update(num_frames=n, init_position=[int(round(v)) for v in recording.traj[0]])
+        (tmp / "exp.json").write_text(json.dumps(exp))
+        csv = {}
+        for name, extra in (("whole_frames", []), ("roi", ["--roi", str(win[0])])):
+            cmd = [
+                sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(tmp / "frames"),
+                "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"),
+                "--detector", str(detector), "--output", str(tmp / name), "--device", "cuda", *extra,
+            ]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600
+            )
+            out[f"{name}_wall_s"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"track_video {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            out[f"{name}_stdout"] = proc.stdout.strip().splitlines()
+            csv[name] = (tmp / name / "bboxes.csv").read_text()
+        if csv["whole_frames"] != csv["roi"]:
+            raise AssertionError("track_video wrote different bboxes.csv with and without --roi")
+        logs = logs_from_csv(tmp / "roi" / "bboxes.csv", params.cycle_n)
+    if logs.positions.shape[0] != params.n_logged_cycles(n):
+        raise AssertionError(f"bboxes.csv holds {logs.positions.shape[0]} cycles")
+    quality = tracking_quality(params, logs, recording)
+    check_tracking(quality, cam)
+    return {**out, **quality, "csv_rows": params.n_logged_cycles(n) * params.cycle_n}
+
+
+def video_streams(params, base, models, predictor) -> dict:
+    """``run_video_live_sharded`` over STREAMS seeded recordings at full
+    width (default ``fold_stem=None``), each stream held against its own
+    ``run_video_live``: float32 positions exact and boxes within 1e-2 px,
+    bfloat16 within 2 px; then stream-cycles/s of the bfloat16 loop."""
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+    from wtracker_tpu_torch.sim.engine_video import run_video_live, run_video_live_sharded
+
+    num_frames = STREAM_CYCLES * params.cycle_n + 1
+    recs = [Recording(num_frames, (params.frame_h, params.frame_w), SEED + 1 + s) for s in range(STREAMS)]
+    init = np.array([[int(round(v)) for v in r.traj[0]] for r in recs])
+    cfg = LiveLoopConfig(**{**base, "fold_stem": None})
+
+    def sharded(model):
+        t0 = time.perf_counter()
+        logs = run_video_live_sharded(
+            params, cfg, [r.frames for r in recs], num_frames, model, predictor, init,
+            cycles_per_chunk=STREAM_CHUNK_CYCLES, device="cuda",
+        )
+        return logs, time.perf_counter() - t0
+
+    out = {"streams": STREAMS, "cycles": STREAM_CYCLES, "cycles_per_chunk": STREAM_CHUNK_CYCLES}
+    crop_letterbox_views.launches = 0
+    for dtype, model in models.items():
+        logs, _ = sharded(model)
+        if logs.positions.shape != (STREAM_CYCLES, STREAMS, params.cycle_n, 2):
+            raise AssertionError(f"stream log shape {tuple(logs.positions.shape)}")
+        diffs = []
+        for s, rec in enumerate(recs):
+            solo = run_video_live(
+                params, cfg, rec.frames, num_frames, model, predictor, tuple(init[s]),
+                cycles_per_chunk=STREAM_CHUNK_CYCLES, device="cuda",
+            )
+            mine = type(solo)(logs.positions[:, s], logs.worm_bboxes[:, s])
+            pos, box = log_diffs(mine, solo)
+            bar = (0, 1e-2) if dtype == "f32" else (2, 2.0)
+            if not (pos <= bar[0] and box <= bar[1]):
+                raise AssertionError(f"{dtype} stream {s} differs from its solo run: {pos} px, {box} px")
+            diffs.append((pos, box))
+            check_tracking(tracking_quality(params, mine, rec), params.cam_w)
+        out[f"{dtype}_pos_box_max_abs_diff_vs_solo"] = diffs
+    if crop_letterbox_views.launches != 0:
+        raise AssertionError("the folded stream loop launched K1")
+    secs = [sharded(models["bf16"])[1] for _ in range(3)]
+    out["run_s"] = secs
+    out["stream_cycles_per_s"] = STREAMS * STREAM_CYCLES / float(np.median(secs))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -783,6 +1060,28 @@ def main() -> int:
     for d in decisions:
         log(f"decision S={d['streams']}: host {d['host_ms']} device {d['device_span_ms']} (budget {d['budget_ms']} ms)")
 
+    # -- 11. ROI streaming ---------------------------------------------------
+    model32 = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cuda").fuse().model
+    roi = roi_loop(
+        params, base, recording, num_frames, {"bf16": model, "f32": model32}, predictor,
+        {"bf16": logs_k, "f32": logs_k32, "folded": logs_f},
+    )
+    log(f"ROI streaming: {roi['cycles_per_s']}")
+    to_profile["roi"] = lambda: run_loop(
+        params, cfg_k, recording, num_frames, model, predictor, "cuda", window_source=recording.windows,
+        roi_window=ROI_WINDOWS[0], roi_chunk_cycles=ROI_CHUNK_CYCLES,
+    )[1]
+
+    # -- 12. the track_video command over BMP frames ---------------------------
+    cli = track_video_cli(params, recording, cam, CHECKPOINT, ROOT / "configs" / "timing_config.json")
+    log(f"track_video: whole frames {cli['whole_frames_wall_s']:.1f} s, ROI {cli['roi_wall_s']:.1f} s")
+
+    # -- 13. the multi-recording loop --------------------------------------------
+    streams = video_streams(params, base, {"f32": model32, "bf16": model}, predictor)
+    log(f"video streams: {streams['stream_cycles_per_s']:.2f} stream-cycles/s")
+    del model32
+    torch.cuda.empty_cache()
+
     profile = "--profile" in sys.argv
     profiles = {name: profile_run(run) for name, run in to_profile.items()} if profile else {}
 
@@ -816,6 +1115,7 @@ def main() -> int:
                 "ms_l2_warm": t12["ms_l2_warm"],
                 "ms_n3_l2_warm": t3["ms_l2_warm"],
                 "launches_per_cycle": launches / n_cycles,
+                "launches_roi": {k: r["crop_letterbox_launches"] for k, r in roi["runs"].items()},
             }
         ]
     }
@@ -851,6 +1151,9 @@ def main() -> int:
     print(json.dumps(video_folded))
     print(json.dumps({"synthetic_loop": synthetic}))
     print(json.dumps({"decision_latency": decisions}))
+    print(json.dumps({"roi_video_loop": roi}))
+    print(json.dumps({"track_video_cli": cli}))
+    print(json.dumps({"video_streams": streams}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

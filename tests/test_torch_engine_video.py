@@ -145,8 +145,6 @@ def test_video_loop_refuses_unported_options(video, models):
     _, (tmodel, tpred) = models
     params = engine.EngineParams.from_timing(_timing(ExperimentConfig, TimingConfig), (H, W))
     source = lambda s, n: video[s : s + n]
-    with pytest.raises(NotImplementedError, match="ROI"):
-        run_video_live(params, LiveLoopConfig(**LOOP_KW), source, F, tmodel, tpred, INIT, roi_window=168, device="cpu")
     # the fold needs BN-fused weights, as in the JAX package
     with pytest.raises(ValueError, match="fold_stem=True needs BN-fused"):
         run_video_live(params, LiveLoopConfig(**LOOP_KW, fold_stem=True), source, F, tmodel, tpred, INIT, device="cpu")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``wtracker_tpu_torch`` (nor
 ``chip_smoke.py`` and ``sweep_band_rows.py``) imports JAX, Flax, Optax or the JAX package, neither in
-its source nor when imported."""
+its source nor when imported; and importing the port loads no OpenCV, which
+a GPU host need not have."""
 
 import ast
 import os
@@ -29,10 +30,13 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.ops.image", "wtracker_tpu_torch.ops.preproc", "wtracker_tpu_torch.ops._build",
         "wtracker_tpu_torch.models.yolov8", "wtracker_tpu_torch.models.resmlp", "wtracker_tpu_torch.sim.engine",
         "wtracker_tpu_torch.sim.engine_live", "wtracker_tpu_torch.sim.engine_video",
-        "wtracker_tpu_torch.sim.synthetic",
+        "wtracker_tpu_torch.sim.synthetic", "wtracker_tpu_torch.runtime.native",
+        "wtracker_tpu_torch.utils.frame_reader", "wtracker_tpu_torch.utils.path_utils",
+        "wtracker_tpu_torch.workflows.track_video",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()
+    assert (PKG / "runtime" / "frame_loader.cpp").is_file()
 
 
 @pytest.mark.parametrize(
@@ -54,7 +58,7 @@ def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} + ('cv2',))\n"
         "print('LOADED', bad)\n"
         "assert not bad, bad\n"
     )

@@ -202,17 +202,23 @@ def run_engine(
     Returns stacked logs with leading axes ``(n_cycles, cycle_n)``, on the
     controller's device (and the final carry when requested).
     """
-    step = make_cycle_step(params, controller)
     if carry is None:
         carry = init_carry(params, controller, init_position, device)
+    step = make_cycle_step(params, controller)
+    carry, logs = _scan(step, controller.consts, carry, range(start_cycle, start_cycle + n_cycles))
+    return (logs, carry) if return_carry else logs
+
+
+def _scan(step, consts, carry, cycles) -> tuple[tuple, CycleLog]:
+    """``step`` over ``cycles`` from ``carry``: the final carry and the logs
+    stacked along a new leading axis."""
     positions, bboxes = [], []
     with torch.inference_mode():
-        for cycle in range(start_cycle, start_cycle + n_cycles):
-            carry, log = step(controller.consts, carry, cycle)
+        for cycle in cycles:
+            carry, log = step(consts, carry, cycle)
             positions.append(log.positions)
             bboxes.append(log.worm_bboxes)
-    logs = CycleLog(positions=torch.stack(positions), worm_bboxes=torch.stack(bboxes))
-    return (logs, carry) if return_carry else logs
+    return carry, CycleLog(positions=torch.stack(positions), worm_bboxes=torch.stack(bboxes))
 
 
 # ---------------------------------------------------------------------------
@@ -357,32 +363,35 @@ def run_engine_streams(
     Returns logs with leading axes ``(n_cycles, S, cycle_n)``, on the
     controller's device.
     """
-    dev = resolve_device(device)
     if delayed_log:
         step = make_delayed_cycle_step(params, controller)
     elif batched_controller:
         step = make_batched_cycle_step(params, controller)
     else:
         step = _make_per_stream_step(params, controller)
+    carry = init_stream_carry(params, controller, init_positions, device)
+    _, logs = _scan(step, controller.consts, carry, range(n_cycles + 1) if delayed_log else range(n_cycles))
+    if delayed_log:  # the first row is cycle −1's
+        logs = CycleLog(positions=logs.positions[1:], worm_bboxes=logs.worm_bboxes[1:])
+    return logs
 
+
+def init_stream_carry(
+    params: EngineParams,
+    controller: CycleController,
+    init_positions,
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """Fresh carry of S streams: (S, 2) clamped start positions, their
+    (S, cycle_n, 2) last-cycle positions and the controller's state."""
+    dev = resolve_device(device)
     init = torch.as_tensor(np.asarray(init_positions), dtype=torch.int32).to(dev)
     if _has_stream_bounds(controller):
         pos0 = torch.minimum(init.clamp_min(0), controller.consts["stream_bounds"].to(torch.int32) - 1)
     else:
         pos0 = _clamp(init, params)
     prev0 = pos0[:, None, :].expand(pos0.shape[0], params.cycle_n, 2).clone()
-    carry = (pos0, prev0, controller.init())
-
-    cycles = range(n_cycles + 1) if delayed_log else range(n_cycles)
-    positions, bboxes = [], []
-    with torch.inference_mode():
-        for cycle in cycles:
-            carry, log = step(controller.consts, carry, cycle)
-            positions.append(log.positions)
-            bboxes.append(log.worm_bboxes)
-    if delayed_log:  # the first row is cycle −1's
-        positions, bboxes = positions[1:], bboxes[1:]
-    return CycleLog(positions=torch.stack(positions), worm_bboxes=torch.stack(bboxes))
+    return (pos0, prev0, controller.init())
 
 
 # ---------------------------------------------------------------------------

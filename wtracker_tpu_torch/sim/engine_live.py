@@ -183,8 +183,9 @@ def make_decision_step(
 
 class _LoopParts:
     """What every live controller builds from the same arguments: the
-    detect choice, the constants on the device, and render → detect →
-    arena coordinates in (optionally chunked) batches."""
+    detect choice, the constants on the device, the movement decision, and
+    render → detect → arena coordinates in (optionally chunked) batches.
+    The video controllers crop recorded frames and pass ``scene=None``."""
 
     def __init__(self, params, config, scene, detector_model, predictor, detect_fn, device):
         self.dev = dev = resolve_device(device)
@@ -207,15 +208,8 @@ class _LoopParts:
         return _shift_boxes(boxes, cam_tls)
 
     def detect_flat(self, worm_xy: torch.Tensor, cam_tls: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
-        """:meth:`render_detect` in ``detect_chunks`` sequential sub-batches
-        (one batch when the count does not divide it)."""
-        n, k = worm_xy.shape[0], self.config.detect_chunks
-        if k <= 1 or n % k:
-            return self.render_detect(worm_xy, cam_tls, fidx)
-        m = n // k
-        return torch.cat(
-            [self.render_detect(worm_xy[i : i + m], cam_tls[i : i + m], fidx[i : i + m]) for i in range(0, n, m)]
-        )
+        """:meth:`render_detect` in ``detect_chunks`` sequential sub-batches."""
+        return _sub_batches(self.render_detect, self.config.detect_chunks, worm_xy, cam_tls, fidx)
 
     def stream_table(self, gt_trajs: np.ndarray) -> torch.Tensor:
         """The (S, F, 2) trajectories on the device, uploaded once at build
@@ -231,6 +225,17 @@ class _LoopParts:
         return _batched_move_from_history(
             self.mlp_model, feats_abs, ring[:, kickoff % R, :], cam_center, self.config.max_dist_per_pred
         )
+
+
+def _sub_batches(fn, k: int, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(*xs)`` in ``k`` sequential sub-batches along the first axis, the
+    outputs concatenated (one batch when ``k`` does not divide the count):
+    what the JAX package's ``lax.map`` over ``detect_chunks`` gives."""
+    n = xs[0].shape[0]
+    if k <= 1 or n % k:
+        return fn(*xs)
+    m = n // k
+    return torch.cat([fn(*(x[i : i + m] for x in xs)) for i in range(0, n, m)])
 
 
 def _ring_set(ring: torch.Tensor, slots: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
