@@ -54,10 +54,24 @@ live loop over many streams, at full width:
 13. runs ``run_video_live_sharded`` over 4 seeded recordings at full width
     (8 cycles in chunks of 4), each stream held against its own
     ``run_video_live`` (float32: positions exact, boxes to 1e-2 px;
-    bfloat16: within 2 px), and its stream-cycles/s.
+    bfloat16: within 2 px), and its stream-cycles/s;
+14. replays a seeded 61,200-frame worm log at the deployment configuration
+    (4,079 cycles) through the csv, optimal, polyfit and mlp controllers and
+    the step motor (cycles/s each), polyfit once more through ``python -m
+    wtracker_tpu_torch.workflows.simulate``, and every run once more on the
+    CPU: the same ``bboxes.csv`` text (mlp: equal positions in >= 99.9 %
+    of frames, none more than 2 px apart);
+15. runs ``python -m wtracker_tpu_torch.workflows.sweep`` over
+    configs/exp0-exp4 (mixed geometry, each at its own length), each
+    experiment equal to its single-stream run, then 96 streams of the
+    deployment configuration in one batch (stream-cycles/s);
+16. runs the live YOLOv8s@416 + ResMLP loop over 30 streams of exp0-exp4's
+    three camera sizes (``yolo_mlp_controller_hetero``, 12 cycles): steps/s,
+    0 K1 launches, every stream held to the tracking bar, and in float32 the
+    mixed run against each camera size's streams alone.
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 13 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 16 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -71,6 +85,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -114,6 +129,17 @@ CLI_FRAMES = 16 * 15 + 1  # 16 cycles of the recording as BMPs, 0.58 GB
 STREAMS = 4
 STREAM_CYCLES = 8
 STREAM_CHUNK_CYCLES = 4
+# replay at the deployment configuration: every logged cycle of its 61,200
+# frames (4,079); the simulate command's default polyfit sample times;
+# --profile traces a cut of 200 cycles (a polyfit cycle is ~1,500 launches)
+REPLAY_POLYFIT_TIMES = (-15, -10, -5, 0, 3)
+PROFILE_REPLAY_CYCLES = 200
+SWEEP_STREAMS = 96
+# the mixed-geometry live loop: 6 streams of each of exp0-exp4 (30 streams,
+# 360 imaging views a decision), 12 cycles
+HETERO_PER_GEOMETRY = 6
+HETERO_CYCLES = 12
+HETERO_TIMED_RUNS = 3
 
 
 def card_line() -> str:
@@ -370,6 +396,7 @@ def profile_run(run, top: int = 12) -> dict:
 
     return {
         "wall_s": wall_s,
+        "device_events": len(spans),
         "device_busy_s": busy_us * 1e-6,
         "device_busy_share": busy_us * 1e-6 / wall_s,
         "top_ops": listing(DeviceType.CPU),
@@ -885,6 +912,331 @@ def video_streams(params, base, models, predictor) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# replay (simulate), sweeps, the mixed-geometry live loop
+# ---------------------------------------------------------------------------
+
+WORM_COLS = ["wrm_x", "wrm_y", "wrm_w", "wrm_h"]
+
+
+def worm_boxes(num_frames: int, arena_hw: tuple[int, int], seed: int) -> np.ndarray:
+    """A seeded (N, 4) xywh worm log along ``make_trajectory``'s track, box
+    sizes drawn per frame, NaN rows every 37th frame (the dropouts of
+    tests/synthetic.py)."""
+    from wtracker_tpu_torch.sim.synthetic import make_trajectory
+
+    rng = np.random.default_rng(seed)
+    traj = make_trajectory(num_frames, arena_hw, seed=seed)
+    w, h = rng.uniform(16, 24, num_frames), rng.uniform(10, 16, num_frames)
+    boxes = np.stack([traj[:, 0] - w / 2, traj[:, 1] - h / 2, w, h], axis=1)
+    boxes[::37] = np.nan
+    return boxes
+
+
+def worm_csv(path, num_frames: int, arena_hw: tuple[int, int], seed: int) -> np.ndarray:
+    """Write :func:`worm_boxes` as a log with ``wrm_*`` columns; returns the
+    table as pandas reads it back, which is what the commands read."""
+    import pandas as pd
+
+    pd.DataFrame(worm_boxes(num_frames, arena_hw, seed), columns=WORM_COLS).to_csv(path, index=False)
+    return pd.read_csv(path)[WORM_COLS].to_numpy(dtype=float)
+
+
+def exp0_4() -> tuple[list, list, list]:
+    """configs/exp0-exp4: their ExperimentConfigs, their TimingConfigs as
+    the sweep command builds them (each experiment's own timing file), and
+    the (config, timing) paths."""
+    from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
+
+    paths = [(ROOT / "configs" / f"exp{i}_config.json", ROOT / "configs" / f"exp{i}_timing.json") for i in range(5)]
+    exps, timings = [], []
+    for e, t in paths:
+        exps.append(ExperimentConfig.load_json(str(e)))
+        b = TimingConfig.load_json(str(t))
+        timings.append(TimingConfig(
+            experiment_config=exps[-1], imaging_time_ms=b.imaging_time_ms, pred_time_ms=b.pred_time_ms,
+            moving_time_ms=b.moving_time_ms, camera_size_mm=b.camera_size_mm, micro_size_mm=b.micro_size_mm,
+        ))
+    return exps, timings, paths
+
+
+def worm_in_view_share(params, logs, table: np.ndarray) -> float:
+    """Share of logged frames with a worm box whose centre lies inside the
+    camera view around the platform."""
+    pos = logs.positions.cpu().numpy().reshape(-1, 2).astype(np.float64)
+    rows = table[: len(pos)]
+    ok = np.isfinite(rows).all(axis=1)
+    off = np.abs(rows[ok, :2] + rows[ok, 2:] / 2 - pos[ok])
+    return float(((off[:, 0] < params.cam_w / 2) & (off[:, 1] < params.cam_h / 2)).mean())
+
+
+def cuda_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 14: ``run_engine`` with the csv, optimal, polyfit (degree 2 at
+    [-15, -10, -5, 0, 3]) and mlp (the seeded predictor) controllers and the
+    csv controller on the step motor, at the deployment configuration over a
+    seeded 61,200-frame worm log: cycles/s a controller (after a 20-cycle
+    warm-up), polyfit once more through ``python -m
+    wtracker_tpu_torch.workflows.simulate`` (wall time), and the same runs
+    on the CPU: csv, optimal, polyfit and step give the same ``bboxes.csv``
+    text, mlp equal positions in >= 99.9 % of frames and none 2 px apart.
+    Returns the phase's numbers and, for ``--profile``, a function per
+    profiled controller that runs PROFILE_REPLAY_CYCLES cycles."""
+    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor
+    from wtracker_tpu_torch.neural.config import IOConfig
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim import engine as te
+    from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
+
+    exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
+    exp, timing = ExperimentConfig.load_json(str(exp_path)), TimingConfig.load_json(str(timing_path))
+    table = worm_csv(tmp / "worm.csv", exp.num_frames, tuple(exp.orig_resolution), SEED)
+    frame_hw = te.headless_frame_shape(timing, exp.orig_resolution)
+    n = te.EngineParams.from_timing(timing, frame_hw).n_logged_cycles(exp.num_frames)
+    predictors = {
+        dev: make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), seed=SEED, device=dev) for dev in {device, "cpu"}
+    }
+
+    def build(name: str, dev: str):
+        params = te.EngineParams.from_timing(timing, frame_hw, motor="step" if name == "csv_step" else "sine")
+        if name in ("csv", "csv_step"):
+            return params, te.csv_controller(table, params, device=dev)
+        if name == "optimal":
+            return params, te.optimal_controller(table, params, device=dev)
+        if name == "polyfit":
+            times = np.array(REPLAY_POLYFIT_TIMES)
+            return params, te.polyfit_controller(table, params, times, np.ones(len(times)), 2, device=dev)
+        pred = predictors[dev]
+        bound = te.mlp_max_dist_per_pred(timing, pred.io_config)
+        return params, te.mlp_controller(table, params, pred, bound, device=dev)
+
+    def run(name: str, dev: str, n_cycles: int = n):
+        params, ctl = build(name, dev)
+        t0 = time.perf_counter()
+        logs = te.run_engine(params, ctl, exp.init_position, n_cycles, device=dev)
+        cuda_sync(dev)
+        return params, logs, time.perf_counter() - t0
+
+    names = ("csv", "optimal", "polyfit", "mlp", "csv_step")
+    out = {"cycles": n, "frames": exp.num_frames, "controllers": {}}
+    crop_letterbox_views.launches = 0
+    texts, logs_by = {}, {}
+    for name in names:
+        run(name, device, 20)  # warm-up
+        params, logs, wall = run(name, device)
+        if logs.positions.shape != (n, params.cycle_n, 2):
+            raise AssertionError(f"{name}: log shape {tuple(logs.positions.shape)}")
+        share = worm_in_view_share(params, logs, table)
+        if not share >= 0.95:
+            raise AssertionError(f"{name}: the worm was in view in only {share:.4f} of the frames")
+        texts[name], logs_by[name] = te.logs_to_frame(params, logs).to_csv(index=False), logs
+        out["controllers"][name] = {
+            "cycles_per_s": n / wall, "ms_per_cycle": wall / n * 1e3, "run_s": wall, "worm_in_view_share": share,
+        }
+        log(f"replay {name}: {n / wall:.1f} cycles/s")
+    if crop_letterbox_views.launches != 0:
+        raise AssertionError(f"the replay controllers launched K1 {crop_letterbox_views.launches} times")
+    out["crop_letterbox_launches"] = crop_letterbox_views.launches
+
+    # the command, as a user runs it (the default polyfit config)
+    cmd = [
+        sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--timing-config", str(timing_path),
+        "--exp-config", str(exp_path), "--worm-csv", str(tmp / "worm.csv"), "--output", str(tmp / "simulate"),
+        "--controller", "polyfit", "--device", device,
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=900)
+    out["cli_polyfit_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"simulate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    if (tmp / "simulate" / "bboxes.csv").read_text() != texts["polyfit"]:
+        raise AssertionError("the simulate command wrote another bboxes.csv than the in-process polyfit run")
+    out["cli_stdout"] = proc.stdout.strip().splitlines()
+
+    # the same runs on the CPU
+    cpu = {}
+    for name in names:
+        params, logs, wall = run(name, "cpu")
+        cpu[name] = {"cycles_per_s": n / wall}
+        if name == "mlp":
+            diff = np.abs(logs.positions.numpy() - logs_by[name].positions.cpu().numpy()).max(axis=-1).reshape(-1)
+            cpu[name].update(frames_equal_share=float((diff == 0).mean()), max_abs_pos_diff_px=int(diff.max()))
+            if not (cpu[name]["frames_equal_share"] >= 0.999 and diff.max() <= 2):
+                raise AssertionError(f"mlp on the card and on the CPU drift apart: {cpu[name]}")
+        elif te.logs_to_frame(params, logs).to_csv(index=False) != texts[name]:
+            raise AssertionError(f"{name}: the card and the CPU wrote different bboxes.csv text")
+        else:
+            cpu[name]["identical_text"] = True
+    out["cpu"] = cpu
+    profiled = {f"replay_{k}": (lambda k=k: run(k, device, PROFILE_REPLAY_CYCLES)[2]) for k in ("polyfit", "csv")}
+    return out, profiled
+
+
+def sweep(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 15: the ``sweep`` command in mixed-geometry mode over
+    configs/exp0-exp4 (their own configs and timings; one seeded worm log
+    each, at the experiment's own length), each experiment's ``bboxes.csv``
+    equal to its single-stream ``csv_controller`` run; then
+    ``csv_controller_streams`` in process at SWEEP_STREAMS streams over
+    phase 14's configuration, two streams equal to their single-stream runs,
+    and its stream-cycles/s."""
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim import engine as te
+    from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
+    from wtracker_tpu_torch.sim.engine_hetero import bucket_by_cycle_shape
+
+    out = {}
+    crop_letterbox_views.launches = 0
+    exps, timings, cfgs = exp0_4()
+    if bucket_by_cycle_shape(timings) != [list(range(5))]:
+        raise AssertionError("exp0-exp4 no longer share one cycle shape")
+    tables = [
+        worm_csv(tmp / f"sweep_worm{i}.csv", e.num_frames, tuple(e.orig_resolution), SEED + 10 + i)
+        for i, e in enumerate(exps)
+    ]
+    cmd = [
+        sys.executable, "-m", "wtracker_tpu_torch.workflows.sweep", "--worm-csvs",
+        *[str(tmp / f"sweep_worm{i}.csv") for i in range(5)], "--exp-configs", *[str(e) for e, _ in cfgs],
+        "--timing-configs", *[str(t) for _, t in cfgs], "--output", str(tmp / "sweep"), "--device", device,
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=900)
+    out["cli_mixed_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sweep exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    out["cli_stdout"] = proc.stdout.strip().splitlines()
+    solo_s, cycles_each = [], []
+    for i, (exp, timing, table) in enumerate(zip(exps, timings, tables)):
+        params = te.EngineParams.from_timing(timing, te.headless_frame_shape(timing, exp.orig_resolution))
+        n = params.n_logged_cycles(exp.num_frames)
+        t0 = time.perf_counter()
+        logs = te.run_engine(params, te.csv_controller(table, params, device=device), exp.init_position, n, device=device)
+        cuda_sync(device)
+        solo_s.append(time.perf_counter() - t0)
+        cycles_each.append(n)
+        if (tmp / "sweep" / f"exp{i}" / "bboxes.csv").read_text() != te.logs_to_frame(params, logs).to_csv(index=False):
+            raise AssertionError(f"the sweep's exp{i} differs from its single-stream run")
+    out.update(mixed_cycles=cycles_each, mixed_equal_to_solo=True, solo_run_s=solo_s)
+
+    # S streams of phase 14's configuration in one batch
+    exp = ExperimentConfig.load_json(str(ROOT / "configs" / "exp_config.json"))
+    timing = TimingConfig.load_json(str(ROOT / "configs" / "timing_config.json"))
+    params = te.EngineParams.from_timing(timing, te.headless_frame_shape(timing, exp.orig_resolution))
+    n, streams = params.n_logged_cycles(exp.num_frames), SWEEP_STREAMS
+    csvs = np.stack([worm_boxes(exp.num_frames, tuple(exp.orig_resolution), SEED + 100 + s) for s in range(streams)])
+    init = np.tile(exp.init_position, (streams, 1))
+    ctl = te.csv_controller_streams(csvs, params, device=device)
+    te.run_engine_streams(params, ctl, init, 20, batched_controller=True, device=device)  # warm-up
+    t0 = time.perf_counter()
+    logs = te.run_engine_streams(params, ctl, init, n, batched_controller=True, device=device)
+    cuda_sync(device)
+    wall = time.perf_counter() - t0
+    for s in (0, streams - 1):
+        solo = te.run_engine(params, te.csv_controller(csvs[s], params, device=device), exp.init_position, n, device=device)
+        same_boxes = torch.equal(solo.worm_bboxes.nan_to_num(-1.0), logs.worm_bboxes[:, s].nan_to_num(-1.0))
+        if not (torch.equal(solo.positions, logs.positions[:, s]) and same_boxes):
+            raise AssertionError(f"stream {s} of the batch differs from its single-stream run")
+    if crop_letterbox_views.launches != 0:
+        raise AssertionError("the sweeps launched K1")
+    out.update(
+        streams=streams, stream_cycles=n, streams_run_s=wall, stream_cycles_per_s=streams * n / wall,
+        streams_equal_to_solo=[0, streams - 1], crop_letterbox_launches=crop_letterbox_views.launches,
+    )
+    return out
+
+
+def hetero_live(models: dict, predictor, device: str = "cuda", per_geometry: int = HETERO_PER_GEOMETRY,
+                cycles: int = HETERO_CYCLES, timed_runs: int = HETERO_TIMED_RUNS) -> tuple[dict, callable]:
+    """Phase 16: ``yolo_mlp_controller_hetero`` over exp0-exp4's geometries
+    (352, 360 and 368 px cameras), ``per_geometry`` streams of each
+    experiment, 400-frame tracks, ``cycles`` cycles: steps/s of the bf16
+    loop (median of ``timed_runs`` after a warm-up), 0 K1 launches, every
+    stream held to the tracking bar; in float32 the mixed run against each
+    camera size's streams run alone on the same canvas (positions within
+    2 px in >= 99.5 % of frames, boxes within 1e-3 px in >= 99.5 % of
+    rows)."""
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.engine import run_engine_streams
+    from wtracker_tpu_torch.sim.engine_hetero import StreamGeometry, geometry_from_configs, yolo_mlp_controller_hetero
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+    from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+
+    exps, timings, _ = exp0_4()
+    params, g5 = geometry_from_configs(timings, exps)
+    sel = np.repeat(np.arange(5), per_geometry)
+    geometry = StreamGeometry(*(a[sel] for a in g5))
+    S = len(sel)
+    trajs = np.stack([make_trajectory(400, tuple(geometry.bounds[i][::-1]), seed=SEED + i) for i in range(S)])
+    init = np.round(trajs[:, 0]).astype(np.int64)
+    canvas = (int(geometry.cam_size[:, 1].max()), int(geometry.cam_size[:, 0].max()))
+    cfg = LiveLoopConfig(conf=0.1, ring_size=64, log_mode=True, detect_chunks=1)
+    scene = SyntheticScene()
+
+    def run(model, rows=None, n_cycles=cycles):
+        rows = np.arange(S) if rows is None else rows
+        sub = StreamGeometry(*(a[rows] for a in geometry))
+        ctl = yolo_mlp_controller_hetero(
+            params, sub, cfg, scene, trajs[rows], model, predictor, canvas_hw=canvas, device=device
+        )
+        t0 = time.perf_counter()
+        logs = run_engine_streams(params, ctl, init[rows], n_cycles, batched_controller=True, device=device)
+        cuda_sync(device)
+        return logs, time.perf_counter() - t0
+
+    crop_letterbox_views.launches = 0
+    logs, warm_s = run(models["bf16"])
+    secs = [run(models["bf16"])[1] for _ in range(timed_runs)]
+    launches = crop_letterbox_views.launches
+    if launches != 0:
+        raise AssertionError(f"the mixed-geometry loop launched K1 {launches} times")
+    if logs.positions.shape != (cycles, S, params.cycle_n, 2):
+        raise AssertionError(f"hetero log shape {tuple(logs.positions.shape)}")
+    per_stream = []
+    for s in range(S):
+        one = type(logs)(logs.positions[:, s : s + 1], logs.worm_bboxes[:, s : s + 1])
+        q = synthetic_quality(params, one, trajs[s : s + 1])
+        if not (q["detection_rate"] >= 0.95 and q["median_center_err_px"] <= 4.0):
+            raise AssertionError(f"stream {s} (camera {tuple(geometry.cam_size[s])}) lost the worm: {q}")
+        per_stream.append(q)
+
+    # float32: the mixed run against each camera size's streams alone
+    mixed, _ = run(models["f32"])
+    groups = {}
+    for w, h in sorted({tuple(c) for c in geometry.cam_size.tolist()}):
+        rows = np.flatnonzero((geometry.cam_size == (w, h)).all(axis=1))
+        alone, _ = run(models["f32"], rows)
+        p_m = mixed.positions[:, rows].cpu().numpy().reshape(-1, 2)
+        p_a = alone.positions.cpu().numpy().reshape(-1, 2)
+        b_m = mixed.worm_bboxes[:, rows].cpu().numpy().reshape(-1, 4)
+        b_a = alone.worm_bboxes.cpu().numpy().reshape(-1, 4)
+        pos_share = float((np.abs(p_m - p_a) <= 2).all(axis=1).mean())
+        box_share = float(np.isclose(b_m, b_a, atol=1e-3, equal_nan=True).all(axis=1).mean())
+        groups[f"{w}x{h}"] = {"streams": len(rows), "pos_within_2px_share": pos_share, "box_within_1e-3_share": box_share}
+        if not (pos_share >= 0.995 and box_share >= 0.995):
+            raise AssertionError(f"float32 mixed run differs from the {w}x{h} streams alone: {groups[f'{w}x{h}']}")
+
+    wall = float(np.median(secs))
+    out = {
+        "streams": S,
+        "cameras_px": sorted({int(c) for c in geometry.cam_size[:, 0]}),
+        "cycles": cycles,
+        "imaging_views_per_decision": S * params.imaging_n,
+        "steps_per_s": S * cycles * params.cycle_n / wall,
+        "cycles_per_s": cycles / wall,
+        "warmup_s": warm_s,
+        "run_s": secs,
+        "crop_letterbox_launches": launches,
+        "worst_stream_detection_rate": min(q["detection_rate"] for q in per_stream),
+        "worst_stream_median_center_err_px": max(q["median_center_err_px"] for q in per_stream),
+        "f32_mixed_vs_alone": groups,
+    }
+    return out, lambda: run(models["bf16"])[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -1079,6 +1431,20 @@ def main() -> int:
     # -- 13. the multi-recording loop --------------------------------------------
     streams = video_streams(params, base, {"f32": model32, "bf16": model}, predictor)
     log(f"video streams: {streams['stream_cycles_per_s']:.2f} stream-cycles/s")
+
+    # -- 14. replay through the four controllers, and the simulate command ------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as tmp:
+        replayed, profiled = replay(Path(tmp))
+        to_profile.update(profiled)
+        log(f"replay: {({k: round(v['cycles_per_s'], 1) for k, v in replayed['controllers'].items()})} cycles/s")
+
+        # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process --
+        swept = sweep(Path(tmp))
+        log(f"sweep: {swept['stream_cycles_per_s']:.0f} stream-cycles/s at S={swept['streams']}")
+
+    # -- 16. the live loop over mixed camera geometries --------------------------
+    hetero, to_profile["hetero_live"] = hetero_live({"bf16": model, "f32": model32}, predictor)
+    log(f"mixed-geometry live loop: {hetero['steps_per_s']:.0f} steps/s")
     del model32
     torch.cuda.empty_cache()
 
@@ -1116,6 +1482,9 @@ def main() -> int:
                 "ms_n3_l2_warm": t3["ms_l2_warm"],
                 "launches_per_cycle": launches / n_cycles,
                 "launches_roi": {k: r["crop_letterbox_launches"] for k, r in roi["runs"].items()},
+                "launches_replay_sweep_hetero": [
+                    replayed["crop_letterbox_launches"], swept["crop_letterbox_launches"], hetero["crop_letterbox_launches"]
+                ],
             }
         ]
     }
@@ -1154,6 +1523,9 @@ def main() -> int:
     print(json.dumps({"roi_video_loop": roi}))
     print(json.dumps({"track_video_cli": cli}))
     print(json.dumps({"video_streams": streams}))
+    print(json.dumps({"replay": {**replayed, "card": card}}))
+    print(json.dumps({"sweep": {**swept, "card": card}}))
+    print(json.dumps({"hetero_live": {**hetero, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

@@ -32,7 +32,10 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.sim.engine_live", "wtracker_tpu_torch.sim.engine_video",
         "wtracker_tpu_torch.sim.synthetic", "wtracker_tpu_torch.runtime.native",
         "wtracker_tpu_torch.utils.frame_reader", "wtracker_tpu_torch.utils.path_utils",
-        "wtracker_tpu_torch.workflows.track_video",
+        "wtracker_tpu_torch.workflows.track_video", "wtracker_tpu_torch.ops.polyfit",
+        "wtracker_tpu_torch.utils.bbox", "wtracker_tpu_torch.sim.engine_hetero",
+        "wtracker_tpu_torch.sim.controllers", "wtracker_tpu_torch.sim.controllers.polyfit",
+        "wtracker_tpu_torch.workflows.simulate", "wtracker_tpu_torch.workflows.sweep",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()

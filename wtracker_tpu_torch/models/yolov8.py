@@ -379,9 +379,12 @@ def top1_source_boxes(
 ) -> torch.Tensor:
     """Top-1 decode → letterbox un-mapping → confidence mask: (B, 4) float32
     xywh in source pixels, NaN rows below ``conf``.  ``geometry`` is the
-    letterbox ``(scale, pad_top, pad_left)`` shared by the batch."""
+    letterbox ``(scale, pad_top, pad_left)``: numbers shared by the batch, or
+    (B,) float32 tensors, one geometry a view (mixed-geometry batches)."""
     scale, pad_top, pad_left = geometry
     best_box, best_score = decode_top1(box_logits, cls_logits, imgsz, reg_max)
+    if isinstance(scale, torch.Tensor):
+        scale = scale[:, None]
     xy = torch.stack([best_box[:, 0] - pad_left, best_box[:, 1] - pad_top], dim=-1) / scale
     wh = (best_box[:, 2:] - best_box[:, :2]) / scale
     out = torch.cat([xy, wh], dim=-1)

@@ -21,8 +21,12 @@ the stream axis (``batched_controller``, ``delayed_log``) sees stacked
 ``(S, ...)`` inputs; any other controller steps each stream over its slice of
 the stacked state in turn, which gives what the JAX package's ``vmap`` gives.
 
-The playback controllers of the JAX module (csv, optimal, polyfit, mlp) are
-not ported yet.
+The playback controllers (csv, optimal, polyfit, mlp and the stream-batched
+csv) replay a logged worm trajectory; their float64 control math follows the
+JAX module expression for expression, so their logs equal the JAX engine's
+byte for byte.  A value the JAX package selects with ``jnp.where`` is
+selected with ``torch.where`` here, never by a branch on a device value (one
+host sync a cycle); only the cycle index, a host integer, picks branches.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from wtracker_tpu_torch.ops.polyfit import polyfit, polyval
 from wtracker_tpu_torch.sim.config import TimingConfig
-from wtracker_tpu_torch.sim.motor import sine_step_weights
+from wtracker_tpu_torch.sim.motor import sine_step_weights, step_weights
 from wtracker_tpu_torch.utils.device import resolve_device
 
 
@@ -58,10 +63,25 @@ class EngineParams:
         return self.imaging_n + self.moving_n
 
     @staticmethod
-    def from_timing(timing: TimingConfig, frame_shape_hw: tuple[int, int]) -> "EngineParams":
+    def from_timing(
+        timing: TimingConfig,
+        frame_shape_hw: tuple[int, int],
+        motor: str = "sine",
+        move_after_ratio: float = 0.5,
+    ) -> "EngineParams":
         """Engine params from a TimingConfig and the (h, w) frame bounds the
-        platform position is clamped to, with the sine motor (the simulator's
-        default; the step motor is not ported yet)."""
+        platform position is clamped to.
+
+        ``motor`` selects the movement profile: "sine" (the simulator's
+        default) or "step" (the whole move after ``move_after_ratio`` of the
+        phase); both run through the same residual rounding.
+        """
+        if motor == "sine":
+            weights = sine_step_weights(timing.moving_frame_num)
+        elif motor == "step":
+            weights = step_weights(timing.moving_frame_num, move_after_ratio)
+        else:
+            raise ValueError(f"unknown motor profile: {motor}")
         return EngineParams(
             imaging_n=timing.imaging_frame_num,
             pred_n=timing.pred_frame_num,
@@ -72,7 +92,7 @@ class EngineParams:
             mic_h=timing.micro_size_px[1],
             frame_h=int(frame_shape_hw[0]),
             frame_w=int(frame_shape_hw[1]),
-            motor_weights=tuple(sine_step_weights(timing.moving_frame_num).tolist()),
+            motor_weights=tuple(weights.tolist()),
         )
 
     def n_logged_cycles(self, num_frames: int) -> int:
@@ -450,4 +470,296 @@ def logs_to_frame(
             "wrm_w": wrm[:, 2],
             "wrm_h": wrm[:, 3],
         }
+    )
+
+
+# ---------------------------------------------------------------------------
+# controller factories (ground-truth playback family)
+# ---------------------------------------------------------------------------
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """NaN-padded gather along ``dim`` (0, or 1 for an (S, N, 4) stack):
+    out-of-range indices of the 1-D ``idx`` yield NaN rows."""
+    n = table.shape[dim]
+    valid = (idx >= 0) & (idx < n)
+    rows = table.index_select(dim, idx.clamp(0, n - 1))
+    return torch.where(valid[:, None], rows, torch.nan)
+
+
+class _FrameOffsets:
+    """Frame offsets of a gather (the cycle's frames, polyfit sample times,
+    MLP input frames), kept on the host and on the device.
+
+    The cycle index is a host integer, so :meth:`rows` knows on the host
+    which of ``base + offsets`` fall inside the table: a run of consecutive
+    frames inside it is a view (no launch), other frames inside it one
+    ``index_select``, and only near the table's ends the masked
+    :func:`_gather_rows`.  All three give the same rows.
+    """
+
+    def __init__(self, offsets, device: torch.device):
+        self.host = np.asarray(offsets, dtype=np.int64).reshape(-1)
+        self.device = torch.as_tensor(self.host, device=device)
+        self.run = bool(np.array_equal(self.host, self.host[0] + np.arange(len(self.host))))
+
+    def rows(self, table: torch.Tensor, base: int, dim: int = 0) -> torch.Tensor:
+        """``table``'s rows at frames ``base + offsets`` along ``dim``, NaN
+        where a frame is out of range."""
+        idx = base + self.host
+        if idx.min() >= 0 and idx.max() < table.shape[dim]:
+            if self.run:
+                return table.narrow(dim, int(idx[0]), len(idx))
+            return table.index_select(dim, self.device + base)
+        return _gather_rows(table, self.device + base, dim)
+
+
+def _cam_consts(params: EngineParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(2,) int32 half camera size ``(w // 2, h // 2)`` and (2,) float64
+    camera middle ``(w / 2, h / 2)``."""
+    half = torch.tensor([params.cam_w // 2, params.cam_h // 2], dtype=torch.int32, device=device)
+    mid = torch.tensor([params.cam_w / 2, params.cam_h / 2], dtype=torch.float64, device=device)
+    return half, mid
+
+
+def _csv_predict_all(params: EngineParams, cam_half: torch.Tensor, device: torch.device, dim: int = 0):
+    """predict_all for the playback family: the cycle's ground-truth rows
+    (``dim=1``: of every stream of an (S, N, 4) table).
+
+    The host path shifts rows into camera coordinates and back before
+    logging; the subtract/add round trip costs an ulp on some values, and is
+    kept for bit-identical logs (eager torch does not fold it away, so it
+    needs no counterpart of the JAX package's optimization barrier).
+    """
+    frames = _FrameOffsets(np.arange(params.cycle_n), device)
+
+    def predict_all(consts, state, cycle_idx, positions):
+        rows = frames.rows(consts["csv"], cycle_idx * params.cycle_n, dim)
+        cam_tl = (positions - cam_half).to(torch.float64)
+        rel = rows[..., :2] - cam_tl  # keep the ulp
+        return torch.cat([rel + cam_tl, rows[..., 2:]], dim=-1)
+
+    return predict_all
+
+
+def _decision_cam_topleft(params: EngineParams, ctx: DecideCtx, cam_half: torch.Tensor) -> torch.Tensor:
+    """Camera top-left used by CsvController.predict(relative=True) at
+    decision time — reproduces the deque ring indexing (csv_controller.py:42).
+
+    The entry at index ``(f - pred_n) % L`` of a full deque maps to the
+    frame at cycle step ``2·imaging_n − pred_n + 1 − L`` of the current
+    cycle; when that offset is negative the bbox comes from the previous
+    cycle's moving phase (except in cycle 0, whose deque is not yet full and
+    resolves to the stationary imaging phase).
+    """
+    g_offset = 2 * params.imaging_n - params.pred_n + 1 - params.cycle_n
+    if g_offset >= 0 or ctx.cycle == 0:
+        pos = ctx.position  # current imaging phase — stationary
+    else:
+        pos = ctx.prev_positions[..., params.cycle_n + g_offset, :]
+    return pos - cam_half
+
+
+def _table(data, device: torch.device) -> torch.Tensor:
+    """A float64 copy of ``data`` on ``device``."""
+    return torch.tensor(np.asarray(data, dtype=np.float64), device=device)
+
+
+def csv_controller(csv_data: np.ndarray, params: EngineParams, device: str | torch.device = "cuda") -> CycleController:
+    """Ground-truth playback controller (engine twin of CsvController):
+    centre the worm box logged ``pred_n`` frames before the imaging phase
+    ends.  ``csv_data`` is the (N, 4) xywh worm table (NaN = no box)."""
+    dev = resolve_device(device)
+    consts = {"csv": _table(csv_data, dev)}
+    cam_half, cam_mid = _cam_consts(params, dev)
+    query = _FrameOffsets([0], dev)
+
+    def decide(consts, state, ctx: DecideCtx):
+        f = ctx.cycle * params.cycle_n + params.imaging_n
+        bbox = query.rows(consts["csv"], f - params.pred_n)[0]
+        cam_tl = _decision_cam_topleft(params, ctx, cam_half)
+
+        # match host arithmetic order: shift into camera coords, then center
+        rel_xy = bbox[:2] - cam_tl
+        center = rel_xy + bbox[2:] / 2
+        target = center - cam_mid
+
+        valid = torch.isfinite(bbox).all()
+        return state, torch.where(valid, torch.round(target), 0.0).to(torch.int32)
+
+    return CycleController(
+        init=lambda: (), decide=decide, predict_all=_csv_predict_all(params, cam_half, dev), consts=consts
+    )
+
+
+def _nanmedian0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian(x, axis=0)`` as JAX computes it: NaNs sorted last,
+    the position ``0.5·(count − 1)`` among the ``count`` finite values, and
+    the mean of the values at its floor and ceiling (JAX's midpoint method;
+    all NaN gives NaN).  ``torch.nanmedian`` takes the lower of the two
+    middle values instead, which differs for an even count."""
+    s = torch.sort(x, dim=0).values  # NaN sorts last
+    counts = (~torch.isnan(s)).sum(dim=0, dtype=x.dtype)
+    q = 0.5 * (counts - 1)
+    low = torch.minimum(q.floor(), counts - 1).clamp_min(0).long()
+    high = torch.minimum(q.ceil(), counts - 1).clamp_min(0).long()
+    return (s.gather(0, low[None])[0] + s.gather(0, high[None])[0]) * 0.5
+
+
+def optimal_controller(
+    csv_data: np.ndarray, params: EngineParams, device: str | torch.device = "cuda"
+) -> CycleController:
+    """Oracle controller (engine twin of OptimalController): centre the
+    median worm position of the next imaging phase."""
+    dev = resolve_device(device)
+    csv = _table(csv_data, dev)
+    consts = {"csv": csv, "centers": csv[:, :2] + csv[:, 2:] / 2}
+    cam_half, cam_mid = _cam_consts(params, dev)
+    imaging = _FrameOffsets(np.arange(params.imaging_n), dev)
+
+    def decide(consts, state, ctx: DecideCtx):
+        nxt = imaging.rows(consts["centers"], (ctx.cycle + 1) * params.cycle_n)  # (imaging_n, 2)
+        med = _nanmedian0(nxt)
+        target = med - ((ctx.position - cam_half).to(torch.float64) + cam_mid)
+        valid = torch.isfinite(med).all()
+        return state, torch.where(valid, torch.round(target), 0.0).to(torch.int32)
+
+    return CycleController(
+        init=lambda: (), decide=decide, predict_all=_csv_predict_all(params, cam_half, dev), consts=consts
+    )
+
+
+def polyfit_controller(
+    csv_data: np.ndarray,
+    params: EngineParams,
+    sample_times: np.ndarray,
+    fit_weights: np.ndarray,
+    degree: int,
+    device: str | torch.device = "cuda",
+) -> CycleController:
+    """Polynomial-extrapolation controller (engine twin of PolyfitController).
+
+    Fits the worm centres at ``sample_times`` (frames from the cycle start,
+    sorted here as the JAX package sorts them; ``fit_weights`` keep their
+    order) and extrapolates to the middle of the next imaging phase.  Invalid
+    samples are excluded with zero fit weights; the fit runs through the
+    float64 Jacobi solver of :mod:`wtracker_tpu_torch.ops.polyfit`.
+    """
+    dev = resolve_device(device)
+    times = np.sort(np.asarray(sample_times, dtype=np.float64))
+    consts = {
+        "csv": _table(csv_data, dev),
+        "times": _table(times, dev),
+        "fit_w": _table(fit_weights, dev),
+        "x_eval": _table(params.cycle_n + params.imaging_n // 2, dev),  # the next imaging phase's middle
+    }
+    cam_half, cam_mid = _cam_consts(params, dev)
+    samples = _FrameOffsets(times.astype(np.int32), dev)
+
+    def decide(consts, state, ctx: DecideCtx):
+        bboxes = samples.rows(consts["csv"], ctx.cycle * params.cycle_n)  # (k, 4) absolute
+        cam_tl = (ctx.position - cam_half).to(torch.float64)
+        pos = (bboxes[:, :2] - cam_tl) + bboxes[:, 2:] / 2  # centers, camera-relative
+
+        mask = torch.isfinite(pos).all(dim=1)
+        w = torch.where(mask, consts["fit_w"], 0.0)
+        y = torch.where(mask[:, None], pos, 0.0)
+
+        coeffs = polyfit(consts["times"], y, degree, w)  # (deg+1, 2)
+        pred = polyval(consts["x_eval"], coeffs)
+
+        target = pred - cam_mid
+        return state, torch.where(mask.any(), torch.round(target), 0.0).to(torch.int32)
+
+    return CycleController(
+        init=lambda: (), decide=decide, predict_all=_csv_predict_all(params, cam_half, dev), consts=consts
+    )
+
+
+def mlp_max_dist_per_pred(timing: TimingConfig, io_config, max_speed: float = 0.9) -> float:
+    """The MLP controller's clip bound in px: ``max_speed`` (mm/s) in px a
+    frame, times the first prediction offset (MLPController, mlp.py:42-45,
+    in the same float64 operation order)."""
+    max_speed_px_frame = max_speed * (timing.px_per_mm / timing.frames_per_sec)
+    return max_speed_px_frame * io_config.pred_frames[0]
+
+
+def mlp_controller(
+    csv_data: np.ndarray,
+    params: EngineParams,
+    predictor,
+    max_speed_px_frame_total: float,
+    device: str | torch.device = "cuda",
+) -> CycleController:
+    """Neural controller (engine twin of MLPController).
+
+    Args:
+        predictor: a :class:`~wtracker_tpu_torch.models.resmlp.WormPredictor`
+            on ``device``.
+        max_speed_px_frame_total: clip bound in px (:func:`mlp_max_dist_per_pred`).
+    """
+    dev = resolve_device(device)
+    model = predictor.model
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"predictor is on {next(model.parameters()).device}, expected {dev}")
+    consts = {"csv": _table(csv_data, dev)}
+    cam_half, cam_mid = _cam_consts(params, dev)
+    inputs = _FrameOffsets(predictor.io_config.input_frames, dev)
+    max_speed = float(np.float32(max_speed_px_frame_total))  # the JAX package clips at a float32 bound
+
+    def decide(consts, state, ctx: DecideCtx):
+        f = ctx.cycle * params.cycle_n + params.imaging_n
+        bboxes = inputs.rows(consts["csv"], f - params.pred_n)  # (k, 4) absolute
+        cam_center = (ctx.position - cam_half).to(torch.float64) + cam_mid
+        valid = torch.isfinite(bboxes).all()
+
+        rel = bboxes[0, :2] - cam_center
+        origin = bboxes[0, :2]
+        feats = torch.cat([bboxes[:, :2] - origin, bboxes[:, 2:]], dim=1).reshape(1, -1)
+        feats = torch.where(valid, feats, 0.0)  # keep the network NaN-free
+
+        pred = model(feats.to(torch.float32))
+        # clip in float32 (the host clips the float32 model output before widening)
+        pred = pred.reshape(-1).clamp(-max_speed, max_speed).to(torch.float64)
+
+        target = pred[:2] + rel
+        return state, torch.where(valid, torch.round(target), 0.0).to(torch.int32)
+
+    return CycleController(
+        init=lambda: (), decide=decide, predict_all=_csv_predict_all(params, cam_half, dev), consts=consts
+    )
+
+
+# ---------------------------------------------------------------------------
+# stream-batched playback (multi-experiment sweeps)
+# ---------------------------------------------------------------------------
+
+
+def csv_controller_streams(
+    csv_data: np.ndarray, params: EngineParams, device: str | torch.device = "cuda"
+) -> CycleController:
+    """Stream-batched ground-truth playback: ``csv_data`` is (S, N, 4).
+
+    For ``run_engine_streams(..., batched_controller=True)``: S parallel
+    CsvController experiments in one batch (the reference runs these
+    serially).  Like the JAX package's, its decision reads the camera at the
+    current position (no deque quirk).
+    """
+    dev = resolve_device(device)
+    consts = {"csv": _table(csv_data, dev)}
+    cam_half, cam_mid = _cam_consts(params, dev)
+    query = _FrameOffsets([0], dev)
+
+    def decide(consts, state, ctx: DecideCtx):
+        f = ctx.cycle * params.cycle_n + params.imaging_n
+        bbox = query.rows(consts["csv"], f - params.pred_n, dim=1)[:, 0]  # (S, 4)
+        cam_tl = (ctx.position - cam_half).to(torch.float64)
+        rel_xy = bbox[:, :2] - cam_tl
+        center = rel_xy + bbox[:, 2:] / 2
+        target = center - cam_mid
+        valid = torch.isfinite(bbox).all(dim=1)
+        return state, torch.where(valid[:, None], torch.round(target), 0.0).to(torch.int32)
+
+    return CycleController(
+        init=lambda: (), decide=decide, predict_all=_csv_predict_all(params, cam_half, dev, dim=1), consts=consts
     )

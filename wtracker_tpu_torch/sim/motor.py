@@ -1,9 +1,11 @@
-"""Platform motor profile: how a registered (dx, dy) move is spread over frames.
+"""Platform motor profiles: how a registered (dx, dy) move is spread over frames.
 
-Port of :func:`wtracker_tpu.sim.motor.sine_step_weights`.  The sine motor emits
-per-step displacements ``(cos(iπ/n) − cos((i+1)π/n))/2 · d`` rounded to integer
+Port of :func:`wtracker_tpu.sim.motor.sine_step_weights` and
+:func:`~wtracker_tpu.sim.motor.step_weights`.  The sine motor emits per-step
+displacements ``(cos(iπ/n) − cos((i+1)π/n))/2 · d`` rounded to integer
 pixels, carrying the rounding residual into the next step (the engine,
-:mod:`wtracker_tpu_torch.sim.engine`, does the rounding in float64).
+:mod:`wtracker_tpu_torch.sim.engine`, does the rounding in float64); the
+step motor moves the whole distance on one step.
 """
 
 from __future__ import annotations
@@ -19,3 +21,11 @@ def sine_step_weights(n_steps: int) -> np.ndarray:
     """
     i = np.arange(n_steps, dtype=np.float64)
     return (np.cos(i * np.pi / n_steps) - np.cos((i + 1) * np.pi / n_steps)) / 2
+
+
+def step_weights(n_steps: int, move_after_ratio: float = 0.5) -> np.ndarray:
+    """All-at-once profile: the whole move lands on step
+    ``round(n_steps · move_after_ratio)``."""
+    w = np.zeros(n_steps, dtype=np.float64)
+    w[round(n_steps * move_after_ratio)] = 1.0
+    return w

@@ -25,11 +25,12 @@ def _is_quantized_artifact(path: str) -> bool:
         return False
 
 
-def _refuse_unported(detector: str, predictor: str | None) -> None:
-    """int8 artifacts and ``.pt`` checkpoints wait on later slices."""
+def _refuse_unported(detector: str | None, predictor: str | None) -> None:
+    """int8 artifacts and ``.pt`` checkpoints wait on later slices (the
+    ``simulate`` command passes no detector)."""
     checkpoints = (("detector", detector), ("predictor", predictor))
     unported = [f"{kind} {path}" for kind, path in checkpoints if path and path.endswith(".pt")]
-    if detector.endswith(".npz") and _is_quantized_artifact(detector):
+    if detector and detector.endswith(".npz") and _is_quantized_artifact(detector):
         unported.append(f"int8 detector artifact {detector}")
     if unported:
         raise NotImplementedError(
