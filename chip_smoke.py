@@ -68,10 +68,29 @@ live loop over many streams, at full width:
 16. runs the live YOLOv8s@416 + ResMLP loop over 30 streams of exp0-exp4's
     three camera sizes (``yolo_mlp_controller_hetero``, 12 cycles): steps/s,
     0 K1 launches, every stream held to the tracking bar, and in float32 the
-    mixed run against each camera size's streams alone.
+    mixed run against each camera size's streams alone;
+17. runs ``python -m wtracker_tpu_torch.workflows.quantize_detector`` on
+    phase 12's BMPs (64 calibration views at the initial camera window): the
+    int8 artifact of the trained checkpoint that phases 18-22 use;
+18. holds the int8 convolution kernel (K2) against its plain version at
+    every distinct convolution of one int8 forward at 12 views, on the
+    layers' own inputs: ``acc`` and ``logits`` bit-identical, ``silu_q``
+    identical or off by one (counted); times each shape (kernel, plain
+    version, ``torch._int_mm`` for 1x1 shapes) beside its bound;
+19. runs the video loop with the int8 detector over the recording, folded
+    (``track_video``'s route: 0 K1 launches, 62 K2 a forward) and through K1
+    (2 K1 launches a cycle, 63 K2 a forward), each held to the tracking bar;
+20. measures the int8 folded detector's top-1 drift from the bf16 one on 48
+    held-out views (median <= 1 px, >= 75 % within 8 px);
+21. runs phase 9's synthetic loop with the int8 folded detect (steps/s beside
+    phase 9's bf16 steps/s; 62 K2 launches a forward), and holds K2 against
+    its plain version at every convolution shape of one of its 360-view
+    forwards, as phase 18 does at 12 views;
+22. runs ``track_video`` with the int8 artifact on the BMPs, held to the
+    tracking bar.
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 16 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 22 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -81,6 +100,7 @@ from the checkout's root.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -100,6 +120,7 @@ CHECKPOINT = ROOT / "models" / "yolov8s_worm416.npz"
 # the tensor cores.  Bounds below are for the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # crop_letterbox work per output pixel: three 2-tap lerps (sub, mul, add each)
 # and the 1/255 scale
 OPS_PER_OUTPUT_PIXEL = 10
@@ -140,6 +161,11 @@ SWEEP_STREAMS = 96
 HETERO_PER_GEOMETRY = 6
 HETERO_CYCLES = 12
 HETERO_TIMED_RUNS = 3
+# the int8 serving form: the quantize command's calibration views (its
+# default), held-out views of the drift check, timed int8 synthetic runs
+INT8_CALIB_VIEWS = 64
+DRIFT_VIEWS = 48
+INT8_SYNTH_TIMED_RUNS = 2
 
 
 def card_line() -> str:
@@ -788,73 +814,70 @@ def logs_from_csv(path, cycle_n: int):
     return CycleLog(torch.from_numpy(pos), torch.from_numpy(boxes))
 
 
-def track_video_cli(params, recording, cam: int, detector: Path, timing_config: Path) -> dict:
-    """The first CLI_FRAMES frames of the recording as 8-bit BMPs in a
-    temporary directory: the port's ``FrameReader`` reads them back byte for
+def track_video_cli(params, recording, cam: int, detector: Path, timing_config: Path, tmp: Path) -> dict:
+    """The first CLI_FRAMES frames of the recording as 8-bit BMPs in ``tmp``
+    (kept for the int8 phases): the port's ``FrameReader`` reads them back byte for
     byte, whole and as windows, then ``python -m
     wtracker_tpu_torch.workflows.track_video`` tracks them with ``detector``
     (the trained checkpoint), once on whole frames and once with
     ``--roi 480``.  Both ``bboxes.csv`` files must be the same text and hold
     the tracking bar."""
-    import tempfile
 
     from wtracker_tpu_torch.utils.frame_reader import FrameReader
 
     n = CLI_FRAMES
     frames = recording.data[:n]
     out = {"frames": n, "bytes_on_disk": 0}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bmp_") as tmp:
-        tmp = Path(tmp)
-        (tmp / "frames").mkdir()
-        t0 = time.perf_counter()
-        for i, frame in enumerate(frames):
-            write_gray_bmp(tmp / "frames" / f"frame_{i:06d}.bmp", frame)
-        out["write_s"] = time.perf_counter() - t0
-        out["bytes_on_disk"] = sum(p.stat().st_size for p in (tmp / "frames").iterdir())
+    (tmp / "frames").mkdir()
+    t0 = time.perf_counter()
+    for i, frame in enumerate(frames):
+        write_gray_bmp(tmp / "frames" / f"frame_{i:06d}.bmp", frame)
+    out["write_s"] = time.perf_counter() - t0
+    out["bytes_on_disk"] = sum(p.stat().st_size for p in (tmp / "frames").iterdir())
 
-        reader = FrameReader.create_from_directory(str(tmp / "frames"))
-        if len(reader) != n or reader.frame_size != recording.hw:
-            raise AssertionError(f"reader sees {len(reader)} frames of {reader.frame_size}")
-        t0 = time.perf_counter()
-        got = reader.read_batch()
-        out["read_batch_s"] = time.perf_counter() - t0
-        if not np.array_equal(got, frames):
-            raise AssertionError("FrameReader.read_batch differs from the frames written")
-        h, w = recording.hw
-        rng = np.random.default_rng(SEED)
-        win = ROI_WINDOWS[0]
-        tls = np.stack([rng.integers(0, w - win[1] + 1, n), rng.integers(0, h - win[0] + 1, n)], axis=1)
-        tls[-1] = (w - win[1], h - win[0])
-        t0 = time.perf_counter()
-        got = reader.read_window_batch(range(n), tls, win)
-        out["read_window_batch_s"] = time.perf_counter() - t0
-        want = np.stack([frames[i, y : y + win[0], x : x + win[1]] for i, (x, y) in enumerate(tls)])
-        if not np.array_equal(got, want):
-            raise AssertionError("FrameReader.read_window_batch differs from the frames written")
-        del got, want
+    reader = FrameReader.create_from_directory(str(tmp / "frames"))
+    if len(reader) != n or reader.frame_size != recording.hw:
+        raise AssertionError(f"reader sees {len(reader)} frames of {reader.frame_size}")
+    t0 = time.perf_counter()
+    got = reader.read_batch()
+    out["read_batch_s"] = time.perf_counter() - t0
+    if not np.array_equal(got, frames):
+        raise AssertionError("FrameReader.read_batch differs from the frames written")
+    h, w = recording.hw
+    rng = np.random.default_rng(SEED)
+    win = ROI_WINDOWS[0]
+    tls = np.stack([rng.integers(0, w - win[1] + 1, n), rng.integers(0, h - win[0] + 1, n)], axis=1)
+    tls[-1] = (w - win[1], h - win[0])
+    t0 = time.perf_counter()
+    got = reader.read_window_batch(range(n), tls, win)
+    out["read_window_batch_s"] = time.perf_counter() - t0
+    want = np.stack([frames[i, y : y + win[0], x : x + win[1]] for i, (x, y) in enumerate(tls)])
+    if not np.array_equal(got, want):
+        raise AssertionError("FrameReader.read_window_batch differs from the frames written")
+    del got, want
 
-        exp = json.loads((ROOT / "configs" / "exp_config.json").read_text())
-        exp.update(num_frames=n, init_position=[int(round(v)) for v in recording.traj[0]])
-        (tmp / "exp.json").write_text(json.dumps(exp))
-        csv = {}
-        for name, extra in (("whole_frames", []), ("roi", ["--roi", str(win[0])])):
-            cmd = [
-                sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(tmp / "frames"),
-                "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"),
-                "--detector", str(detector), "--output", str(tmp / name), "--device", "cuda", *extra,
-            ]
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600
-            )
-            out[f"{name}_wall_s"] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise AssertionError(f"track_video {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-            out[f"{name}_stdout"] = proc.stdout.strip().splitlines()
-            csv[name] = (tmp / name / "bboxes.csv").read_text()
-        if csv["whole_frames"] != csv["roi"]:
-            raise AssertionError("track_video wrote different bboxes.csv with and without --roi")
-        logs = logs_from_csv(tmp / "roi" / "bboxes.csv", params.cycle_n)
+    exp = json.loads((ROOT / "configs" / "exp_config.json").read_text())
+    exp.update(num_frames=n, init_position=[int(round(v)) for v in recording.traj[0]])
+    (tmp / "exp.json").write_text(json.dumps(exp))
+    csv = {}
+    for name, extra in (("whole_frames", []), ("roi", ["--roi", str(win[0])])):
+        cmd = [
+            sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(tmp / "frames"),
+            "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"),
+            "--detector", str(detector), "--output", str(tmp / name), "--device", "cuda", *extra,
+        ]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600
+        )
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"track_video {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        out[f"{name}_stdout"] = proc.stdout.strip().splitlines()
+        csv[name] = (tmp / name / "bboxes.csv").read_text()
+    if csv["whole_frames"] != csv["roi"]:
+        raise AssertionError("track_video wrote different bboxes.csv with and without --roi")
+    logs = logs_from_csv(tmp / "roi" / "bboxes.csv", params.cycle_n)
     if logs.positions.shape[0] != params.n_logged_cycles(n):
         raise AssertionError(f"bboxes.csv holds {logs.positions.shape[0]} cycles")
     quality = tracking_quality(params, logs, recording)
@@ -1237,6 +1260,344 @@ def hetero_live(models: dict, predictor, device: str = "cuda", per_geometry: int
     return out, lambda: run(models["bf16"])[1]
 
 
+# ---------------------------------------------------------------------------
+# the int8 serving form: quantize command, K2, int8 loops, drift, int8 CLI
+# ---------------------------------------------------------------------------
+
+
+def quantize_cli(tmp: Path, timing_config: Path) -> tuple[dict, Path]:
+    """Phase 17: ``python -m wtracker_tpu_torch.workflows.quantize_detector``
+    on phase 12's BMPs (initial camera window), INT8_CALIB_VIEWS views."""
+    out = tmp / "det_int8.npz"
+    cmd = [
+        sys.executable, "-m", "wtracker_tpu_torch.workflows.quantize_detector", "--detector", str(CHECKPOINT),
+        "--frames", str(tmp / "frames"), "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"),
+        "--calib-frames", str(INT8_CALIB_VIEWS), "--output", str(out), "--device", "cuda",
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"quantize_detector exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return {"wall_s": wall, "calib_views": INT8_CALIB_VIEWS, "stdout": proc.stdout.strip().splitlines()}, out
+
+
+def conv_s8_work(x_shape, w_shape, stride: int, out_bytes: int) -> dict:
+    """One K2 call's work and least time: int8 tensor-core operations (2 per
+    multiply-add) against the bytes (input, weights, scales and bias read
+    once, output written once); the bound is the larger time."""
+    n, h, w, cin = x_shape
+    k, _, _, cout = w_shape
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    m = n * ho * wo
+    ops = 2 * m * cout * k * k * cin
+    moved = n * h * w * cin + k * k * cin * cout + 8 * cout + m * cout * out_bytes
+    t_ops, t_bytes = ops / PEAK_INT8_OPS_PER_S, moved / PEAK_BYTES_PER_S
+    return {
+        "m": m, "ops": ops, "bytes": moved, "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+@contextlib.contextmanager
+def recorded_convs():
+    """Within the block, every int8 forward (``QuantizedYolo.apply`` and
+    ``apply_folded``, so every detect hook over them) records its K2
+    convolutions as it runs them: yields ``(classes, names)``, ``classes``
+    keyed by distinct call shape ``(x, w, stride, epilogue)`` with the first
+    such call's input, node, stride, epilogue and output scale and the layers
+    of that shape; ``names`` every recorded convolution in order."""
+    from wtracker_tpu_torch.models import yolov8_int8 as ti
+
+    classes, names = {}, []
+
+    class Recording(ti._ApplyOps):
+        def _record(self, name, x, stride, epi, s_out):
+            node = self.qw[name]
+            key = (tuple(x.data.shape), tuple(node["w"].shape), stride, epi)
+            classes.setdefault(key, {"layers": [], "args": (x.data, node, stride, epi, s_out)})["layers"].append(name)
+            names.append(name)
+
+        def convbn(self, name, x, stride=1):
+            self._record(name, x, stride, "silu_q", self._scale_of(name))
+            return super().convbn(name, x, stride)
+
+        def plain_conv(self, name, x):
+            self._record(name, x, 1, "logits", None)
+            return super().plain_conv(name, x)
+
+    apply_ops = ti.QuantizedYolo._apply_ops
+    ti.QuantizedYolo._apply_ops = lambda self, qw: Recording(qw, self.absmax)
+    try:
+        yield classes, names
+    finally:
+        ti.QuantizedYolo._apply_ops = apply_ops
+
+
+def compare_conv_classes(classes: dict, kernel_reps: int, plain_reps: int) -> dict:
+    """K2 against its plain version at each recorded shape class (see
+    :func:`recorded_convs`), with the class's own input, weights and scales,
+    in all three epilogues: ``acc`` and ``logits`` bit-identical, ``silu_q``
+    identical or off by 1 (counted).  Then each class timed with the L2
+    flushed: the kernel, the plain version (when ``plain_reps``),
+    ``torch._int_mm`` for 1x1 stride-1 shapes (the product alone: no
+    epilogue), and the bound."""
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_reference
+
+    shapes, mismatched, checked, max_err = [], 0, 0, 0.0
+    for (x_shape, w_shape, stride, epi), c in classes.items():
+        xin, node, _, _, s_out = c["args"]
+        s_q = s_out if s_out is not None else 0.05
+        row = {"x": list(x_shape), "w": list(w_shape), "stride": stride, "epilogue": epi, "count": len(c["layers"]),
+               "first_layer": c["layers"][0]}
+        for e in ("acc", "logits", "silu_q"):
+            got = conv_s8(xin, node["w"], stride, e, node["sw"], node["b"], s_q, wp=node["wp"])
+            torch.cuda.synchronize()
+            want = conv_s8_reference(xin, node["w"], stride, e, node["sw"], node["b"], s_q)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"K2 {row}: {e} output {tuple(got.shape)} {got.dtype}")
+            diff = (got.float() - want.float()).abs()
+            max_err = max(max_err, diff.max().item())
+            if e == "silu_q":
+                if not diff.max().item() <= 1:
+                    raise AssertionError(f"K2 {row}: silu_q differs by {diff.max().item()}")
+                row["silu_q_off_by_one"] = int((diff > 0).sum().item())
+                mismatched += row["silu_q_off_by_one"]
+                checked += diff.numel()
+            elif not torch.equal(got, want):
+                raise AssertionError(f"K2 {row}: {e} differs from the plain version by {diff.max().item()}")
+            del got, want, diff
+        kernel = lambda a=c["args"]: conv_s8(a[0], a[1]["w"], a[2], a[3], a[1]["sw"], a[1]["b"], a[4], wp=a[1]["wp"])
+        plain = lambda a=c["args"]: conv_s8_reference(a[0], a[1]["w"], a[2], a[3], a[1]["sw"], a[1]["b"], a[4])
+        row["ms"] = time_ms(kernel, reps=kernel_reps)
+        row["plain_ms"] = time_ms(plain, reps=plain_reps) if plain_reps else None
+        row["library_ms"] = None
+        if w_shape[0] == 1 and stride == 1:
+            a2 = xin.contiguous().reshape(-1, x_shape[-1])
+            b2 = node["w"].reshape(w_shape[2], w_shape[3])
+            try:
+                acc = conv_s8(xin, node["w"], 1, "acc", wp=node["wp"]).reshape(a2.shape[0], -1)
+                if not torch.equal(torch._int_mm(a2, b2), acc):
+                    raise AssertionError(f"torch._int_mm differs from K2's accumulators at {row}")
+                row["library_ms"] = time_ms(lambda: torch._int_mm(a2, b2), reps=kernel_reps)
+            except RuntimeError as err:  # shapes _int_mm does not take (Cout = 1)
+                row["library_error"] = str(err).splitlines()[0][:120]
+        out_bytes = {"acc": 4, "logits": 2, "silu_q": 1}[epi]
+        row.update(conv_s8_work(x_shape, w_shape, stride, out_bytes))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        shapes.append(row)
+    torch.cuda.empty_cache()
+    return {
+        "distinct_shapes": len(shapes), "silu_q_off_by_one": mismatched, "silu_q_checked": checked,
+        "max_abs_err": max_err, "shapes": shapes,
+    }
+
+
+def check_conv_s8(q, qw, recording, cam: int, imgsz: int, n: int) -> dict:
+    """Phase 18: K2 against its plain version on the card at every distinct
+    convolution of one int8 forward at N views (the unfolded forward, on
+    letterboxed views of the recording: :func:`compare_conv_classes`), each
+    shape timed, and the whole int8 forward timed."""
+    from wtracker_tpu_torch.models.yolov8 import preprocess_batch
+
+    frames = np.linspace(0, len(recording.traj) - 1, n).round().astype(int)
+    views = torch.from_numpy(np.stack([recording.view(f, cam) for f in frames])).cuda()
+    x, _ = preprocess_batch(views, (imgsz, imgsz), dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with recorded_convs() as (classes, names):
+            q.apply(qw, x)
+        torch.cuda.synchronize()
+        checked = compare_conv_classes(classes, kernel_reps=20, plain_reps=10)
+        forward_ms = time_ms(lambda: q.apply(qw, x), reps=10, flush_bytes=0)
+    shapes = checked["shapes"]
+
+    def total(k):
+        return float(sum(r[k] * r["count"] for r in shapes))
+
+    return {
+        "views": n,
+        "convs_per_forward": len(names),
+        **{k: checked[k] for k in ("distinct_shapes", "silu_q_off_by_one", "silu_q_checked", "max_abs_err")},
+        "forward_sum_ms": total("ms"),
+        "forward_sum_plain_ms": total("plain_ms"),
+        "forward_sum_bound_ms": total("bound_ms"),
+        "forward_ops": total("ops"),
+        "forward_bytes": total("bytes"),
+        "forward_ops_bound_ms": total("ops") / PEAK_INT8_OPS_PER_S * 1e3,
+        "forward_bytes_bound_ms": total("bytes") / PEAK_BYTES_PER_S * 1e3,
+        "int8_forward_ms": forward_ms,
+        "library_1x1_sum_ms": float(sum(r["library_ms"] * r["count"] for r in shapes if r["library_ms"] is not None)),
+        "kernel_1x1_sum_ms": float(sum(r["ms"] * r["count"] for r in shapes if r["library_ms"] is not None)),
+        "shapes": shapes,
+    }
+
+
+def int8_video_loops(params, base, recording, num_frames, q, qw, predictor, cam: int, imgsz: int) -> tuple[dict, dict]:
+    """Phase 19: the video loop with the int8 detector over the recording,
+    both routes: folded (the track_video command's: 0 K1 launches, 62 K2 a
+    forward, 2 forwards a cycle) and unfolded through K1 (2 K1 launches a
+    cycle, 63 K2 a forward); each held to the tracking bar; cycles/s of each
+    (a warm-up run, then a timed one).  Returns the phase's numbers and the
+    two loops for --profile."""
+    from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+
+    n_cycles = params.n_logged_cycles(num_frames)
+    det = Int8Detector(q, qw)
+    routes = {
+        "folded": (make_detect_fns(q, src_hw=(cam, cam), imgsz=(imgsz, imgsz), qw=qw), 0, 62),
+        "unfolded_k1": (make_detect_fns(q, qw=qw), 2, 63),
+    }
+    cfg = LiveLoopConfig(**base, use_fused_preproc=True)
+    out, runs, logs_by = {}, {}, {}
+    for name, ((detect, detect_pre), k1_per_cycle, k2_per_forward) in routes.items():
+        kw = dict(detect_fn=detect, detect_preprocessed_fn=detect_pre)
+        runs[name] = lambda kw=kw: run_loop(params, cfg, recording, num_frames, det, predictor, "cuda", **kw)[1]
+        warm = runs[name]()
+        crop_letterbox_views.launches = conv_s8.launches = 0
+        logs, secs = run_loop(params, cfg, recording, num_frames, det, predictor, "cuda", **kw)
+        k1, k2 = crop_letterbox_views.launches, conv_s8.launches
+        if k1 != k1_per_cycle * n_cycles or k2 != k2_per_forward * 2 * n_cycles:
+            raise AssertionError(f"int8 {name} loop: K1 {k1}, K2 {k2} launches in {n_cycles} cycles")
+        quality = tracking_quality(params, logs, recording)
+        check_tracking(quality, cam)
+        logs_by[name] = logs
+        out[name] = {
+            "crop_letterbox_launches": k1, "conv_s8_launches": k2, "conv_s8_launches_per_cycle": k2 / n_cycles,
+            "cycles_per_s": n_cycles / secs, "run_s": [warm, secs], **quality,
+        }
+        log(f"int8 video loop {name}: {out[name]}")
+    pos, box = log_diffs(logs_by["folded"], logs_by["unfolded_k1"])
+    out.update(cycles=n_cycles, folded_vs_unfolded_pos_max_abs_diff=pos, folded_vs_unfolded_box_max_abs_diff=box)
+    return out, runs
+
+
+def int8_drift(model, q, qw, recording, cam: int, imgsz: int) -> dict:
+    """Phase 20: top-1 centre drift of the int8 folded detector against the
+    bf16 folded detector on DRIFT_VIEWS views of frames the calibration never
+    saw (after the first CLI_FRAMES), centred on the worm, conf 0: median
+    <= 1 px and >= 75 % within 8 px (tests/test_yolov8_int8.py's clauses)."""
+    from wtracker_tpu_torch.models.yolov8 import make_folded_detect
+    from wtracker_tpu_torch.models.yolov8_int8 import make_detect_fns
+
+    size = (imgsz, imgsz)
+    frames = np.linspace(CLI_FRAMES, len(recording.traj) - 1, DRIFT_VIEWS).round().astype(int)
+    views = torch.from_numpy(np.stack([recording.view(f, cam) for f in frames])).cuda()
+    detect_int8, _ = make_detect_fns(q, src_hw=(cam, cam), imgsz=size, qw=qw)
+    detect_bf16 = make_folded_detect(model, (cam, cam), size)
+    with torch.inference_mode():
+        got = detect_int8(None, views, size, 0.0).cpu().numpy()
+        ref = detect_bf16(model, views, size, 0.0).cpu().numpy()
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        raise AssertionError("a detector gave no box at conf 0 in the drift check")
+    drift = np.hypot(*((ref[:, :2] + ref[:, 2:] / 2) - (got[:, :2] + got[:, 2:] / 2)).T)
+    out = {
+        "views": len(frames), "median_drift_px": float(np.median(drift)), "within_8px_share": float((drift < 8.0).mean()),
+        "max_drift_px": float(drift.max()), "iou_median": float(np.median(iou(ref, got))),
+    }
+    if not (out["median_drift_px"] <= 1.0 and out["within_8px_share"] >= 0.75):
+        raise AssertionError(f"int8 drifts from bf16: {out}")
+    return out
+
+
+def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, callable, dict]:
+    """Phase 21: the synthetic loop of phase 9 (S=96, 4 sub-batches of 360
+    views, 12 cycles) with the int8 folded detect: steps/s (a warm-up, then
+    INT8_SYNTH_TIMED_RUNS runs) beside phase 9's bf16 steps/s of this call,
+    0 K1 launches and 62 K2 launches a forward, held to the same bar.  The
+    warm-up's convolutions are recorded, and K2 is held to its plain version
+    at every shape of a 360-view forward (:func:`compare_conv_classes`; the
+    kernel timed, not the plain version): returned third."""
+    from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.engine import run_engine_streams
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_stream_batch_fused
+    from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+
+    _, params = bench_setup()
+    S = SYNTH_STREAMS
+    trajs = np.stack([make_trajectory(400, (1400, 1600), seed=i) for i in range(S)])
+    init = np.tile([700, 700], (S, 1))
+    cfg = LiveLoopConfig(
+        imgsz=(416, 416), conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=54.0, detect_chunks=SYNTH_CHUNKS
+    )
+    detect, _ = make_detect_fns(q, src_hw=(params.cam_h, params.cam_w), imgsz=(416, 416), qw=qw)
+    ctl = make_stream_batch_fused(params, cfg, SyntheticScene(), trajs, Int8Detector(q, qw), predictor, detect_fn=detect, device="cuda")
+
+    def run():
+        t0 = time.perf_counter()
+        logs = run_engine_streams(params, ctl, init, SYNTH_CYCLES, delayed_log=True, device="cuda")
+        torch.cuda.synchronize()
+        return logs, time.perf_counter() - t0
+
+    # the warm-up run records every convolution its forwards make; K2 is
+    # then held to its plain version at each shape of its first forward
+    with recorded_convs() as (classes, names):
+        logs, warm_s = run()
+    views = S * params.cycle_n // SYNTH_CHUNKS
+    if {k[0][0] for k in classes} != {views}:
+        raise AssertionError(f"the int8 synthetic loop's convolutions saw batches of {sorted({k[0][0] for k in classes})}")
+    with torch.inference_mode():
+        check = compare_conv_classes(classes, kernel_reps=5, plain_reps=0)
+    del classes
+    # run_engine_streams(delayed_log=True) steps one cycle more than it logs;
+    # each step detects its S x cycle_n views in SYNTH_CHUNKS forwards of 62
+    forwards = SYNTH_CHUNKS * (SYNTH_CYCLES + 1)
+    if len(names) != 62 * forwards:
+        raise AssertionError(f"the int8 synthetic warm-up ran {len(names)} convolutions, expected 62 x {forwards}")
+    crop_letterbox_views.launches = conv_s8.launches = 0
+    secs = [run()[1] for _ in range(INT8_SYNTH_TIMED_RUNS)]
+    k1, k2 = crop_letterbox_views.launches, conv_s8.launches
+    if k1 != 0 or k2 != 62 * forwards * INT8_SYNTH_TIMED_RUNS:
+        raise AssertionError(f"the int8 synthetic loop launched K1 {k1} and K2 {k2} times in {INT8_SYNTH_TIMED_RUNS} runs")
+    quality = synthetic_quality(params, logs, trajs)
+    if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
+        raise AssertionError(f"the int8 synthetic loop lost the worm: {quality}")
+    if not quality["in_camera_share_after_cycle_3"] >= 0.95:
+        raise AssertionError(f"the worm left the camera in the int8 synthetic loop: {quality}")
+    wall = float(np.median(secs))
+    steps = S * SYNTH_CYCLES * params.cycle_n / wall
+    shapes = check["shapes"]
+    for r in shapes:  # counted over the warm-up's forwards: a forward's count
+        r["count"] //= forwards
+    check.update(
+        views=views, convs_per_forward=len(names) // forwards,
+        largest_m_shapes=sorted(shapes, key=lambda r: -r["m"])[:3],
+        forward_sum_ms=float(sum(r["ms"] * r["count"] for r in shapes)),
+        forward_sum_bound_ms=float(sum(r["bound_ms"] * r["count"] for r in shapes)),
+    )
+    return {
+        "streams": S, "cycles": SYNTH_CYCLES, "steps_per_s": steps, "bf16_steps_per_s": bf16_steps_per_s,
+        "int8_over_bf16": steps / bf16_steps_per_s, "warmup_s": warm_s, "run_s": secs,
+        "crop_letterbox_launches": k1, "conv_s8_launches_per_run": k2 / INT8_SYNTH_TIMED_RUNS, **quality,
+    }, lambda: run()[1], check
+
+
+def int8_track_video_cli(params, recording, cam: int, tmp: Path, artifact: Path, timing_config: Path) -> dict:
+    """Phase 22: ``python -m wtracker_tpu_torch.workflows.track_video`` with
+    the int8 artifact on phase 12's BMPs: a 17-column ``bboxes.csv`` of every
+    logged cycle, held to the tracking bar."""
+    cmd = [
+        sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(tmp / "frames"),
+        "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"), "--detector", str(artifact),
+        "--output", str(tmp / "int8"), "--device", "cuda",
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"track_video with the int8 artifact exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    logs = logs_from_csv(tmp / "int8" / "bboxes.csv", params.cycle_n)
+    if logs.positions.shape[0] != params.n_logged_cycles(CLI_FRAMES):
+        raise AssertionError(f"the int8 bboxes.csv holds {logs.positions.shape[0]} cycles")
+    quality = tracking_quality(params, logs, recording)
+    check_tracking(quality, cam)
+    return {"wall_s": wall, "stdout": proc.stdout.strip().splitlines(), **quality}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -1425,7 +1786,12 @@ def main() -> int:
     )[1]
 
     # -- 12. the track_video command over BMP frames ---------------------------
-    cli = track_video_cli(params, recording, cam, CHECKPOINT, ROOT / "configs" / "timing_config.json")
+    # the BMPs stay for the int8 phases; the directory goes at the end (or
+    # when the interpreter exits after a failed phase)
+    bmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bmp_")
+    bmp = Path(bmp_dir.name)
+    timing_path = ROOT / "configs" / "timing_config.json"
+    cli = track_video_cli(params, recording, cam, CHECKPOINT, timing_path, bmp)
     log(f"track_video: whole frames {cli['whole_frames_wall_s']:.1f} s, ROI {cli['roi_wall_s']:.1f} s")
 
     # -- 13. the multi-recording loop --------------------------------------------
@@ -1447,6 +1813,42 @@ def main() -> int:
     log(f"mixed-geometry live loop: {hetero['steps_per_s']:.0f} steps/s")
     del model32
     torch.cuda.empty_cache()
+
+    # -- 17. the quantize_detector command on phase 12's BMPs --------------------
+    from wtracker_tpu_torch.models.yolov8_int8 import QuantizedYolo
+
+    quantized, artifact = quantize_cli(bmp, timing_path)
+    q = QuantizedYolo.load(artifact)
+    qw = q.device_weights("cuda")
+    log(f"quantize_detector: {quantized['wall_s']:.1f} s, {len(q.qweights)} convs")
+
+    # -- 18. K2 against its plain version at every conv shape of a forward -------
+    k2 = check_conv_s8(q, qw, recording, cam, imgsz, params.imaging_n)
+    log(f"K2: {k2['distinct_shapes']} shapes, forward sum {k2['forward_sum_ms']:.3f} ms "
+        f"(plain {k2['forward_sum_plain_ms']:.3f}, bound {k2['forward_sum_bound_ms']:.4f}), "
+        f"silu_q off by one {k2['silu_q_off_by_one']} of {k2['silu_q_checked']}")
+
+    # -- 19. the int8 video loop, folded and through K1 ---------------------------
+    int8_loops, int8_runs = int8_video_loops(params, base, recording, num_frames, q, qw, predictor, cam, imgsz)
+    to_profile.update({f"int8_{k}": v for k, v in int8_runs.items()})
+    k2_launches = int8_loops["folded"]["conv_s8_launches"]
+
+    # -- 20. int8 against bf16 top-1 drift on held-out views ---------------------
+    drift = int8_drift(model, q, qw, recording, cam, imgsz)
+    log(f"int8 vs bf16 drift: {drift}")
+
+    # -- 21. the synthetic loop with the int8 folded detect -----------------------
+    int8_synth, to_profile["int8_synthetic"], k2_360 = int8_synthetic(q, qw, predictor, synthetic["steps_per_s"])
+    log(f"int8 synthetic loop: {int8_synth['steps_per_s']:.0f} steps/s (bf16 {synthetic['steps_per_s']:.0f})")
+    log(f"K2 at {k2_360['views']} views: {k2_360['distinct_shapes']} shapes, forward sum {k2_360['forward_sum_ms']:.3f} ms "
+        f"(bound {k2_360['forward_sum_bound_ms']:.4f}), silu_q off by one {k2_360['silu_q_off_by_one']} "
+        f"of {k2_360['silu_q_checked']}")
+    k2["n360"] = k2_360
+
+    # -- 22. track_video with the int8 artifact ------------------------------------
+    int8_cli = int8_track_video_cli(params, recording, cam, bmp, artifact, timing_path)
+    log(f"track_video int8: {int8_cli['wall_s']:.1f} s")
+    bmp_dir.cleanup()
 
     profile = "--profile" in sys.argv
     profiles = {name: profile_run(run) for name, run in to_profile.items()} if profile else {}
@@ -1485,7 +1887,36 @@ def main() -> int:
                 "launches_replay_sweep_hetero": [
                     replayed["crop_letterbox_launches"], swept["crop_letterbox_launches"], hetero["crop_letterbox_launches"]
                 ],
-            }
+                "launches_int8_unfolded_per_cycle": int8_loops["unfolded_k1"]["crop_letterbox_launches"] / n_cycles,
+                "launches_int8_folded": int8_loops["folded"]["crop_letterbox_launches"],
+            },
+            {
+                # one int8 forward at N=12 views: the sum over its 63 convolutions
+                # of each shape's time (L2 flushed before each call)
+                "name": "conv_s8",
+                "route": "cuda",
+                "source": "wtracker_tpu_torch/csrc/conv_s8.cu",
+                "replaces": "wtracker_tpu/models/yolov8_int8.py:59",
+                "launches": k2_launches,
+                "max_abs_err": max(k2["max_abs_err"], k2_360["max_abs_err"]),
+                "ms": k2["forward_sum_ms"],
+                "plain_ms": k2["forward_sum_plain_ms"],
+                "bound_ms": k2["forward_sum_bound_ms"],
+                "bound_by": "operations" if k2["forward_ops_bound_ms"] >= k2["forward_bytes_bound_ms"] else "bytes",
+                "library_ms": None,
+                "views": params.imaging_n,
+                "bound_share": k2["forward_sum_bound_ms"] / k2["forward_sum_ms"],
+                "silu_q_off_by_one": k2["silu_q_off_by_one"] + k2_360["silu_q_off_by_one"],
+                "silu_q_checked": k2["silu_q_checked"] + k2_360["silu_q_checked"],
+                "views_checked": [params.imaging_n, k2_360["views"]],
+                "ms_n360": k2_360["forward_sum_ms"],
+                "bound_ms_n360": k2_360["forward_sum_bound_ms"],
+                "int8_forward_ms": k2["int8_forward_ms"],
+                "kernel_1x1_sum_ms": k2["kernel_1x1_sum_ms"],
+                "library_1x1_sum_ms": k2["library_1x1_sum_ms"],
+                "launches_per_cycle": {k: int8_loops[k]["conv_s8_launches_per_cycle"] for k in ("folded", "unfolded_k1")},
+                "launches_synthetic_per_run": int8_synth["conv_s8_launches_per_run"],
+            },
         ]
     }
     loop = {
@@ -1526,6 +1957,12 @@ def main() -> int:
     print(json.dumps({"replay": {**replayed, "card": card}}))
     print(json.dumps({"sweep": {**swept, "card": card}}))
     print(json.dumps({"hetero_live": {**hetero, "card": card}}))
+    print(json.dumps({"quantize_cli": {**quantized, "card": card}}))
+    print(json.dumps({"conv_s8": {**k2, "card": card}}))
+    print(json.dumps({"int8_video_loop": {**int8_loops, "card": card}}))
+    print(json.dumps({"int8_drift": {**drift, "card": card}}))
+    print(json.dumps({"int8_synthetic_loop": {**int8_synth, "card": card}}))
+    print(json.dumps({"int8_track_video_cli": {**int8_cli, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

@@ -55,10 +55,16 @@ def recordings():
 
 @pytest.fixture(scope="module")
 def jax_logs(recordings, models):
+    """The JAX loop in one chunk.  Chunked, it races on the CPU: it hands
+    its prefetch buffer to ``jnp.asarray`` (zero-copy on the CPU backend)
+    and dispatches the chunk asynchronously, so under load the prefetch of
+    the chunk after next can overwrite frames that the running chunk still
+    reads.  Chunking does not change the logs; the port's runs below are
+    chunked."""
     (jmodel, jvars, jpred), _ = models
     logs = jax_run_video_live_sharded(
         _params(jax_engine, JaxExperimentConfig, JaxTimingConfig), JaxLiveLoopConfig(**LOOP_KW),
-        _sources(recordings), FR, jmodel, jvars, jpred, np.tile(INIT, (S, 1)), cycles_per_chunk=CHUNK, mesh=None,
+        _sources(recordings), FR, jmodel, jvars, jpred, np.tile(INIT, (S, 1)), cycles_per_chunk=FR, mesh=None,
     )
     return np.asarray(logs.positions), np.asarray(logs.worm_bboxes)
 

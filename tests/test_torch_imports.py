@@ -36,9 +36,12 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.utils.bbox", "wtracker_tpu_torch.sim.engine_hetero",
         "wtracker_tpu_torch.sim.controllers", "wtracker_tpu_torch.sim.controllers.polyfit",
         "wtracker_tpu_torch.workflows.simulate", "wtracker_tpu_torch.workflows.sweep",
+        "wtracker_tpu_torch.ops.conv_s8", "wtracker_tpu_torch.models.yolov8_int8",
+        "wtracker_tpu_torch.workflows.quantize_detector", "wtracker_tpu_torch.utils.flax_init",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()
+    assert (PKG / "csrc" / "conv_s8.cu").is_file()
     assert (PKG / "runtime" / "frame_loader.cpp").is_file()
 
 

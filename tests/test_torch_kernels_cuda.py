@@ -197,3 +197,83 @@ def test_crop_letterbox_reads_nothing_past_the_chunk(mode):
 
 if __name__ == "__main__":
     sys.exit(_guard_run(sys.argv[1]))
+
+
+# ---------------------------------------------------------------------------
+# K2: the int8 convolution with its fused epilogue
+# ---------------------------------------------------------------------------
+
+# (N, H, W, Cin, Cout, k, stride): YOLOv8s@416's kinds of layer at N = 2,
+# odd sizes, Cout = 1 and 5, and the deepest reduction (K = 4,608)
+CONV_SHAPES = [
+    (2, 416, 416, 3, 32, 3, 2),
+    (2, 208, 208, 32, 64, 3, 2),
+    (2, 104, 104, 64, 64, 1, 1),
+    (2, 104, 104, 32, 32, 3, 1),
+    (2, 52, 52, 128, 1, 1, 1),
+    (2, 13, 13, 512, 512, 3, 1),
+    (3, 9, 7, 12, 5, 3, 2),
+]
+
+
+def _conv_data(shape, seed):
+    n, h, w, cin, cout, k, _ = shape
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin)).astype(np.int8)).to(dev)
+    wt = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)).to(dev)
+    sw = torch.from_numpy((rng.uniform(0.5, 1.5, cout) * 9 / (np.sqrt(k * k * cin) * 127**2)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(0, 2, cout).astype(np.float32)).to(dev)
+    return x, wt, sw, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("epilogue", ["acc", "logits", "silu_q"])
+def test_conv_s8_matches_plain_version(shape, epilogue):
+    """``acc`` and ``logits`` bit for bit; ``silu_q`` bit for bit too (the
+    kernel rounds each operation as the plain version's torch operations do;
+    only a tanhf that differs between nvcc's and torch's CUDA math library
+    could move a value by 1, and the bar allows no such case here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_reference, pack_weights
+
+    x, wt, sw, b = _conv_data(shape, 0)
+    stride = shape[-1]
+    before = conv_s8.launches
+    got = conv_s8(x, wt, stride, epilogue, sw, b, 0.037, wp=pack_weights(wt))
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    want = conv_s8_reference(x, wt, stride, epilogue, sw, b, 0.037)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_s8_reads_a_channel_slice_in_place():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_reference, pack_weights
+
+    x, wt, _, _ = _conv_data((2, 52, 52, 64, 64, 3, 1), 1)
+    wide = torch.cat([x, x.flip(-1)], dim=-1)
+    for part in (wide[..., 64:], wide[..., 1:65]):  # 4-byte aligned, and not
+        got = conv_s8(part, wt, 1, "acc", wp=pack_weights(wt))
+        torch.cuda.synchronize()
+        assert torch.equal(got, conv_s8_reference(part.contiguous(), wt, 1, "acc"))
+
+
+@pytest.mark.cuda
+def test_conv_s8_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8, pack_weights
+
+    x, wt, sw, b = _conv_data((1, 8, 8, 8, 4, 3, 1), 2)
+    with pytest.raises(ValueError, match="on cpu"):
+        conv_s8(x, wt.cpu())
+    with pytest.raises(ValueError, match="packed form"):
+        conv_s8(x, wt, 1, "acc", wp=pack_weights(wt)[:-1])
+    with pytest.raises(ValueError, match="packed weights"):
+        conv_s8(x, wt, 1, "acc")

@@ -11,7 +11,6 @@ both packages carry the same weights (:func:`save_predictor`,
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -21,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wtracker_tpu_torch.neural.config import IOConfig
+from wtracker_tpu_torch.utils import flax_init
 from wtracker_tpu_torch.utils.device import resolve_device
 
 ACTIVATIONS = {
@@ -120,16 +120,18 @@ class WormPredictor:
         return self.model(x.to(torch.float32))
 
 
-def _seeded_init(model: nn.Module, seed: int) -> None:
-    """torch's default Linear init (uniform ±1/√fan_in for weight and bias),
-    drawn from one explicit generator; BatchNorm starts at identity."""
-    gen = torch.Generator().manual_seed(seed)
+def _flax_init(model: nn.Module, seed: int) -> None:
+    """The weights of the JAX package's ``model.init(PRNGKey(seed), ...)``:
+    each Dense kernel ``lecun_normal`` from its Flax key
+    (:mod:`wtracker_tpu_torch.utils.flax_init`), zero biases; BatchNorm
+    starts at identity, as torch's does."""
+    root = flax_init.key(seed)
     with torch.no_grad():
-        for mod in model.modules():
+        for name, mod in model.named_modules():
             if isinstance(mod, nn.Linear):
-                bound = 1.0 / math.sqrt(mod.in_features)
-                mod.weight.uniform_(-bound, bound, generator=gen)
-                mod.bias.uniform_(-bound, bound, generator=gen)
+                kernel = flax_init.dense_kernel(root, tuple(name.split(".")), mod.in_features, mod.out_features)
+                mod.weight.copy_(torch.from_numpy(kernel.T.copy()))
+                mod.bias.zero_()
 
 
 def make_rmlp_predictor(
@@ -142,7 +144,9 @@ def make_rmlp_predictor(
     seed: int = 0,
     device: str | torch.device = "cuda",
 ) -> WormPredictor:
-    """Fresh (untrained, seeded) predictor with the reference's default topology."""
+    """Fresh (untrained) predictor with the reference's default topology,
+    holding the weights that the JAX package's ``make_rmlp_predictor`` draws
+    from the same seed."""
     dev = resolve_device(device)
     model = RMLP(
         block_in_dim=block_in_dim,
@@ -153,7 +157,7 @@ def make_rmlp_predictor(
         in_dim=io_config.in_dim,
         batch_norm=batch_norm,
     )
-    _seeded_init(model, seed)
+    _flax_init(model, seed)
     return WormPredictor(model.to(dev).eval(), io_config)
 
 

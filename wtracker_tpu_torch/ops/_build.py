@@ -25,10 +25,13 @@ BUILD_DIR = _PKG / "_build"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of each kernel's entry point: (argtypes, restype).  Pointers and
 # the stream are c_void_p: the default int conversion would cut them to 32 bits.
 SIGNATURES = {
     "crop_letterbox": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "conv_s8": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P], _I),
 }
 
 NVCC_FLAGS = [

@@ -26,6 +26,7 @@ place: each cycle makes new ones.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -95,7 +96,10 @@ class LiveLoopConfig:
 
 
 def _model_device(module: torch.nn.Module) -> torch.device:
-    return next(module.parameters()).device
+    """The device of a module's first parameter, or of its first buffer (the
+    int8 detector, :class:`~wtracker_tpu_torch.models.yolov8_int8.Int8Detector`,
+    holds its weights as buffers)."""
+    return next(itertools.chain(module.parameters(), module.buffers())).device
 
 
 def _check_models_on(dev: torch.device, detector_model: YoloV8, predictor) -> None:

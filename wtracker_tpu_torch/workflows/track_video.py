@@ -13,30 +13,18 @@ from __future__ import annotations
 
 import argparse
 
-import numpy as np
-
-def _is_quantized_artifact(path: str) -> bool:
-    """True for an int8 deployment artifact of the JAX package
-    (``QuantizedYolo.save``: ``__meta__`` plus ``|``-joined keys)."""
-    try:
-        with np.load(path) as z:
-            return "__meta__" in z.files and any("|" in k for k in z.files)
-    except (OSError, ValueError):
-        return False
-
 
 def _refuse_unported(detector: str | None, predictor: str | None) -> None:
-    """int8 artifacts and ``.pt`` checkpoints wait on later slices (the
-    ``simulate`` command passes no detector)."""
+    """``.pt`` checkpoints wait on later slices (the ``simulate`` command
+    passes no detector)."""
     checkpoints = (("detector", detector), ("predictor", predictor))
     unported = [f"{kind} {path}" for kind, path in checkpoints if path and path.endswith(".pt")]
-    if detector and detector.endswith(".npz") and _is_quantized_artifact(detector):
-        unported.append(f"int8 detector artifact {detector}")
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 item 5, the int8 serving form; .pt "
-            "loading also waits on the JAX package's load_torch_checkpoint, resmlp.py:267, which puts a "
-            "discovered package root on sys.path before unpickling: ROADMAP Queue 3). Use a Flax .npz."
+            f"{', '.join(unported)}: not ported yet (detector .pt files: ROADMAP Queue 1 item 14, the "
+            "ultralytics weight port; predictor .pt files: the JAX package's load_torch_checkpoint, "
+            "resmlp.py:267, puts a discovered package root on sys.path before unpickling, ROADMAP Queue 3). "
+            "Use a Flax .npz."
         )
 
 
@@ -45,7 +33,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--frames", required=True, help="directory of frame images")
     ap.add_argument("--timing-config", required=True)
     ap.add_argument("--exp-config", required=True)
-    ap.add_argument("--detector", required=True, help="YOLOv8 weights (Flax .npz of the JAX package)")
+    ap.add_argument(
+        "--detector",
+        required=True,
+        help="YOLOv8 weights (Flax .npz of the JAX package), or an int8 deployment artifact "
+        "from quantize_detector (either package's; detected from the file)",
+    )
     ap.add_argument("--predictor", help="ResMLP checkpoint (.npz); a seeded untrained predictor if omitted")
     ap.add_argument("--output", required=True, help="output folder for bboxes.csv")
     ap.add_argument("--imgsz", type=int, default=416)
@@ -74,6 +67,7 @@ def main(argv: list[str] | None = None) -> None:
 
     from wtracker_tpu_torch.models.resmlp import load_predictor, make_rmlp_predictor
     from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+    from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, QuantizedYolo, is_quantized_artifact, make_detect_fns
     from wtracker_tpu_torch.neural.config import IOConfig
     from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
     from wtracker_tpu_torch.sim.engine import EngineParams, logs_to_frame
@@ -88,8 +82,18 @@ def main(argv: list[str] | None = None) -> None:
     exp = ExperimentConfig.load_json(args.exp_config)
     reader = FrameReader.create_from_directory(args.frames)
 
-    # float32, as the JAX command builds its YoloV8
-    detector = YoloV8Detector.load(args.detector, imgsz=args.imgsz, conf=args.conf, device=dev).fuse()
+    detect_fn = detect_preprocessed_fn = None
+    if args.detector.endswith(".npz") and is_quantized_artifact(args.detector):
+        # the int8 graph: the folded stem where the letterbox does not pad,
+        # through the crop+letterbox kernel otherwise
+        q = QuantizedYolo.load(args.detector)
+        qw = q.device_weights(dev)
+        det_model = Int8Detector(q, qw)
+        cam_hw = (timing.camera_size_px[1], timing.camera_size_px[0])
+        detect_fn, detect_preprocessed_fn = make_detect_fns(q, src_hw=cam_hw, imgsz=(args.imgsz, args.imgsz), qw=qw)
+    else:
+        # float32, as the JAX command builds its YoloV8
+        det_model = YoloV8Detector.load(args.detector, imgsz=args.imgsz, conf=args.conf, device=dev).fuse().model
     if args.predictor:
         predictor = load_predictor(args.predictor, device=dev)
     else:
@@ -112,10 +116,12 @@ def main(argv: list[str] | None = None) -> None:
         cfg,
         lambda s, n, out=None: reader.read_batch(range(s, min(s + n, len(reader))), out=out),
         len(reader),
-        detector.model,
+        det_model,
         predictor,
         exp.init_position,
         cycles_per_chunk=args.chunk_cycles,
+        detect_fn=detect_fn,
+        detect_preprocessed_fn=detect_preprocessed_fn,
         roi_window=args.roi,
         roi_chunk_cycles=args.roi_chunk_cycles,
         window_source=(
