@@ -6,8 +6,9 @@ live loop over many streams, at full width:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every hand-written kernel from ``wtracker_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and prints the compiler's
-   register report;
+   ``nvcc`` per source, all started together), prints the compiler's
+   register report, and counts the int8 convolution's tensor-core
+   instructions in its library (``cuobjdump -sass``: wgmma, no ``__dp4a``);
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and others, 1 to 64 views, crop origins at every
    residue mod 16, the chunk's last byte and a chunk view that is not
@@ -76,7 +77,8 @@ live loop over many streams, at full width:
     every distinct convolution of one int8 forward at 12 views, on the
     layers' own inputs: ``acc`` and ``logits`` bit-identical, ``silu_q``
     identical or off by one (counted); times each shape (kernel, plain
-    version, ``torch._int_mm`` for 1x1 shapes) beside its bound;
+    version, ``torch._int_mm`` for 1x1 shapes) beside its bound, and sums
+    them by class (3x3 stride 1, 3x3 stride 2, 1x1, head logits);
 19. runs the video loop with the int8 detector over the recording, folded
     (``track_video``'s route: 0 K1 launches, 62 K2 a forward) and through K1
     (2 K1 launches a cycle, 63 K2 a forward), each held to the tracking bar;
@@ -1299,6 +1301,68 @@ def conv_s8_work(x_shape, w_shape, stride: int, out_bytes: int) -> dict:
     }
 
 
+def tensor_core_sass(lib: Path) -> dict:
+    """Counts of the tensor-core (and __dp4a) instructions that ``cuobjdump
+    -sass`` finds in a built kernel library: ``IGMMA`` is wgmma on int8
+    (``HGMMA`` its float form: ``ptxas`` adds a predicated-off one to commit
+    a guarded product), ``IMMA`` mma.sync on int8, ``IDP4A`` the CUDA cores'
+    4-way dot product."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, timeout=300, check=True).stdout
+    ops = []
+    for line in sass.splitlines():  # "/*0a70*/  [@P0] IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], ... ;"
+        toks = line.split()
+        if len(toks) > 1 and toks[0].startswith("/*") and toks[0].endswith("*/") and len(toks[0]) > 4:
+            toks = toks[2:] if toks[1].startswith("@") else toks[1:]
+            if toks:
+                ops.append(toks[0].split(".")[0])
+    return {op: ops.count(op) for op in ("IGMMA", "HGMMA", "IMMA", "HMMA", "IDP4A")}
+
+
+def k2_design() -> dict:
+    """K2's design, from the wrapper's mirror of the kernel's constants."""
+    from wtracker_tpu_torch.ops import conv_s8 as k2
+
+    return {
+        "product": "wgmma.mma_async m64nNk32 .s32.s8.s8, A and B K-major in shared memory",
+        "tile": [k2.TILE_H, k2.TILE_W], "block_cols": list(k2.BLOCK_COLS),
+        "stages": k2.STAGES, "stage_bytes": k2.BK,
+        "loads": "TMA boxes (32-byte swizzle) on an mbarrier a stage; a byte gather where Cin % 32 or the alignment forbid",
+        "split_k": f"up to {k2.MAX_SPLIT} blocks of one cluster, partial sums added through distributed shared memory",
+    }
+
+
+CONV_CLASSES = ("3x3_s1", "3x3_s2", "1x1_silu", "head_logits")
+
+
+def conv_class(row: dict) -> str:
+    """K2's shape classes: the 3x3 convolutions at stride 1 and 2, the 1x1
+    SiLU convolutions, and the heads' 1x1 logits."""
+    if row["epilogue"] == "logits":
+        return "head_logits"
+    if row["w"][0] == 1:
+        return "1x1_silu"
+    return f"3x3_s{row['stride']}"
+
+
+def class_sums(shapes: list) -> dict:
+    """Per class: convolutions a forward, and the forward's sums of kernel
+    ms, bound ms, library ms where there is one, with the bound share."""
+    out = {}
+    for cls in CONV_CLASSES:
+        rows = [r for r in shapes if conv_class(r) == cls]
+        ms = float(sum(r["ms"] * r["count"] for r in rows))
+        bound = float(sum(r["bound_ms"] * r["count"] for r in rows))
+        lib = [r for r in rows if r["library_ms"] is not None]
+        out[cls] = {
+            "convs": sum(r["count"] for r in rows), "ms": ms, "bound_ms": bound, "bound_share": bound / ms if ms else None,
+            "split_convs": sum(r["count"] for r in rows if r["plan"]["split"] > 1),
+            "library_ms": float(sum(r["library_ms"] * r["count"] for r in lib)) if lib else None,
+            "kernel_ms_where_library": float(sum(r["ms"] * r["count"] for r in lib)) if lib else None,
+        }
+    return out
+
+
 @contextlib.contextmanager
 def recorded_convs():
     """Within the block, every int8 forward (``QuantizedYolo.apply`` and
@@ -1342,14 +1406,15 @@ def compare_conv_classes(classes: dict, kernel_reps: int, plain_reps: int) -> di
     flushed: the kernel, the plain version (when ``plain_reps``),
     ``torch._int_mm`` for 1x1 stride-1 shapes (the product alone: no
     epilogue), and the bound."""
-    from wtracker_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_reference
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_reference, plan
 
     shapes, mismatched, checked, max_err = [], 0, 0, 0.0
     for (x_shape, w_shape, stride, epi), c in classes.items():
         xin, node, _, _, s_out = c["args"]
         s_q = s_out if s_out is not None else 0.05
+        p = plan(*x_shape, w_shape[3], w_shape[0], stride)
         row = {"x": list(x_shape), "w": list(w_shape), "stride": stride, "epilogue": epi, "count": len(c["layers"]),
-               "first_layer": c["layers"][0]}
+               "first_layer": c["layers"][0], "plan": {"tiles": p.tiles, "bn": p.bn, "split": p.split}}
         for e in ("acc", "logits", "silu_q"):
             got = conv_s8(xin, node["w"], stride, e, node["sw"], node["b"], s_q, wp=node["wp"])
             torch.cuda.synchronize()
@@ -1428,6 +1493,7 @@ def check_conv_s8(q, qw, recording, cam: int, imgsz: int, n: int) -> dict:
         "int8_forward_ms": forward_ms,
         "library_1x1_sum_ms": float(sum(r["library_ms"] * r["count"] for r in shapes if r["library_ms"] is not None)),
         "kernel_1x1_sum_ms": float(sum(r["ms"] * r["count"] for r in shapes if r["library_ms"] is not None)),
+        "classes": class_sums(shapes),
         "shapes": shapes,
     }
 
@@ -1568,6 +1634,7 @@ def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, cal
         largest_m_shapes=sorted(shapes, key=lambda r: -r["m"])[:3],
         forward_sum_ms=float(sum(r["ms"] * r["count"] for r in shapes)),
         forward_sum_bound_ms=float(sum(r["bound_ms"] * r["count"] for r in shapes)),
+        classes=class_sums(shapes),
     )
     return {
         "streams": S, "cycles": SYNTH_CYCLES, "steps_per_s": steps, "bf16_steps_per_s": bf16_steps_per_s,
@@ -1629,6 +1696,10 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
                 log(f"nvcc {name}: {line.strip()}")
     log(f"built {len(reports)} kernel libraries in {build_s:.1f} s")
+    k2_sass = tensor_core_sass(_build.library_path("conv_s8"))
+    log(f"conv_s8 SASS: {k2_sass}")
+    if k2_sass["IGMMA"] == 0 or k2_sass["IDP4A"] != 0:
+        raise AssertionError(f"K2 must compute on the int8 tensor cores (IGMMA) and not with __dp4a: {k2_sass}")
 
     # -- 3. kernels against their plain versions, and their times -----------
     exp = ExperimentConfig.load_json(str(ROOT / "configs" / "exp_config.json"))
@@ -1916,6 +1987,10 @@ def main() -> int:
                 "library_1x1_sum_ms": k2["library_1x1_sum_ms"],
                 "launches_per_cycle": {k: int8_loops[k]["conv_s8_launches_per_cycle"] for k in ("folded", "unfolded_k1")},
                 "launches_synthetic_per_run": int8_synth["conv_s8_launches_per_run"],
+                "design": k2_design(),
+                "sass": k2_sass,
+                "classes": k2["classes"],
+                "classes_n360": k2_360["classes"],
             },
         ]
     }

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``wtracker_tpu_torch`` (nor
-``chip_smoke.py`` and ``sweep_band_rows.py``) imports JAX, Flax, Optax or the JAX package, neither in
+``chip_smoke.py``, ``sweep_band_rows.py`` and ``sweep_conv_s8.py``) imports JAX, Flax, Optax or the JAX package, neither in
 its source nor when imported; and importing the port loads no OpenCV, which
 a GPU host need not have."""
 
@@ -46,7 +46,8 @@ def test_package_has_the_slice_modules():
 
 
 @pytest.mark.parametrize(
-    "path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "sweep_band_rows.py"], ids=lambda p: str(p.relative_to(ROOT))
+    "path", [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "sweep_band_rows.py", "sweep_conv_s8.py"))],
+    ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text(), str(path))

@@ -204,7 +204,10 @@ if __name__ == "__main__":
 # ---------------------------------------------------------------------------
 
 # (N, H, W, Cin, Cout, k, stride): YOLOv8s@416's kinds of layer at N = 2,
-# odd sizes, Cout = 1 and 5, and the deepest reduction (K = 4,608)
+# odd sizes, Cout = 1 and 5, and the deepest reduction (K = 4,608); split-K
+# over a cluster at 13x13 (K = 2,304 and 4,608); spatial sizes 1 and 7 at
+# stride 2; Cout = 8 and 24 (the narrowest tile, and a tile wider than
+# Cout); Cin = 16, aligned but not a TMA box's 32 channels (byte gather)
 CONV_SHAPES = [
     (2, 416, 416, 3, 32, 3, 2),
     (2, 208, 208, 32, 64, 3, 2),
@@ -213,6 +216,13 @@ CONV_SHAPES = [
     (2, 52, 52, 128, 1, 1, 1),
     (2, 13, 13, 512, 512, 3, 1),
     (3, 9, 7, 12, 5, 3, 2),
+    (12, 13, 13, 256, 256, 3, 1),
+    (12, 13, 13, 512, 128, 3, 1),
+    (2, 1, 1, 32, 32, 3, 2),
+    (2, 7, 7, 64, 64, 3, 2),
+    (2, 20, 20, 32, 8, 3, 1),
+    (2, 20, 20, 64, 24, 1, 1),
+    (2, 9, 11, 16, 32, 3, 1),
 ]
 
 
@@ -258,7 +268,8 @@ def test_conv_s8_reads_a_channel_slice_in_place():
 
     x, wt, _, _ = _conv_data((2, 52, 52, 64, 64, 3, 1), 1)
     wide = torch.cat([x, x.flip(-1)], dim=-1)
-    for part in (wide[..., 64:], wide[..., 1:65]):  # 4-byte aligned, and not
+    # 16-byte aligned (TMA boxes), and not (byte gathers)
+    for part in (wide[..., 64:], wide[..., 1:65], wide[..., 8:72]):
         got = conv_s8(part, wt, 1, "acc", wp=pack_weights(wt))
         torch.cuda.synchronize()
         assert torch.equal(got, conv_s8_reference(part.contiguous(), wt, 1, "acc"))
@@ -277,3 +288,9 @@ def test_conv_s8_refuses_what_it_cannot_take():
         conv_s8(x, wt, 1, "acc", wp=pack_weights(wt)[:-1])
     with pytest.raises(ValueError, match="packed weights"):
         conv_s8(x, wt, 1, "acc")
+    before = conv_s8.launches
+    with pytest.raises(ValueError, match="packed form"):
+        conv_s8(x, wt, 1, "acc", wp=pack_weights(wt).view(torch.int32))
+    with pytest.raises(ValueError, match="NHWC int8"):
+        conv_s8(x.to(torch.uint8), wt, 1, "acc", wp=pack_weights(wt))
+    assert conv_s8.launches == before

@@ -346,6 +346,59 @@ def _forward_from_b0(ops, x, nc: int, scale: str):
     return box_out, cls_out
 
 
+class _ShapeOps:
+    """The int8 graph's walker over NHWC shapes alone: records each
+    convolution as ``((N, H, W, Cin, Cout, k, stride), epilogue)``, Cout and
+    k read from the model's layers."""
+
+    def __init__(self, model: YoloV8):
+        self.model = model
+        self.convs: list[tuple[tuple, str]] = []
+
+    def input(self, x):
+        return x
+
+    def _conv(self, name, x, stride, epilogue):
+        cout, cin, k, _ = _conv_node(self.model, name).weight.shape
+        n, h, w, c = x
+        if c != cin:
+            raise ValueError(f"{name} takes {cin} channels, the walk reached it with {c}")
+        self.convs.append(((n, h, w, cin, cout, k, stride), epilogue))
+        pad = k // 2
+        return (n, (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1, cout)
+
+    def convbn(self, name, x, stride=1):
+        return self._conv(name, x, stride, "silu_q")
+
+    def plain_conv(self, name, x):
+        return self._conv(name, x, 1, "logits")
+
+    def add(self, name, a, b):
+        return a
+
+    def concat(self, parts):
+        return (*parts[0][:3], sum(p[3] for p in parts))
+
+    def split2(self, x, c):
+        return (*x[:3], c), (*x[:3], x[3] - c)
+
+    def maxpool(self, x, k=5):
+        return x
+
+    def upsample(self, x):
+        return (x[0], 2 * x[1], 2 * x[2], x[3])
+
+
+def conv_shapes(model: YoloV8, n: int, imgsz: tuple[int, int]) -> list[tuple[tuple, str]]:
+    """Every convolution of the int8 forward of ``model``'s topology over
+    ``n`` views of ``imgsz``, in order: ``((N, H, W, Cin, Cout, k, stride),
+    epilogue)``, the shapes :func:`wtracker_tpu_torch.ops.conv_s8.conv_s8`
+    receives (the first is b0, which the folded forward skips)."""
+    ops = _ShapeOps(model)
+    _forward(ops, (n, *imgsz, 3), model.nc, model.scale)
+    return ops.convs
+
+
 def _check_fused_float32(model: YoloV8) -> None:
     if not model.fused:
         raise ValueError("the int8 path expects a BN-fused detector (fuse_conv_bn)")

@@ -3,8 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  Libraries go to
 ``wtracker_tpu_torch/_build/`` (listed in ``.gitignore``) under a name that
-carries a hash of the source, so an edited source is rebuilt and an unchanged
-one is built once per checkout.  Building happens at first use, never at
+carries a hash of the source, the headers and the flags, so an edited source
+or header is rebuilt and an unchanged one is built once per checkout.  Building happens at first use, never at
 import: machines without ``nvcc`` import every module.
 """
 
@@ -31,7 +31,7 @@ _F = ctypes.c_float
 # the stream are c_void_p: the default int conversion would cut them to 32 bits.
 SIGNATURES = {
     "crop_letterbox": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "conv_s8": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P], _I),
+    "conv_s8": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
 }
 
 NVCC_FLAGS = [
@@ -51,7 +51,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where kernel ``name``'s library goes: the name carries a hash of its
+    source, of every header in ``csrc/`` (any of them may be included) and
+    of the compiler flags, include paths among them."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
