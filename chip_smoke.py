@@ -89,10 +89,25 @@ live loop over many streams, at full width:
     its plain version at every convolution shape of one of its 360-view
     forwards, as phase 18 does at 12 views;
 22. runs ``track_video`` with the int8 artifact on the BMPs, held to the
-    tracking bar.
+    tracking bar;
+23. runs ``python -m wtracker_tpu_torch.workflows.simulate --backend host``
+    (the hook-based simulator) over phase 14's worm log, uncut, with the
+    csv, optimal, polyfit and mlp controllers (four commands started
+    together): each ``bboxes.csv`` is phase
+    14's engine text row for row (mlp: differing rows counted, held to
+    phase 14's bar), with wall time and the loop's cycles/s;
+24. runs the live host loop, ``Simulator`` + ``LoggingController(
+    YoloController)``, over phase 12's BMPs with the trained YOLOv8s@416 in
+    float32 on the card: >= 95 % of decisions detected, the tracking bar,
+    cycles/s, 0 launches of either hand kernel;
+25. writes the trained checkpoint as an ultralytics-layout ``.pt`` and
+    loads it back (state dict and 12-view logits identical to the ``.npz``
+    load's), runs ``track_video --detector X.pt`` on phase 12's BMPs (phase
+    12's CSV byte for byte), and times one ``WeightEvaluator.eval`` on the
+    card over phase 14's log (the CPU's value exactly).
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 22 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 25 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -105,6 +120,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1011,7 +1027,7 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     text, mlp equal positions in >= 99.9 % of frames and none 2 px apart.
     Returns the phase's numbers and, for ``--profile``, a function per
     profiled controller that runs PROFILE_REPLAY_CYCLES cycles."""
-    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor
+    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor, save_predictor
     from wtracker_tpu_torch.neural.config import IOConfig
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.sim import engine as te
@@ -1025,6 +1041,7 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     predictors = {
         dev: make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), seed=SEED, device=dev) for dev in {device, "cpu"}
     }
+    save_predictor(predictors["cpu"], str(tmp / "predictor.npz"))  # phase 23's mlp
 
     def build(name: str, dev: str):
         params = te.EngineParams.from_timing(timing, frame_hw, motor="step" if name == "csv_step" else "sine")
@@ -1059,6 +1076,7 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         if not share >= 0.95:
             raise AssertionError(f"{name}: the worm was in view in only {share:.4f} of the frames")
         texts[name], logs_by[name] = te.logs_to_frame(params, logs).to_csv(index=False), logs
+        (tmp / f"engine_{name}.csv").write_text(texts[name])  # phase 23 holds the host backend to it
         out["controllers"][name] = {
             "cycles_per_s": n / wall, "ms_per_cycle": wall / n * 1e3, "run_s": wall, "worm_in_view_share": share,
         }
@@ -1665,6 +1683,202 @@ def int8_track_video_cli(params, recording, cam: int, tmp: Path, artifact: Path,
     return {"wall_s": wall, "stdout": proc.stdout.strip().splitlines(), **quality}
 
 
+
+# ---------------------------------------------------------------------------
+# the host simulator backend and .pt detectors
+# ---------------------------------------------------------------------------
+
+HOST_CONTROLLERS = ("csv", "optimal", "polyfit", "mlp")
+HOST_YOLO_RUNS = 3  # phase 24: timed runs over the recording after one warm-up run
+# the polyfit_optimizer command's default sample times, for WeightEvaluator
+EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
+
+
+def host_replay(tmp: Path) -> dict:
+    """Phase 23: ``python -m wtracker_tpu_torch.workflows.simulate --backend
+    host`` at phase 14's configuration on its worm log, uncut, with the csv,
+    optimal, polyfit (the command's default, degree 2 at [-15, -10, -5, 0,
+    3]) and mlp (phase 14's predictor, on the card) controllers, one command
+    after another, so that each loop's cycles/s is its own and not shared
+    with the others' start-up.  Each ``bboxes.csv`` (``\\r\\n`` line
+    ends, the csv module's) must be phase 14's engine text row for row; for mlp the rows that
+    differ are counted and held to phase 14's card-against-CPU bar."""
+    exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
+    out = {"controllers": {}}
+    for name in HOST_CONTROLLERS:
+        cmd = [
+            sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--backend", "host",
+            "--timing-config", str(timing_path), "--exp-config", str(exp_path), "--worm-csv", str(tmp / "worm.csv"),
+            "--output", str(tmp / f"host_{name}"), "--controller", name, "--device", "cuda",
+            *(["--predictor", str(tmp / "predictor.npz")] if name == "mlp" else []),
+        ]
+        started = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                              capture_output=True, text=True, timeout=600)
+        stdout, stderr = proc.stdout, proc.stderr
+        wall = time.perf_counter() - started
+        if proc.returncode != 0:
+            raise AssertionError(f"simulate --backend host {name} exited {proc.returncode}:\n{stderr[-4000:]}")
+        stdout = stdout.strip().splitlines()
+        m = re.search(r"\((\d+) cycles, ([\d.]+) s in the simulator loop\)", stdout[-1])
+        if m is None:
+            raise AssertionError(f"simulate --backend host {name} printed {stdout}")
+        cycles, loop_s = int(m.group(1)), float(m.group(2))
+        raw = (tmp / f"host_{name}" / "bboxes.csv").read_bytes()
+        host = raw.decode().replace("\r\n", "\n").splitlines()
+        engine = (tmp / f"engine_{name}.csv").read_text().splitlines()
+        if len(host) != len(engine) or host[0] != engine[0]:
+            raise AssertionError(f"host {name}: {len(host)} lines against the engine's {len(engine)}")
+        differing = [i for i, (a, b) in enumerate(zip(host, engine)) if a != b]
+        row = {
+            "wall_s": wall, "loop_s": loop_s, "cycles": cycles, "cycles_per_s_loop": cycles / loop_s,
+            "cycles_per_s_command": cycles / wall, "crlf_line_ends": raw.count(b"\r\n") == len(host),
+            "rows_differing_from_engine": len(differing), "stdout": stdout,
+        }
+        if differing:
+            if name != "mlp":
+                raise AssertionError(f"host {name} differs from phase 14's engine text at row {differing[0]}:\n"
+                                     f"{host[differing[0]]}\n{engine[differing[0]]}")
+            pos = np.array([[float(v) for v in host[i].split(",")[3:5]] + [float(v) for v in engine[i].split(",")[3:5]]
+                            for i in differing])
+            gap = np.abs(pos[:, :2] - pos[:, 2:]).max()
+            row.update(first_differing_row=differing[0], max_abs_pos_diff_px=float(gap))
+            if not (len(differing) <= 0.001 * (len(host) - 1) and gap <= 2):
+                raise AssertionError(f"host mlp drifts from the engine's: {row}")
+        out["controllers"][name] = row
+        log(f"simulate --backend host {name}: {wall:.1f} s, loop {cycles / loop_s:.0f} cycles/s, "
+            f"{len(differing)} rows differ from the engine")
+    return out
+
+
+def host_yolo_loop(params, recording, bmp: Path, timing_path: Path) -> dict:
+    """Phase 24: the live host loop, ``Simulator`` with
+    ``LoggingController(YoloController)`` over phase 12's BMPs read by the
+    port's ``FrameReader``, the trained YOLOv8s@416 (``.npz``, float32) on
+    the card: the decisions' detection rate, the tracking bar against the
+    rendered track and 0 launches of K1 and K2 on every run, and cycles/s
+    over ``HOST_YOLO_RUNS`` timed runs after a warm-up run."""
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
+    from wtracker_tpu_torch.sim.controllers import LogConfig, LoggingController, YoloConfig, YoloController
+    from wtracker_tpu_torch.sim.simulator import Simulator
+    from wtracker_tpu_torch.utils.frame_reader import FrameReader
+
+    class Counted(YoloController):
+        decisions = detected = 0
+
+        def predict(self, frames):
+            boxes = super().predict(frames)
+            if len(frames) == 1:  # the decision's own detection
+                Counted.decisions += 1
+                Counted.detected += int(np.isfinite(boxes).all())
+            return boxes
+
+    timing = TimingConfig.load_json(str(timing_path))
+    exp = ExperimentConfig.load_json(str(bmp / "exp.json"))
+    cfg = YoloConfig(model_path=str(CHECKPOINT), device="cuda", pred_kwargs={"imgsz": 416, "conf": 0.1})
+    ctl = Counted(timing, cfg)
+    runs = []
+    for i in range(1 + HOST_YOLO_RUNS):  # run 0 is the warm-up (cuDNN's set-up, first BMP reads)
+        Counted.decisions = Counted.detected = 0
+        reader = FrameReader.create_from_directory(str(bmp / "frames"))
+        out_dir = bmp / f"host_yolo_{i}"
+        crop_letterbox_views.launches = conv_s8.launches = 0
+        t0 = time.perf_counter()
+        Simulator(timing, exp, LoggingController(ctl, LogConfig(root_folder=str(out_dir), save_err_view=False)),
+                  reader=reader).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+        if any(launches.values()):
+            raise AssertionError(f"the host YOLO loop launched a hand kernel: {launches}")
+        logs = logs_from_csv(out_dir / "bboxes.csv", params.cycle_n)
+        n = params.n_logged_cycles(len(reader))
+        if logs.positions.shape[0] != n:
+            raise AssertionError(f"the host YOLO log holds {logs.positions.shape[0]} cycles, expected {n}")
+        rate = Counted.detected / max(Counted.decisions, 1)
+        quality = tracking_quality(params, logs, recording)
+        if not rate >= 0.95:
+            raise AssertionError(f"the host YOLO loop detected the worm in {rate:.3f} of its decisions")
+        check_tracking(quality, params.cam_w)
+        runs.append({"wall_s": wall, "cycles_per_s": n / wall})
+    timed = [r["cycles_per_s"] for r in runs[1:]]
+    return {
+        "frames": len(reader), "cycles": n, "decisions": Counted.decisions, "decision_detection_rate": rate,
+        "warm_up": runs[0], "runs": runs[1:], "cycles_per_s": float(np.median(timed)),
+        "cycles_per_s_range": [min(timed), max(timed)], "launches": launches, **quality,
+    }
+
+
+def pt_detectors(params, recording, bmp: Path, replay_tmp: Path, timing_path: Path) -> dict:
+    """Phase 25: the trained checkpoint written as an ultralytics-layout
+    ``.pt`` by the port's ``save_torch_state_dict`` (unfused, BatchNorm
+    kept) and loaded back: its state dict is the ``.npz`` load's bit for
+    bit, a 12-view forward gives identical logits, and ``track_video
+    --detector X.pt`` writes phase 12's whole-frame ``bboxes.csv``
+    byte for byte.  Then one ``WeightEvaluator.eval`` over phase 14's log on
+    the card (timed after a warm-up) equals the CPU's value exactly."""
+    from wtracker_tpu_torch.models.yolo_port import save_torch_state_dict
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector, preprocess_batch
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.sim.config import TimingConfig
+    from wtracker_tpu_torch.sim.controllers import WeightEvaluator
+
+    out = {}
+    crop_letterbox_views.launches = conv_s8.launches = 0
+    npz = YoloV8Detector.load(str(CHECKPOINT), imgsz=416, device="cuda")
+    pt = bmp / "yolov8s_worm416.pt"
+    t0 = time.perf_counter()
+    save_torch_state_dict(npz, str(pt))
+    out["save_s"], out["pt_bytes"] = time.perf_counter() - t0, pt.stat().st_size
+    t0 = time.perf_counter()
+    back = YoloV8Detector.load(str(pt), imgsz=416, device="cuda")
+    out["load_s"] = time.perf_counter() - t0
+    a, b = npz.model.state_dict(), back.model.state_dict()
+    if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the .pt load's state dict differs from the .npz load's")
+    views = torch.from_numpy(np.stack([recording.view(f, params.cam_w) for f in range(0, 240, 20)])).cuda()
+    x, _ = preprocess_batch(views, (416, 416))
+    with torch.inference_mode():
+        la, lb = npz.model(x), back.model(x)
+    if not all(torch.equal(p, q) for p, q in zip([*la[0], *la[1]], [*lb[0], *lb[1]])):
+        raise AssertionError("the .pt and .npz detectors give different logits")
+    out["views"] = len(views)
+
+    cmd = [
+        sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(bmp / "frames"),
+        "--timing-config", str(timing_path), "--exp-config", str(bmp / "exp.json"), "--detector", str(pt),
+        "--output", str(bmp / "whole_frames_pt"), "--device", "cuda",
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600)
+    out["track_video_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"track_video --detector .pt exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    if (bmp / "whole_frames_pt" / "bboxes.csv").read_text() != (bmp / "whole_frames" / "bboxes.csv").read_text():
+        raise AssertionError("track_video with the .pt detector wrote another bboxes.csv than phase 12's")
+    out["track_video_identical_to_phase_12"] = True
+
+    timing = TimingConfig.load_json(str(timing_path))
+    times, target = np.array(EVAL_SAMPLE_TIMES), params.cycle_n + params.imaging_n // 2
+    evals = {dev: WeightEvaluator([str(replay_tmp / "worm.csv")], timing, times, target, device=dev) for dev in ("cuda", "cpu")}
+    weights = np.ones(len(times))
+    evals["cuda"].eval(weights)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = evals["cuda"].eval(weights)
+    out["weight_eval_ms"] = (time.perf_counter() - t0) * 1e3
+    cpu = evals["cpu"].eval(weights)
+    if card != cpu:
+        raise AssertionError(f"WeightEvaluator.eval on the card {card!r} differs from the CPU's {cpu!r}")
+    out.update(weight_eval_columns=int(evals["cpu"].y_input.shape[1]), weight_eval_mae=card, weight_eval_card_equals_cpu=True)
+    out["launches"] = {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+    if any(out["launches"].values()):
+        raise AssertionError(f"the .pt phase launched a hand kernel: {out['launches']}")
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -1870,14 +2084,16 @@ def main() -> int:
     log(f"video streams: {streams['stream_cycles_per_s']:.2f} stream-cycles/s")
 
     # -- 14. replay through the four controllers, and the simulate command ------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as tmp:
-        replayed, profiled = replay(Path(tmp))
-        to_profile.update(profiled)
-        log(f"replay: {({k: round(v['cycles_per_s'], 1) for k, v in replayed['controllers'].items()})} cycles/s")
+    # (its worm log, engine texts and predictor stay for phases 23 and 25)
+    replay_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_replay_")
+    replay_tmp = Path(replay_dir.name)
+    replayed, profiled = replay(replay_tmp)
+    to_profile.update(profiled)
+    log(f"replay: {({k: round(v['cycles_per_s'], 1) for k, v in replayed['controllers'].items()})} cycles/s")
 
-        # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process --
-        swept = sweep(Path(tmp))
-        log(f"sweep: {swept['stream_cycles_per_s']:.0f} stream-cycles/s at S={swept['streams']}")
+    # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process ------
+    swept = sweep(replay_tmp)
+    log(f"sweep: {swept['stream_cycles_per_s']:.0f} stream-cycles/s at S={swept['streams']}")
 
     # -- 16. the live loop over mixed camera geometries --------------------------
     hetero, to_profile["hetero_live"] = hetero_live({"bf16": model, "f32": model32}, predictor)
@@ -1919,7 +2135,24 @@ def main() -> int:
     # -- 22. track_video with the int8 artifact ------------------------------------
     int8_cli = int8_track_video_cli(params, recording, cam, bmp, artifact, timing_path)
     log(f"track_video int8: {int8_cli['wall_s']:.1f} s")
+
+    # -- 23. the host simulator backend: simulate --backend host -------------------
+    t0 = time.perf_counter()
+    host = host_replay(replay_tmp)
+
+    # -- 24. the live host loop with YOLO at full width -----------------------------
+    host_yolo = host_yolo_loop(params, recording, bmp, timing_path)
+    log(f"host YOLO loop: {host_yolo['cycles_per_s']:.2f} cycles/s (median of {HOST_YOLO_RUNS}, "
+        f"{host_yolo['cycles_per_s_range'][0]:.2f}-{host_yolo['cycles_per_s_range'][1]:.2f}; warm-up run "
+        f"{host_yolo['warm_up']['cycles_per_s']:.2f}), decisions detected "
+        f"{host_yolo['decision_detection_rate']:.3f}, median centre error {host_yolo['median_center_err_px']:.2f} px")
+
+    # -- 25. .pt detectors and the weight evaluator on the card ----------------------
+    pt = pt_detectors(params, recording, bmp, replay_tmp, timing_path)
+    log(f".pt detector: track_video {pt['track_video_wall_s']:.1f} s, WeightEvaluator.eval {pt['weight_eval_ms']:.1f} ms")
+    host_phases_s = time.perf_counter() - t0
     bmp_dir.cleanup()
+    replay_dir.cleanup()
 
     profile = "--profile" in sys.argv
     profiles = {name: profile_run(run) for name, run in to_profile.items()} if profile else {}
@@ -1960,6 +2193,7 @@ def main() -> int:
                 ],
                 "launches_int8_unfolded_per_cycle": int8_loops["unfolded_k1"]["crop_letterbox_launches"] / n_cycles,
                 "launches_int8_folded": int8_loops["folded"]["crop_letterbox_launches"],
+                "launches_host_yolo_pt": [host_yolo["launches"]["crop_letterbox"], pt["launches"]["crop_letterbox"]],
             },
             {
                 # one int8 forward at N=12 views: the sum over its 63 convolutions
@@ -1987,6 +2221,7 @@ def main() -> int:
                 "library_1x1_sum_ms": k2["library_1x1_sum_ms"],
                 "launches_per_cycle": {k: int8_loops[k]["conv_s8_launches_per_cycle"] for k in ("folded", "unfolded_k1")},
                 "launches_synthetic_per_run": int8_synth["conv_s8_launches_per_run"],
+                "launches_host_yolo_pt": [host_yolo["launches"]["conv_s8"], pt["launches"]["conv_s8"]],
                 "design": k2_design(),
                 "sass": k2_sass,
                 "classes": k2["classes"],
@@ -2038,6 +2273,9 @@ def main() -> int:
     print(json.dumps({"int8_drift": {**drift, "card": card}}))
     print(json.dumps({"int8_synthetic_loop": {**int8_synth, "card": card}}))
     print(json.dumps({"int8_track_video_cli": {**int8_cli, "card": card}}))
+    print(json.dumps({"host_replay": {**host, "card": card}}))
+    print(json.dumps({"host_yolo_loop": {**host_yolo, "card": card}}))
+    print(json.dumps({"pt_detector": {**pt, "phases_23_25_s": host_phases_s, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

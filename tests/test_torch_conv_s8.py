@@ -100,19 +100,61 @@ def test_accumulators_equal_jax(shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _silu_q_mismatch_report(acc, sw, b, s_out, args, got_q, want_q) -> str:
+    """What a ``silu_q`` mismatch needs to name its cause: each side's
+    stages at the first differing outputs, whether each side gives its own
+    bits again when run a second time, and the process state either side
+    could read (threads, CPU affinity, x64, denormal flushing)."""
+    with jax.disable_jit():
+        jy = acc.astype(jnp.float32) * jnp.asarray(sw, jnp.float32) + jnp.asarray(b, jnp.float32)
+        jh = 0.5 * jy
+        jt = jnp.tanh(jh)
+        jq_again = np.asarray(_jax_epilogue(acc, sw, b, s_out))
+    ty_ = conv_s8(*args, "acc").float() * torch.from_numpy(sw) + torch.from_numpy(b)
+    th = 0.5 * ty_
+    tt = torch.tanh(th)
+    tq_again = conv_s8(*args, "silu_q", torch.from_numpy(sw), torch.from_numpy(b), s_out).numpy()
+    jh, jt, th, tt = (np.asarray(v, np.float32) for v in (jh, jt, th.numpy(), tt.numpy()))
+    lines = [
+        f"silu_q: {int((got_q != want_q).sum())} of {got_q.size} outputs differ; rerun reproduces "
+        f"JAX {np.array_equal(jq_again, want_q)}, torch {np.array_equal(tq_again, got_q)}; torch threads "
+        f"{torch.get_num_threads()}, CPUs {len(os.sched_getaffinity(0))}, x64 {jax.config.jax_enable_x64}, "
+        f"denormals flushed {float(np.float32(1e-39) * np.float32(1)) == 0.0}"
+    ]
+    for i in np.argwhere(got_q != want_q)[:8]:
+        i = tuple(int(v) for v in i)
+        lines.append(
+            f"  at {i}: acc {int(np.asarray(acc)[i])}, h {float(jh[i]).hex()} / {float(th[i]).hex()}, "
+            f"tanh {float(jt[i]).hex()} / {float(tt[i]).hex()}, q {int(want_q[i])} / {int(got_q[i])} (JAX / torch)"
+        )
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_epilogues_equal_jax_op_by_op(shape):
     x, wt, sw, b = _data(shape, 1)
     stride, s_out = shape[-1], 0.037
     acc = jax_conv_s8(jnp.asarray(x), jnp.asarray(wt), stride)
     args = (torch.from_numpy(x), torch.from_numpy(wt), stride)
+    # the stages before the SiLU, so that a mismatch below names the stage
+    # that moved: the accumulators and the float32 pre-activation must be
+    # equal too (the SiLU's tanh differs between XLA and torch by up to 4.5
+    # ulps, which the int8 rounding absorbs on these inputs); a silu_q
+    # mismatch reports each side's stages and whether each side repeats itself
+    got_acc = conv_s8(*args, "acc")
+    np.testing.assert_array_equal(got_acc.numpy(), np.asarray(acc), err_msg="accumulators")
     with jax.disable_jit():
+        want_y = np.asarray(acc.astype(jnp.float32) * jnp.asarray(sw, jnp.float32) + jnp.asarray(b, jnp.float32))
         want_q = np.asarray(_jax_epilogue(acc, sw, b, s_out))
         want_l = np.asarray(_jax_logits(acc, sw, b).astype(jnp.float32))
+    got_y = got_acc.float() * torch.from_numpy(sw) + torch.from_numpy(b)
+    np.testing.assert_array_equal(got_y.numpy(), want_y, err_msg="pre-activation acc·sw + b")
     got_q = conv_s8(*args, "silu_q", torch.from_numpy(sw), torch.from_numpy(b), s_out)
     got_l = conv_s8(*args, "logits", torch.from_numpy(sw), torch.from_numpy(b))
     assert got_q.dtype == torch.int8 and got_l.dtype == torch.bfloat16
-    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    got_q = got_q.numpy()
+    if not np.array_equal(got_q, want_q):
+        pytest.fail(_silu_q_mismatch_report(acc, sw, b, s_out, args, got_q, want_q))
     np.testing.assert_array_equal(got_l.float().numpy(), want_l)
     assert np.abs(want_q.astype(int)).max() > 10  # the scales reach well into int8
 

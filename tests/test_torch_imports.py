@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``wtracker_tpu_torch`` (nor
 ``chip_smoke.py``, ``sweep_band_rows.py`` and ``sweep_conv_s8.py``) imports JAX, Flax, Optax or the JAX package, neither in
 its source nor when imported; and importing the port loads no OpenCV, which
-a GPU host need not have."""
+a GPU host need not have.  OpenCV and tqdm (the card's host has neither) are
+imported only inside the functions that write an image or show a progress
+bar, and every module imports on a Python where both are missing."""
 
 import ast
 import os
@@ -38,6 +40,11 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.workflows.simulate", "wtracker_tpu_torch.workflows.sweep",
         "wtracker_tpu_torch.ops.conv_s8", "wtracker_tpu_torch.models.yolov8_int8",
         "wtracker_tpu_torch.workflows.quantize_detector", "wtracker_tpu_torch.utils.flax_init",
+        "wtracker_tpu_torch.models.yolo_port", "wtracker_tpu_torch.sim.simulator", "wtracker_tpu_torch.sim.view",
+        "wtracker_tpu_torch.sim.controllers.csv", "wtracker_tpu_torch.sim.controllers.optimal",
+        "wtracker_tpu_torch.sim.controllers.logging", "wtracker_tpu_torch.sim.controllers.mlp",
+        "wtracker_tpu_torch.sim.controllers.yolo", "wtracker_tpu_torch.utils.log_utils",
+        "wtracker_tpu_torch.utils.threading_utils", "wtracker_tpu_torch.utils.io_utils",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()
@@ -75,3 +82,32 @@ def test_importing_every_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "LOADED []" in out.stdout
+
+
+OPTIONAL = ("cv2", "tqdm")
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_are_imported_inside_functions(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in tree.body:  # module level only: imports inside functions are lazy
+        if isinstance(node, ast.Import):
+            bad = [a.name for a in node.names if a.name.split(".")[0] in OPTIONAL]
+        elif isinstance(node, ast.ImportFrom):
+            bad = [node.module] if node.module and node.module.split(".")[0] in OPTIONAL else []
+        else:
+            continue
+        assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad} at module level"
+
+
+def test_every_module_imports_without_opencv_and_tqdm():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {OPTIONAL!r}: sys.modules[m] = None  # import of it raises ImportError\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "print('IMPORTED')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "IMPORTED" in out.stdout

@@ -117,13 +117,35 @@ def test_quantize_detector_writes_the_jax_artifact(files, bboxes, capsys):
     np.testing.assert_array_equal(back.qweights["b0"]["w"], got.qweights["b0"]["w"])
 
 
+def _quantize_argv(files, detector: str, out: str) -> list[str]:
+    return [
+        "--detector", detector, "--frames", files["frames"], "--timing-config", files["timing"],
+        "--exp-config", files["exp"], "--output", out, "--calib-frames", str(CALIB), "--imgsz", str(IMGSZ),
+        "--device", "cpu",
+    ]
+
+
 def test_quantize_detector_refuses_a_pt_checkpoint(files, tmp_path):
+    """A ``.pt`` that is not a plain state dict refuses (here empty; a
+    whole-module pickle alike), naming the file, and writes nothing."""
     pt = tmp_path / "det.pt"
     pt.write_bytes(b"")
-    argv = [
-        "--detector", str(pt), "--frames", files["frames"], "--timing-config", files["timing"],
-        "--exp-config", files["exp"], "--output", str(tmp_path / "q.npz"), "--device", "cpu",
-    ]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        quantize_detector.main(argv)
+    with pytest.raises(ValueError, match=r"det\.pt: not a plain state dict"):
+        quantize_detector.main(_quantize_argv(files, str(pt), str(tmp_path / "q.npz")))
     assert not (tmp_path / "q.npz").exists()
+
+
+def test_quantize_detector_reads_a_pt_detector(files, tmp_path):
+    """The detector as the JAX package exports it (``save_torch_state_dict``)
+    gives the artifact of its ``.npz``, exactly."""
+    from wtracker_tpu.models.yolo_port import save_torch_state_dict as jax_save_torch_state_dict
+
+    pt = str(tmp_path / "det.pt")
+    jax_save_torch_state_dict(JaxDetector.load(files["detector"], imgsz=IMGSZ), pt)
+    quantize_detector.main(_quantize_argv(files, pt, str(tmp_path / "from_pt.npz")))
+    quantize_detector.main(_quantize_argv(files, files["detector"], str(tmp_path / "from_npz.npz")))
+    a, b = QuantizedYolo.load(str(tmp_path / "from_pt.npz")), QuantizedYolo.load(str(tmp_path / "from_npz.npz"))
+    assert a.absmax == b.absmax and set(a.qweights) == set(b.qweights)
+    for name, node in b.qweights.items():
+        for k, v in node.items():
+            np.testing.assert_array_equal(a.qweights[name][k], v, err_msg=f"{name}|{k}")

@@ -1,6 +1,6 @@
 """The port's ``simulate`` and ``sweep`` commands against the JAX engine.
 
-Reference: what ``workflows/simulate.py --backend engine`` and
+Reference: what ``workflows/simulate.py`` (both backends) and
 ``workflows/sweep.py`` compute, run in-process (the JAX commands cannot
 import their package as scripts): ``EngineParams.from_timing``, the
 controller factories, ``run_engine`` / ``run_engine_streams`` /
@@ -44,6 +44,8 @@ SIMULATE_RUNS = {
     "polyfit_config": ["--controller", "polyfit", "--polyfit-config", "{polyfit}"],
     "mlp": ["--controller", "mlp", "--predictor", "{predictor}"],
 }
+# the simulate runs repeated with --backend host
+HOST_RUNS = ["csv_step", "polyfit_config", "mlp"]
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +93,12 @@ def ran(files):
     }
     worms = [str(root / f"sweep_worm{i}.csv") for i in range(len(EXPS))]
     sweep_cmd = [sys.executable, "-m", "wtracker_tpu_torch.workflows.sweep", "--worm-csvs", *worms, "--device", "cpu"]
+    cmds.update({
+        f"host_{name}": [sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", *common, "--backend", "host",
+                         "--output", str(root / f"host_{name}"),
+                         *(a.format(polyfit=root / "polyfit.json", predictor=root / "predictor.npz") for a in extra)]
+        for name, extra in SIMULATE_RUNS.items() if name in HOST_RUNS
+    })
     cmds["sweep_mixed"] = [*sweep_cmd, "--exp-configs", *sweep_exps, "--timing-configs",
                            *[str(root / "sweep_timing.json")] * len(EXPS), "--output", str(root / "sweep_mixed")]
     cmds["sweep_homogeneous"] = [*sweep_cmd, "--timing-config", str(root / "timing.json"), "--frame-shape", "608", "698",
@@ -130,6 +138,40 @@ def test_simulate_writes_the_jax_engine_csv(name, files, ran):
     assert len(got.splitlines()) == 1 + 59 * 8  # 59 cycles of 8 frames
 
 
+def _jax_host(root: Path, name: str) -> str:
+    """What the JAX simulate command writes with --backend host, in-process:
+    its ``Simulator`` with the logging wrapper."""
+    from wtracker_tpu.sim import controllers as jc
+    from wtracker_tpu.sim.motor import StepMotorController
+    from wtracker_tpu.sim.simulator import Simulator
+
+    timing = JaxTimingConfig.load_json(str(root / "timing.json"))
+    exp = JaxExperimentConfig.load_json(str(root / "exp.json"))
+    worm = str(root / "worm.csv")
+    if name.startswith("csv"):
+        inner = jc.CsvController(timing, worm)
+    elif name == "polyfit_config":
+        inner = jc.PolyfitController(timing, PolyfitConfig.load_json(str(root / "polyfit.json")), worm)
+    else:
+        inner = jc.MLPController(timing, worm, jax_load_predictor(str(root / "predictor.npz")))
+    out = root / f"jax_host_{name}"
+    motor = StepMotorController(timing) if name == "csv_step" else None
+    ctl = jc.LoggingController(inner, jc.LogConfig(root_folder=str(out), save_err_view=False))
+    Simulator(timing, exp, ctl, motor_controller=motor).run(progress=False)
+    return (out / "bboxes.csv").read_bytes().decode()
+
+
+@pytest.mark.parametrize("name", HOST_RUNS)
+def test_simulate_host_backend_writes_the_jax_host_csv(name, files, ran):
+    """``--backend host``: the JAX host backend's bytes (``\\r\\n`` line ends,
+    the csv module's), and the same rows as the engine's text."""
+    root, _ = files
+    assert f"wrote {root / f'host_{name}'}/bboxes.csv" in ran[f"host_{name}"]
+    got = (root / f"host_{name}" / "bboxes.csv").read_bytes().decode()
+    assert got == _jax_host(root, name)
+    assert got.replace("\r\n", "\n") == (root / name / "bboxes.csv").read_text()
+
+
 def test_sweep_mixed_writes_the_jax_sweep_csvs(files, ran):
     root, sweep_exps = files
     exps = [JaxExperimentConfig.load_json(p) for p in sweep_exps]
@@ -165,10 +207,9 @@ def test_unported_options_raise(files, tmp_path):
     root, sweep_exps = files
     common = ["--timing-config", str(root / "timing.json"), "--exp-config", str(root / "exp.json"),
               "--worm-csv", str(root / "worm.csv"), "--output", str(tmp_path / "out"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        simulate.main([*common, "--backend", "host"])
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        simulate.main([*common, "--controller", "mlp", "--predictor", str(tmp_path / "p.pt")])
+    for backend in ("engine", "host"):  # predictor .pt files still refuse, on both backends
+        with pytest.raises(NotImplementedError, match="Queue 3"):
+            simulate.main([*common, "--backend", backend, "--controller", "mlp", "--predictor", str(tmp_path / "p.pt")])
     with pytest.raises(SystemExit):
         simulate.main([*common, "--controller", "mlp"])  # no predictor
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -175,12 +175,28 @@ def test_track_video_writes_the_jax_csv(files, roi, int8, predictor, capsys):
 
 
 def test_track_video_refuses_unported_checkpoints(files, tmp_path):
+    """What still refuses: a predictor ``.pt`` (the JAX package unpickles
+    whole upstream modules, ROADMAP Queue 3), and a detector ``.pt`` that is
+    not a plain state dict (here empty; a whole-module pickle alike)."""
     pt = tmp_path / "predictor.pt"
     pt.write_bytes(b"")
     argv = _argv(files, str(tmp_path / "out"))
-    for flag, path, where in (("--detector", pt, "Queue 1 item 14"), ("--predictor", pt, "Queue 3")):
+    for flag, error, where in (("--predictor", NotImplementedError, "Queue 3"), ("--detector", ValueError, "not a plain state dict")):
         bad = list(argv)
-        bad[bad.index(flag) + 1] = str(path)
-        with pytest.raises(NotImplementedError, match=where):
+        bad[bad.index(flag) + 1] = str(pt)
+        with pytest.raises(error, match=where):
             track_video.main(bad)
     assert not (tmp_path / "out").exists()
+
+
+def test_track_video_reads_a_pt_detector(files, tmp_path):
+    """The detector as the JAX package exports it (``save_torch_state_dict``,
+    the ultralytics layout) writes the JAX command's text."""
+    from wtracker_tpu.models.yolo_port import save_torch_state_dict as jax_save_torch_state_dict
+
+    pt = str(tmp_path / "detector.pt")
+    jax_save_torch_state_dict(JaxDetector.load(files["detector"], imgsz=IMGSZ), pt)
+    argv = _argv(files, str(tmp_path / "out"))
+    argv[argv.index("--detector") + 1] = pt
+    track_video.main(argv)
+    assert (tmp_path / "out" / "bboxes.csv").read_text() == _jax_csv(files, None)

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wtracker_tpu_torch.ops.image import _interp_matrix, letterbox
+from wtracker_tpu_torch.utils import flax_init
 from wtracker_tpu_torch.utils.device import resolve_device
 
 # scale presets: (depth_multiple, width_multiple, max_channels)
@@ -321,6 +322,30 @@ def make_anchors(imgsz: tuple[int, int], strides: Sequence[int] = STRIDES, offse
     return np.concatenate(points, 0).astype(np.float32), np.concatenate(strd, 0)
 
 
+def decode_predictions(
+    box_logits: Sequence[torch.Tensor],
+    cls_logits: Sequence[torch.Tensor],
+    imgsz: tuple[int, int],
+    reg_max: int = 16,
+):
+    """DFL decode of NHWC per-level logits: (B, A, 4) float32 xyxy boxes in
+    input pixels and (B, A, nc) sigmoid scores, anchors in level order."""
+    b = box_logits[0].shape[0]
+    dev = box_logits[0].device
+    box_flat = torch.cat([t.reshape(b, -1, 4 * reg_max) for t in box_logits], dim=1)
+    cls_flat = torch.cat([t.reshape(b, -1, t.shape[-1]) for t in cls_logits], dim=1)
+
+    anchors, strides = (torch.from_numpy(a).to(dev) for a in make_anchors(imgsz))
+    dist = box_flat.reshape(b, -1, 4, reg_max).float()
+    bins = torch.arange(reg_max, dtype=torch.float32, device=dev)
+    e = torch.exp(dist - dist.amax(dim=-1, keepdim=True))
+    ltrb = (e * bins).sum(dim=-1) / e.sum(dim=-1)  # (B, A, 4)
+
+    tl = (anchors[None] - ltrb[..., :2]) * strides[None]
+    br = (anchors[None] + ltrb[..., 2:]) * strides[None]
+    return torch.cat([tl, br], dim=-1), torch.sigmoid(cls_flat.float())
+
+
 def decode_top1(
     box_logits: Sequence[torch.Tensor],
     cls_logits: Sequence[torch.Tensor],
@@ -580,6 +605,14 @@ class YoloV8Detector:
         """(B, H, W[, C]) uint8 → (B, 4) xywh in source pixels; NaN = no hit."""
         return detect_top1(self.model, frames, self.imgsz, self.conf)
 
+    @torch.inference_mode()
+    def raw(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every anchor's decoded box and scores (:func:`decode_predictions`),
+        on a float32 letterbox, as the JAX package's ``raw``."""
+        x, _ = preprocess_batch(frames, self.imgsz)
+        box_logits, cls_logits = self.model(x)
+        return decode_predictions(box_logits, cls_logits, self.imgsz, self.model.reg_max)
+
     def fuse(self) -> "YoloV8Detector":
         """Inference-fused copy: BN folded into conv weights and biases."""
         return YoloV8Detector(fuse_conv_bn(self.model), self.imgsz, self.conf)
@@ -589,22 +622,83 @@ class YoloV8Detector:
         return YoloV8Detector(copy.deepcopy(self.model).to(dtype), self.imgsz, self.conf)
 
     @staticmethod
+    def init_random(
+        nc: int = 1,
+        scale: str = "s",
+        imgsz: int | tuple[int, int] = (384, 384),
+        conf: float = 0.1,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ) -> "YoloV8Detector":
+        """Fresh float32 detector holding the weights that the JAX package's
+        ``init_random`` draws from the same seed (Flax's default init, drawn
+        in numpy: :func:`_flax_init`)."""
+        dev = resolve_device(device)
+        if isinstance(imgsz, int):
+            imgsz = (imgsz, imgsz)
+        model = YoloV8(nc=nc, scale=scale)
+        _flax_init(model, seed)
+        return YoloV8Detector(model.to(dev).eval(), tuple(imgsz), conf)
+
+    @staticmethod
     def load(
         path: str,
         imgsz: int | tuple[int, int] = 384,
         conf: float = 0.1,
         device: str | torch.device = "cuda",
     ) -> "YoloV8Detector":
-        """Load a Flax ``.npz`` export (``__meta__`` plus ``/``-joined keys,
-        as ``wtracker_tpu``'s ``YoloV8Detector.save`` writes it)."""
-        from wtracker_tpu_torch.convert import load_flax_npz, yolov8_from_flax
-
+        """Load float32 weights, chosen by the file's suffix as the JAX
+        package does: a ``.pt`` state dict in the ultralytics layout
+        (:func:`wtracker_tpu_torch.models.yolo_port.load_ultralytics_checkpoint`),
+        else a Flax ``.npz`` export (``__meta__`` plus ``/``-joined keys, as
+        either package's :meth:`save` writes it)."""
         dev = resolve_device(device)
         if isinstance(imgsz, int):
             imgsz = (imgsz, imgsz)
+        if str(path).endswith(".pt"):
+            from wtracker_tpu_torch.models.yolo_port import load_ultralytics_checkpoint
+
+            return load_ultralytics_checkpoint(path, imgsz=imgsz, conf=conf, device=dev)
+        from wtracker_tpu_torch.convert import load_flax_npz, yolov8_from_flax
+
         meta, variables = load_flax_npz(path)
         state = yolov8_from_flax(variables)
         fused = not any(k.endswith(".bn.weight") for k in state)
         model = YoloV8(nc=meta["nc"], scale=meta["scale"], fused=fused)
         model.load_state_dict(state)
         return YoloV8Detector(model.to(dev).eval(), imgsz, conf)
+
+    def save(self, path: str) -> None:
+        """Write the JAX package's ``.npz`` layout: ``__meta__`` (nc, scale)
+        plus the Flax variables under ``/``-joined keys, float32."""
+        from wtracker_tpu_torch.convert import state_dict_to_flax_flat
+
+        m = self.model
+        if m.b0.conv.weight.dtype != torch.float32:
+            raise ValueError(f"save a float32 model, not a {m.b0.conv.weight.dtype} one (cast it back first)")
+        flat = state_dict_to_flax_flat(m.state_dict())
+        flat["__meta__"] = np.array({"nc": m.nc, "scale": m.scale}, dtype=object)
+        np.savez(path, **flat)
+
+
+# Flax's constant bias inits of the head's last convolutions: box bins start
+# at 1.0, class logits at a ~1 % objectness prior
+_HEAD_BIAS_INIT = {"cv2": 1.0, "cv3": -4.595}
+
+
+def _flax_init(model: YoloV8, seed: int) -> None:
+    """The weights of the JAX package's ``YoloV8.init(PRNGKey(seed), ...)``:
+    each convolution kernel ``lecun_normal`` over fan-in kh·kw·Cin, drawn in
+    Flax's (kh, kw, Cin, Cout) layout from the key of its module path
+    (:mod:`wtracker_tpu_torch.utils.flax_init`); the head's constant biases;
+    BatchNorm at identity, as torch's starts."""
+    root = flax_init.key(seed)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not isinstance(mod, nn.Conv2d):
+                continue
+            out_ch, in_ch, kh, kw = mod.weight.shape
+            kernel = flax_init.lecun_normal(flax_init.param_key(root, tuple(name.split(".")), 1), (kh, kw, in_ch, out_ch))
+            mod.weight.copy_(torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))))
+            if mod.bias is not None:  # before fusing, only the head's last convolutions have one
+                mod.bias.fill_(_HEAD_BIAS_INIT[name.split(".")[-1][:3]])

@@ -14,7 +14,9 @@ Two rules keep the arithmetic the same on the CPU and on the card:
   kernel, whose summation order differs between devices;
 * powers are built by repeated multiplication, which is exact for the
   integral sample times and evaluation points of the controllers (so it
-  equals ``jnp.power`` there).
+  equals ``jnp.power`` there);
+* square roots are correctly rounded on both (:func:`_sqrt`): the card's
+  ``torch.sqrt`` is, torch's float64 one on the CPU is not.
 
 Zero weights exclude samples: a row with ``w == 0`` contributes nothing to
 the normal equations, so a data-dependent mask (missing detections) needs no
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 from functools import reduce
 
+import numpy as np
 import torch
 
 __all__ = ["jacobi_eigh", "lstsq_minnorm", "polyvander", "polyfit", "polyval", "fit_and_eval"]
@@ -35,6 +38,16 @@ __all__ = ["jacobi_eigh", "lstsq_minnorm", "polyvander", "polyfit", "polyval", "
 def _sum0(x: torch.Tensor) -> torch.Tensor:
     """Sum over the first axis as ``((x0 + x1) + x2) + …``."""
     return reduce(torch.add, x.unbind(0))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root.  torch's float64 ``sqrt`` on the CPU
+    is one ulp off for some inputs (about 0.7 % of them on an AVX-512 host:
+    ``sqrt(8)`` among them); the card's and numpy's are correctly rounded,
+    so a CPU tensor goes through numpy."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+    return torch.sqrt(x)
 
 
 def jacobi_eigh(a: torch.Tensor, sweeps: int = 12) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,10 +80,10 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 12) -> tuple[torch.Tensor, torch.
                 rotate = apq.abs() > tiny
                 safe_apq = torch.where(rotate, apq, 1.0)
                 tau = (aqq - app) / (2.0 * safe_apq)
-                root = torch.sqrt(tau * tau + 1.0)
+                root = _sqrt(tau * tau + 1.0)
                 sgn = torch.sign(tau)
                 t = torch.where(sgn == 0, (tau + root).reciprocal(), sgn / (tau.abs() + root))
-                c = torch.sqrt(t * t + 1.0).reciprocal()
+                c = _sqrt(t * t + 1.0).reciprocal()
                 s = t * c
                 c = torch.where(rotate, c, 1.0)
                 ms = torch.where(rotate, s, 0.0) * signs  # (−s, s)
@@ -142,7 +155,7 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
         rhs = rhs * w[:, None]
 
     # column scaling for conditioning, as numpy's polyutils._fit
-    scl = torch.sqrt(_sum0(lhs * lhs))
+    scl = _sqrt(_sum0(lhs * lhs))
     scl = torch.where(scl == 0, 1.0, scl)
 
     rcond = x.shape[0] * torch.finfo(x.dtype).eps

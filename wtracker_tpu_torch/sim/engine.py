@@ -39,7 +39,7 @@ import torch
 
 from wtracker_tpu_torch.ops.polyfit import polyfit, polyval
 from wtracker_tpu_torch.sim.config import TimingConfig
-from wtracker_tpu_torch.sim.motor import sine_step_weights, step_weights
+from wtracker_tpu_torch.sim.motor import integer_motor_steps, sine_step_weights, step_weights
 from wtracker_tpu_torch.utils.device import resolve_device
 
 
@@ -158,15 +158,10 @@ def _move(params: EngineParams, pos: torch.Tensor, dxdy: torch.Tensor, clamp) ->
     residual-carrying integer rounding in float64 over the (small) moving
     phase, with ``clamp`` after every step.  Returns the final position and
     the cycle's per-frame positions (..., cycle_n, 2)."""
-    d = dxdy.to(torch.float64)
-    resid = torch.zeros_like(d)
     moving_positions = []
     p = pos
-    for w in map(float, params.motor_weights):
+    for s in integer_motor_steps(params.motor_weights, dxdy).unbind(0):
         moving_positions.append(p)  # logged before this step's move
-        raw = w * d + resid
-        s = torch.round(raw)
-        resid = raw - s
         p = clamp(p + s.to(pos.dtype))
     imaging = pos.unsqueeze(-2).expand(*pos.shape[:-1], params.imaging_n, 2)
     return p, torch.cat([imaging, torch.stack(moving_positions, dim=-2)], dim=-2)

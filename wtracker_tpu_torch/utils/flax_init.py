@@ -15,7 +15,7 @@ the same weights:
   ``flax_fix_rng_separator`` adds and that is off by default);
 - ``jax.random.truncated_normal`` and ``variance_scaling(1, "fan_in",
   "truncated_normal")``, which is ``lecun_normal``, the kernel init of
-  ``nn.Dense``.
+  ``nn.Dense`` and ``nn.Conv``.
 
 Everything is float32 as in JAX.  XLA's CPU code contracts a product and a
 sum into one fused multiply-add, so those steps are taken here in float64
@@ -132,11 +132,13 @@ def truncated_normal(k: np.ndarray, lower: float, upper: float, shape: tuple[int
     return np.clip(out, np.nextafter(lo, np.float32(np.inf)), np.nextafter(hi, np.float32(-np.inf)))
 
 
-def lecun_normal(k: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
-    """``variance_scaling(1.0, "fan_in", "truncated_normal")`` of a (fan_in,
-    fan_out) Dense kernel: the truncated normal times ``√(1/fan_in) /
-    0.8796…``, the standard deviation of a unit normal cut at ±2."""
-    variance = np.float32(1.0 / shape[0])
+def lecun_normal(k: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """``variance_scaling(1.0, "fan_in", "truncated_normal")`` of a kernel
+    whose last axis is the output: a (fan_in, fan_out) Dense kernel or a
+    (kh, kw, Cin, Cout) Conv kernel, fan-in the product of the other axes.
+    The truncated normal times ``√(1/fan_in) / 0.8796…``, the standard
+    deviation of a unit normal cut at ±2."""
+    variance = np.float32(1.0 / math.prod(shape[:-1]))
     stddev = np.sqrt(variance) / np.float32(0.87962566103423978)
     return truncated_normal(k, -2.0, 2.0, shape) * stddev
 

@@ -20,7 +20,9 @@ import argparse
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--detector", required=True, help="trained weights (Flax .npz of the JAX package)")
+    ap.add_argument(
+        "--detector", required=True, help="trained weights (Flax .npz, or an ultralytics-layout .pt state dict)"
+    )
     ap.add_argument("--frames", required=True, help="directory of recording frames (calibration source)")
     ap.add_argument("--timing-config", required=True)
     ap.add_argument("--exp-config", required=True)
@@ -34,11 +36,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--output", required=True, help="output .npz artifact path")
     ap.add_argument("--device", default="cuda", help="torch device of the calibration forward (default: cuda)")
     args = ap.parse_args(argv)
-    if not args.detector.endswith(".npz"):
-        raise NotImplementedError(
-            f"detector {args.detector}: only a Flax .npz loads in the port; ultralytics .pt checkpoints wait "
-            "on ROADMAP Queue 1 item 14 (detector persistence and the ultralytics weight port)"
-        )
 
     import numpy as np
     import torch

@@ -14,17 +14,17 @@ from __future__ import annotations
 import argparse
 
 
-def _refuse_unported(detector: str | None, predictor: str | None) -> None:
-    """``.pt`` checkpoints wait on later slices (the ``simulate`` command
-    passes no detector)."""
-    checkpoints = (("detector", detector), ("predictor", predictor))
-    unported = [f"{kind} {path}" for kind, path in checkpoints if path and path.endswith(".pt")]
-    if unported:
+def refuse_predictor_pt(predictor: str | None) -> None:
+    """Predictor ``.pt`` files stay refused: the JAX package's
+    ``load_torch_checkpoint`` (``resmlp.py:267``) unpickles whole upstream
+    modules after putting a discovered package root on ``sys.path``, which
+    can run that package's code (ROADMAP Queue 3).  Detector ``.pt`` state
+    dicts load (``YoloV8Detector.load``)."""
+    if predictor and predictor.endswith(".pt"):
         raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet (detector .pt files: ROADMAP Queue 1 item 14, the "
-            "ultralytics weight port; predictor .pt files: the JAX package's load_torch_checkpoint, "
-            "resmlp.py:267, puts a discovered package root on sys.path before unpickling, ROADMAP Queue 3). "
-            "Use a Flax .npz."
+            f"predictor {predictor}: predictor .pt files are not loaded (the JAX package's "
+            "load_torch_checkpoint, resmlp.py:267, puts a discovered package root on sys.path before "
+            "unpickling, ROADMAP Queue 3). Use a Flax .npz."
         )
 
 
@@ -36,8 +36,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument(
         "--detector",
         required=True,
-        help="YOLOv8 weights (Flax .npz of the JAX package), or an int8 deployment artifact "
-        "from quantize_detector (either package's; detected from the file)",
+        help="YOLOv8 weights (Flax .npz of either package, or an ultralytics-layout .pt state dict), "
+        "or an int8 deployment artifact from quantize_detector (either package's; detected from the file)",
     )
     ap.add_argument("--predictor", help="ResMLP checkpoint (.npz); a seeded untrained predictor if omitted")
     ap.add_argument("--output", required=True, help="output folder for bboxes.csv")
@@ -63,7 +63,7 @@ def main(argv: list[str] | None = None) -> None:
     )
     ap.add_argument("--device", default="cuda", help="torch device of the loop (default: cuda)")
     args = ap.parse_args(argv)
-    _refuse_unported(args.detector, args.predictor)
+    refuse_predictor_pt(args.predictor)
 
     from wtracker_tpu_torch.models.resmlp import load_predictor, make_rmlp_predictor
     from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
