@@ -46,8 +46,9 @@ live loop over many streams, at full width:
     to the whole-frame loop of steps 5, 6 and 8, the kernel launched 2 times
     a cycle plus 2 per replayed cycle; then ROI and whole-frame cycles/s in
     turns;
-12. writes the recording's first 16 cycles as 8-bit BMPs (numpy writer: the
-    card's host need not have OpenCV) into a temporary directory, reads them back
+12. writes the recording's first 16 cycles as 8-bit BMPs (the port's image
+    codec, OpenCV's bytes: the card's host need not have OpenCV) into a
+    temporary directory, reads them back
     with the port's ``FrameReader`` byte for byte, and runs ``python -m
     wtracker_tpu_torch.workflows.track_video`` on them with the trained
     checkpoint, whole-frame and with ``--roi 480``: the two ``bboxes.csv``
@@ -58,9 +59,10 @@ live loop over many streams, at full width:
     bfloat16: within 2 px), and its stream-cycles/s;
 14. replays a seeded 61,200-frame worm log at the deployment configuration
     (4,079 cycles) through the csv, optimal, polyfit and mlp controllers and
-    the step motor (cycles/s each), polyfit once more through ``python -m
-    wtracker_tpu_torch.workflows.simulate``, and every run once more on the
-    CPU: the same ``bboxes.csv`` text (mlp: equal positions in >= 99.9 %
+    the step motor (cycles/s each; polyfit's timed run over its first 1,000
+    cycles), polyfit over every cycle through ``python -m
+    wtracker_tpu_torch.workflows.simulate``, and every run once more, uncut,
+    on the CPU: the same ``bboxes.csv`` text (mlp: equal positions in >= 99.9 %
     of frames, none more than 2 px apart);
 15. runs ``python -m wtracker_tpu_torch.workflows.sweep`` over
     configs/exp0-exp4 (mixed geometry, each at its own length), each
@@ -92,8 +94,8 @@ live loop over many streams, at full width:
     tracking bar;
 23. runs ``python -m wtracker_tpu_torch.workflows.simulate --backend host``
     (the hook-based simulator) over phase 14's worm log, uncut, with the
-    csv, optimal, polyfit and mlp controllers (four commands started
-    together): each ``bboxes.csv`` is phase
+    csv, optimal, polyfit and mlp controllers (four commands, one after
+    another): each ``bboxes.csv`` is phase
     14's engine text row for row (mlp: differing rows counted, held to
     phase 14's bar), with wall time and the loop's cycles/s;
 24. runs the live host loop, ``Simulator`` + ``LoggingController(
@@ -104,10 +106,32 @@ live loop over many streams, at full width:
     loads it back (state dict and 12-view logits identical to the ``.npz``
     load's), runs ``track_video --detector X.pt`` on phase 12's BMPs (phase
     12's CSV byte for byte), and times one ``WeightEvaluator.eval`` on the
-    card over phase 14's log (the CPU's value exactly).
+    card over phase 14's log (the CPU's value exactly);
+26. computes the background of a seeded 1,024-frame recording at full size
+    as the per-pixel median of 1,000 probes (``BGExtractor`` on the card:
+    numpy's median on three bands of rows, the static background at >=
+    99.9 % of pixels) and the classical boxes of all its frames
+    (``BoxCalculator``, chunks of 256: frames/s, floods a chunk; the card's
+    boxes equal to the CPU's on 16 frames, each around the worm's track),
+    then splits one chunk's time into its stages (host gather, upload,
+    threshold and morphology, the floods, the rest of the largest-blob
+    step, by CUDA events);
+27. runs ``python -m wtracker_tpu_torch.workflows.initialize_experiment`` on
+    phase 12's BMPs, classical (background and boxes equal to this
+    process's) and with the trained YOLOv8s at 1920 px (the trained scale
+    on whole frames; held to the tracking bar);
+28. runs ``create_yolo_images`` (64 crops of 384 px) on them: each PNG,
+    decoded by the port's codec, is the recording at the seed's window;
+29. runs ``analysis`` on phase 12's ``bboxes.csv`` with BMP worm crops and
+    phase 27's background on the card and on the CPU (the same
+    ``analyzed.csv``), ``DataAnalyzer.calc_precise_error(batched=True)``
+    over phase 14's log (rows/s, card = CPU) and ``visualize
+    --save-frames`` over 30 frames (``VLC.render_frame``'s pixels).
+    Phases 26-29 launch neither hand kernel (asserted: each command runs
+    in a child process that reports its own launch counts).
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 25 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 29 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -170,8 +194,11 @@ STREAM_CYCLES = 8
 STREAM_CHUNK_CYCLES = 4
 # replay at the deployment configuration: every logged cycle of its 61,200
 # frames (4,079); the simulate command's default polyfit sample times;
-# --profile traces a cut of 200 cycles (a polyfit cycle is ~1,500 launches)
+# polyfit's in-process timed run is cut to 1,000 cycles (the simulate command
+# replays every cycle on the card once, and the CPU run too); --profile
+# traces a cut of 200 cycles (a polyfit cycle is ~1,500 launches)
 REPLAY_POLYFIT_TIMES = (-15, -10, -5, 0, 3)
+REPLAY_POLYFIT_TIMED_CYCLES = 1000
 PROFILE_REPLAY_CYCLES = 200
 SWEEP_STREAMS = 96
 # the mixed-geometry live loop: 6 streams of each of exp0-exp4 (30 streams,
@@ -344,6 +371,7 @@ class Recording:
         self.hw = hw
         self.traj = make_trajectory(num_frames, hw, seed=seed + 1, margin=200)
         bg = np.clip(rng.normal(40.0, 6.0, hw), 0, 255).astype(np.uint8)
+        self.background = bg
         self.data = np.repeat(bg[None], num_frames, axis=0)
         win = 32  # half side of the window the blob is drawn in
         dy, dx = np.mgrid[-win:win, -win:win].astype(np.float32)
@@ -371,27 +399,6 @@ class Recording:
         x0 = int(np.clip(round(self.traj[f][0]) - cam // 2, 0, w - cam))
         y0 = int(np.clip(round(self.traj[f][1]) - cam // 2, 0, h - cam))
         return self.data[f, y0 : y0 + cam, x0 : x0 + cam]
-
-
-def write_gray_bmp(path, frame: np.ndarray) -> None:
-    """Write a (H, W) uint8 frame as an 8-bit BMP with a gray palette, the
-    layout OpenCV's ``imwrite`` gives a gray frame (the card's host need not have
-    OpenCV): 54 bytes of headers, 256 palette entries, rows bottom-up, each
-    padded to a multiple of 4 bytes."""
-    h, w = frame.shape
-    row_bytes = (w + 3) // 4 * 4
-    offset = 14 + 40 + 256 * 4
-    header = (
-        b"BM" + np.array([offset + row_bytes * h, 0, offset], "<u4").tobytes()
-        + np.array([40, w, h], "<i4").tobytes() + np.array([1, 8], "<u2").tobytes()
-        + np.array([0, row_bytes * h, 2835, 2835, 256, 0], "<u4").tobytes()
-    )
-    palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, axis=1)
-    palette[:, 3] = 0
-    rows = np.zeros((h, row_bytes), np.uint8)
-    rows[:, :w] = frame[::-1]
-    with open(path, "wb") as f:
-        f.write(header + palette.tobytes() + rows.tobytes())
 
 
 def run_loop(params, config, recording, num_frames, detector, predictor, device, **kw):
@@ -842,6 +849,7 @@ def track_video_cli(params, recording, cam: int, detector: Path, timing_config: 
     the tracking bar."""
 
     from wtracker_tpu_torch.utils.frame_reader import FrameReader
+    from wtracker_tpu_torch.utils.image_codec import imwrite
 
     n = CLI_FRAMES
     frames = recording.data[:n]
@@ -849,7 +857,8 @@ def track_video_cli(params, recording, cam: int, detector: Path, timing_config: 
     (tmp / "frames").mkdir()
     t0 = time.perf_counter()
     for i, frame in enumerate(frames):
-        write_gray_bmp(tmp / "frames" / f"frame_{i:06d}.bmp", frame)
+        if not imwrite(str(tmp / "frames" / f"frame_{i:06d}.bmp"), frame):
+            raise AssertionError(f"cannot write frame {i} as a BMP in {tmp}")
     out["write_s"] = time.perf_counter() - t0
     out["bytes_on_disk"] = sum(p.stat().st_size for p in (tmp / "frames").iterdir())
 
@@ -1021,10 +1030,12 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     [-15, -10, -5, 0, 3]) and mlp (the seeded predictor) controllers and the
     csv controller on the step motor, at the deployment configuration over a
     seeded 61,200-frame worm log: cycles/s a controller (after a 20-cycle
-    warm-up), polyfit once more through ``python -m
-    wtracker_tpu_torch.workflows.simulate`` (wall time), and the same runs
-    on the CPU: csv, optimal, polyfit and step give the same ``bboxes.csv``
-    text, mlp equal positions in >= 99.9 % of frames and none 2 px apart.
+    warm-up; polyfit's timed run over its first REPLAY_POLYFIT_TIMED_CYCLES
+    cycles), polyfit over every cycle through ``python -m
+    wtracker_tpu_torch.workflows.simulate`` (wall time; the timed run's
+    text is its first rows), and the same runs uncut on the CPU: csv,
+    optimal, polyfit and step give the same ``bboxes.csv`` text, mlp equal
+    positions in >= 99.9 % of frames and none 2 px apart.
     Returns the phase's numbers and, for ``--profile``, a function per
     profiled controller that runs PROFILE_REPLAY_CYCLES cycles."""
     from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor, save_predictor
@@ -1069,8 +1080,9 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     texts, logs_by = {}, {}
     for name in names:
         run(name, device, 20)  # warm-up
-        params, logs, wall = run(name, device)
-        if logs.positions.shape != (n, params.cycle_n, 2):
+        cycles = REPLAY_POLYFIT_TIMED_CYCLES if name == "polyfit" else n
+        params, logs, wall = run(name, device, cycles)
+        if logs.positions.shape != (cycles, params.cycle_n, 2):
             raise AssertionError(f"{name}: log shape {tuple(logs.positions.shape)}")
         share = worm_in_view_share(params, logs, table)
         if not share >= 0.95:
@@ -1078,9 +1090,10 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         texts[name], logs_by[name] = te.logs_to_frame(params, logs).to_csv(index=False), logs
         (tmp / f"engine_{name}.csv").write_text(texts[name])  # phase 23 holds the host backend to it
         out["controllers"][name] = {
-            "cycles_per_s": n / wall, "ms_per_cycle": wall / n * 1e3, "run_s": wall, "worm_in_view_share": share,
+            "cycles": cycles, "cycles_per_s": cycles / wall, "ms_per_cycle": wall / cycles * 1e3, "run_s": wall,
+            "worm_in_view_share": share,
         }
-        log(f"replay {name}: {n / wall:.1f} cycles/s")
+        log(f"replay {name}: {cycles / wall:.1f} cycles/s over {cycles} cycles")
     if crop_letterbox_views.launches != 0:
         raise AssertionError(f"the replay controllers launched K1 {crop_letterbox_views.launches} times")
     out["crop_letterbox_launches"] = crop_letterbox_views.launches
@@ -1096,8 +1109,11 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     out["cli_polyfit_wall_s"] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"simulate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    if (tmp / "simulate" / "bboxes.csv").read_text() != texts["polyfit"]:
-        raise AssertionError("the simulate command wrote another bboxes.csv than the in-process polyfit run")
+    cli_text = (tmp / "simulate" / "bboxes.csv").read_text()
+    if cli_text.count("\n") != 1 + n * params.cycle_n or not cli_text.startswith(texts["polyfit"]):
+        raise AssertionError("the simulate command's bboxes.csv does not begin with the in-process polyfit run's")
+    texts["polyfit"] = cli_text
+    (tmp / "engine_polyfit.csv").write_text(cli_text)
     out["cli_stdout"] = proc.stdout.strip().splitlines()
 
     # the same runs on the CPU
@@ -1879,6 +1895,346 @@ def pt_detectors(params, recording, bmp: Path, replay_tmp: Path, timing_path: Pa
         raise AssertionError(f"the .pt phase launched a hand kernel: {out['launches']}")
     return out
 
+
+# ---------------------------------------------------------------------------
+# dataset and evaluation tools (phases 26-29)
+# ---------------------------------------------------------------------------
+
+DATASET_FRAMES = 1024  # phase 26's recording: the box calculator's frames
+BG_PROBES = 1000  # the deployment's background probes (initialize_experiment's default)
+BOX_CHUNK = 256  # BoxCalculator's default chunk
+BOX_CPU_FRAMES = 16  # frames whose boxes the card machine's CPU computes too
+MEDIAN_CHECK_ROWS = 8  # rows of each of three bands held against numpy's median
+YOLO_INIT_IMGSZ = 1920  # initialize_experiment --detector yolo on whole frames: the trained scale
+YOLO_INIT_BATCH = 16
+SAMPLE_COUNT, SAMPLE_SIZE = 64, 384
+VIS_FRAMES = 30
+
+
+# a workflow command run as ``python -m`` runs it, whose last line of output
+# is that process's launch counts of the two hand kernels
+COUNTED_COMMAND = """
+import json, runpy, sys
+from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    print(json.dumps({"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}))
+"""
+
+
+def run_cli(name: str, args: list, timeout: int = 600, env: dict | None = None) -> tuple[float, str, dict]:
+    """``python -m wtracker_tpu_torch.workflows.<name> ARGS`` in a child
+    process: wall seconds, stdout, and the K1/K2 launches counted in that
+    process; raises on failure."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", COUNTED_COMMAND, f"wtracker_tpu_torch.workflows.{name}", *map(str, args)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})}, capture_output=True, text=True, timeout=timeout,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    stdout, _, counts = proc.stdout.rstrip("\n").rpartition("\n")
+    return wall, stdout, json.loads(counts)
+
+
+def zero_hand_kernel_launches() -> None:
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+
+    crop_letterbox_views.launches = conv_s8.launches = 0
+
+
+def check_no_hand_kernel(phase: str, commands: list[dict] = ()) -> dict:
+    """The launch counts of K1 and K2 in this process since the last zeroing
+    plus those each of ``commands`` (``run_cli``'s counts) reported; raises
+    unless both are 0."""
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+
+    launches = {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+    for counts in commands:
+        launches = {k: v + counts[k] for k, v in launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{phase} launched a hand kernel: {launches}")
+    return {**launches, "commands_counted": len(commands)}
+
+
+def dataset_tools(hw: tuple[int, int], device: str = "cuda") -> dict:
+    """Phase 26: ``BGExtractor`` (median over BG_PROBES probes of a seeded
+    DATASET_FRAMES-frame recording at full size, 2.4 GB of probes) equal to
+    numpy's median on three bands of rows and to the recording's static
+    background at >= 99.9 % of pixels; then ``BoxCalculator`` over all
+    DATASET_FRAMES frames in chunks of BOX_CHUNK (frames/s after a warm-up
+    chunk, floods a chunk), the card's boxes equal to the CPU's on
+    BOX_CPU_FRAMES frames, every box around the worm's track point; then
+    one chunk taken apart into its stages (``chunk_split``)."""
+    from wtracker_tpu_torch.dataset import BGExtractor, BoxCalculator
+    from wtracker_tpu_torch.ops.morphology import largest_component_bbox
+    from wtracker_tpu_torch.utils.frame_reader import ArrayReader
+
+    zero_hand_kernel_launches()
+    t0 = time.perf_counter()
+    rec = Recording(DATASET_FRAMES, hw, SEED + 26)
+    out = {"frames": DATASET_FRAMES, "hw": list(hw), "probes": BG_PROBES, "recording_s": time.perf_counter() - t0}
+    reader = ArrayReader(rec.data)
+    t0 = time.perf_counter()
+    bg = BGExtractor(reader).calc_background(BG_PROBES, device=device)
+    out["background_s"] = time.perf_counter() - t0
+    ids = np.unique(np.linspace(0, DATASET_FRAMES - 1, num=BG_PROBES).astype(int))
+    for y0 in (0, hw[0] // 2, hw[0] - MEDIAN_CHECK_ROWS):
+        rows = slice(y0, y0 + MEDIAN_CHECK_ROWS)
+        want = np.median(rec.data[ids, rows], axis=0).astype(np.uint8)
+        if not np.array_equal(bg[rows], want):
+            raise AssertionError(f"the card's median differs from numpy's in rows {y0}-{y0 + MEDIAN_CHECK_ROWS}")
+    out["median_equals_numpy_rows"] = 3 * MEDIAN_CHECK_ROWS
+    out["static_background_share"] = float((bg == rec.background).mean())
+    if not out["static_background_share"] >= 0.999:
+        raise AssertionError(f"the median is the static background at only {out['static_background_share']:.5f}")
+
+    BoxCalculator(reader, bg, device=device).calc_specified_boxes(range(BOX_CHUNK), chunk_size=BOX_CHUNK)  # warm-up
+    cuda_sync(device)
+    calc = BoxCalculator(reader, bg, device=device)
+    largest_component_bbox.floods = 0
+    t0 = time.perf_counter()
+    boxes = calc.calc_all_boxes(chunk_size=BOX_CHUNK)
+    out["boxes_s"] = time.perf_counter() - t0
+    out["frames_per_s"] = DATASET_FRAMES / out["boxes_s"]
+    out["floods_per_chunk"] = largest_component_bbox.floods / -(-DATASET_FRAMES // BOX_CHUNK)
+    picks = np.random.default_rng(SEED).choice(DATASET_FRAMES, BOX_CPU_FRAMES, replace=False)
+    t0 = time.perf_counter()
+    cpu = BoxCalculator(reader, bg, device="cpu").calc_specified_boxes(picks, chunk_size=BOX_CPU_FRAMES)
+    out["cpu_boxes_s"] = time.perf_counter() - t0
+    if not np.array_equal(cpu, boxes[picks]):
+        raise AssertionError(f"the card's boxes differ from the CPU's:\n{boxes[picks]}\n{cpu}")
+    out["card_equals_cpu_frames"] = BOX_CPU_FRAMES
+    cx, cy = rec.traj[:, 0], rec.traj[:, 1]
+    inside = (boxes[:, 0] <= cx) & (cx < boxes[:, 0] + boxes[:, 2]) & (boxes[:, 1] <= cy) & (cy < boxes[:, 1] + boxes[:, 3])
+    if not inside.all():
+        raise AssertionError(f"{int((~inside).sum())} boxes miss the worm's track point, first at frame {np.argmin(inside)}")
+    out["box_wh_median"] = np.median(boxes[:, 2:], axis=0).tolist()
+    out["chunk_ms_in_run"] = out["boxes_s"] * 1e3 / -(-DATASET_FRAMES // BOX_CHUNK)
+    out["chunk_split"] = chunk_split(reader, bg, boxes, device)
+    out["launches"] = check_no_hand_kernel("phase 26")
+    return out
+
+
+def chunk_split(reader, background: np.ndarray, boxes: np.ndarray, device: str = "cuda") -> dict:
+    """Phase 26's split of one BOX_CHUNK-frame chunk of ``BoxCalculator``
+    into the stages ``worm_bboxes_batch`` runs (its default threshold and
+    window sizes): the host gather (``read_batch``), the pageable upload,
+    the threshold with opening and dilation, the whole largest-blob step,
+    its floods replayed alone (as many as the step ran: without the step's
+    host reads of convergence, every 8 floods), and the boxes' download.
+    Device stages by CUDA events, ms; the gather by the host clock.  The
+    chunk's boxes must be ``boxes``' first rows."""
+    from wtracker_tpu_torch.ops import morphology as mo
+
+    dev = torch.device(device)
+
+    def stamp():
+        if dev.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def ms(a, b) -> float:
+        return a.elapsed_time(b) if dev.type == "cuda" else (b - a) * 1e3
+
+    bg = torch.from_numpy(np.ascontiguousarray(background)).to(dev)
+    cuda_sync(dev)
+    t0 = time.perf_counter()
+    frames = reader.read_batch(np.arange(BOX_CHUNK))
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    mo.largest_component_bbox.floods = 0
+    marks = [stamp()]
+    x = torch.from_numpy(frames).to(dev)
+    marks.append(stamp())
+    mask = mo.dilate(mo.opening((x.to(torch.int32) - bg.to(torch.int32)).abs() > 20, 5), 11)
+    marks.append(stamp())
+    box, found = mo.largest_component_bbox(mask)
+    marks.append(stamp())
+    box, found = box.cpu().numpy(), found.cpu().numpy()
+    marks.append(stamp())
+    cuda_sync(dev)
+    floods = mo.largest_component_bbox.floods
+    box[~found] = 0
+    if not np.array_equal(box, boxes[:BOX_CHUNK]):
+        raise AssertionError("the split chunk's boxes differ from BoxCalculator's")
+    h, w = mask.shape[-2:]
+    neg = torch.where(mask, -torch.arange(h * w, dtype=torch.float32, device=dev).reshape(h, w), -float("inf"))
+    cuda_sync(dev)
+    f0 = stamp()
+    for _ in range(floods):
+        neg = mo._propagate_negated(neg, mask)
+    f1 = stamp()
+    cuda_sync(dev)
+    stages = ("upload_ms", "threshold_morphology_ms", "largest_blob_ms", "download_ms")
+    out = {"frames": BOX_CHUNK, "gather_ms": gather_ms,
+           **{k: ms(a, b) for k, a, b in zip(stages, marks, marks[1:])}, "floods": floods, "floods_alone_ms": ms(f0, f1)}
+    out["total_ms"] = gather_ms + sum(out[k] for k in stages)
+    return out
+
+
+def initialize_experiment_cli(recording, bmp: Path, device: str = "cuda") -> dict:
+    """Phase 27: ``initialize_experiment`` on phase 12's BMPs, ``--detector
+    classical`` (its background and boxes equal to ``BGExtractor`` and
+    ``BoxCalculator`` in this process on the same frames), then ``--detector
+    yolo`` with the trained checkpoint at YOLO_INIT_IMGSZ: whole frames at
+    1920 px keep the worm at the scale the detector was trained on (a 360
+    px view at 416; at 416 px a whole frame shrinks it fourfold), and the
+    boxes are held to the tracking bar (>= 95 % detected, median centre
+    error <= 4 px).  Each command's K1/K2 launches are counted in its own
+    process."""
+    import pandas as pd
+
+    from wtracker_tpu_torch.dataset import BGExtractor, BoxCalculator
+    from wtracker_tpu_torch.utils.frame_reader import FrameReader
+
+    zero_hand_kernel_launches()
+    frames, out = bmp / "frames", {}
+    out["classical_wall_s"], stdout, classical_launches = run_cli("initialize_experiment", [
+        "--frames", frames, "--output", bmp / "init_classical", "--device", device])
+    out["classical_stdout"] = stdout.strip().splitlines()
+    reader = FrameReader.create_from_directory(str(frames))
+    bg = BGExtractor(reader).calc_background(BG_PROBES, device=device)
+    if not np.array_equal(np.load(bmp / "init_classical" / "background.npy"), bg):
+        raise AssertionError("initialize_experiment's background differs from BGExtractor's in this process")
+    boxes = BoxCalculator(reader, bg, device=device).calc_all_boxes().astype(float)
+    boxes[boxes[:, 2] <= 0] = np.nan
+    got = pd.read_csv(bmp / "init_classical" / "init_bboxes.csv").to_numpy()
+    if not np.array_equal(got, boxes, equal_nan=True):
+        raise AssertionError("initialize_experiment's classical boxes differ from BoxCalculator's in this process")
+    out["classical_detected_share"] = float(np.isfinite(got).all(axis=1).mean())
+
+    n, imgsz = len(reader), YOLO_INIT_IMGSZ
+    wall, _, yolo_launches = run_cli("initialize_experiment", [
+        "--frames", frames, "--output", bmp / f"init_yolo{imgsz}", "--detector", "yolo", "--yolo-weights",
+        CHECKPOINT, "--imgsz", imgsz, "--batch", YOLO_INIT_BATCH, "--device", device,
+        "--init-position", *(int(round(v)) for v in recording.traj[0])])  # a run without a box needs it
+    got = pd.read_csv(bmp / f"init_yolo{imgsz}" / "init_bboxes.csv").to_numpy()
+    found = np.isfinite(got).all(axis=1)
+    err = np.hypot(*(got[found, :2] + got[found, 2:] / 2 - recording.traj[:n][found]).T)
+    held = out[f"yolo{imgsz}"] = {"wall_s": wall, "detected_share": float(found.mean()),
+                                  "median_center_err_px": float(np.median(err)) if found.any() else None}
+    if not (held["detected_share"] >= 0.95 and held["median_center_err_px"] <= 4.0):
+        raise AssertionError(f"initialize_experiment --detector yolo misses the tracking bar: {held}")
+    out["launches"] = check_no_hand_kernel("phase 27", [classical_launches, yolo_launches])
+    return out
+
+
+def create_yolo_images_cli(recording, bmp: Path, device: str = "cuda") -> dict:
+    """Phase 28: ``create_yolo_images --count SAMPLE_COUNT --size SAMPLE_SIZE
+    SAMPLE_SIZE`` on phase 12's BMPs; every PNG, decoded by the port's codec,
+    is the recording at the window the seed gives (frames, boxes and jitter
+    recomputed in this process)."""
+    from wtracker_tpu_torch.dataset import BGExtractor, BoxCalculator, SampleExtractor
+    from wtracker_tpu_torch.utils.frame_reader import FrameReader
+    from wtracker_tpu_torch.utils.image_codec import imread
+
+    zero_hand_kernel_launches()
+    out_dir, seed = bmp / "samples", 0
+    wall, _, launches = run_cli("create_yolo_images", [
+        "--frames", bmp / "frames", "--output", out_dir, "--count", SAMPLE_COUNT, "--size", SAMPLE_SIZE, SAMPLE_SIZE,
+        "--seed", seed, "--device", device])
+    reader = FrameReader.create_from_directory(str(bmp / "frames"))
+    calc = BoxCalculator(reader, BGExtractor(reader).calc_background(500, device=device), device=device)
+    picks = np.random.default_rng(seed).choice(len(reader), size=SAMPLE_COUNT, replace=False)
+    windows = SampleExtractor(calc)._jittered_windows(calc.calc_specified_boxes(picks), (SAMPLE_SIZE, SAMPLE_SIZE),
+                                                      np.random.default_rng(seed))
+    for i, (f, (x, y, w, h)) in enumerate(zip(picks, windows)):
+        got = imread(str(out_dir / f"img_{i:09d}.png"), -1)
+        if got is None or not np.array_equal(got, recording.data[f, y : y + h, x : x + w]):
+            raise AssertionError(f"sample {i} is not frame {f} at window {(x, y, w, h)}")
+    return {"wall_s": wall, "samples": SAMPLE_COUNT, "size": SAMPLE_SIZE,
+            "png_bytes": sum(p.stat().st_size for p in out_dir.iterdir()),
+            "launches": check_no_hand_kernel("phase 28", [launches])}
+
+
+def evaluation(recording, bmp: Path, replay_tmp: Path, timing_path: Path, device: str = "cuda") -> dict:
+    """Phase 29: ``analysis`` on phase 12's ``bboxes.csv`` with worm crops as
+    BMPs and phase 27's background, on the card and on the CPU (the same
+    ``analyzed.csv`` bytes; plots written or skipped, and why); then
+    ``DataAnalyzer.calc_precise_error(batched=True)`` over phase 14's whole
+    log with seeded crops (rows/s; the card's errors equal the CPU's); then
+    ``visualize --save-frames`` for VIS_FRAMES frames, the pixels of
+    ``VLC.render_frame`` in this process."""
+    import importlib.util
+
+    import pandas as pd
+
+    from wtracker_tpu_torch.eval import VLC, DataAnalyzer
+    from wtracker_tpu_torch.sim.config import TimingConfig
+    from wtracker_tpu_torch.utils import bbox as bb
+    from wtracker_tpu_torch.utils.frame_reader import ArrayReader, FrameReader
+    from wtracker_tpu_torch.utils.image_codec import imread, imwrite
+
+    zero_hand_kernel_launches()
+    out = {"plotting_packages": {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "seaborn")}}
+    log_path = bmp / "whole_frames" / "bboxes.csv"
+    log = pd.read_csv(log_path)
+    boxes, legal = bb.discretize(log[WORM_COLS].to_numpy(), recording.hw, bb.BoxFormat.XYWH)
+    (bmp / "crops").mkdir()
+    for f, (x, y, w, h) in zip(log["frame"], boxes):
+        imwrite(str(bmp / "crops" / f"crop_{f:06d}.bmp"), recording.data[f, y : y + max(h, 1), x : x + max(w, 1)])
+    args = ["--timing-config", timing_path, "--log", log_path, "--worm-crops", bmp / "crops", "--background",
+            bmp / "init_classical" / "background.npy"]
+    csv, stdout, commands = {}, {}, []
+    for dev in (device, "cpu"):
+        out[f"analysis_{dev}_wall_s"], stdout[dev], launches = run_cli(
+            "analysis", [*args, "--output", bmp / f"analysis_{dev}", "--device", dev])
+        commands.append(launches)
+        csv[dev] = (bmp / f"analysis_{dev}" / "analyzed.csv").read_bytes()
+    if csv[device] != csv["cpu"]:
+        raise AssertionError("analysis wrote another analyzed.csv on the card than on the CPU")
+    errs = pd.read_csv(bmp / f"analysis_{device}" / "analyzed.csv")["precise_error"]
+    out.update(analysis_rows=len(errs), analysis_precise_finite=int(errs.notna().sum()), analysis_card_equals_cpu=True,
+               analysis_legal_boxes=int(legal.sum()))
+    skipped = [line for line in stdout[device].splitlines() if line.startswith("plots ")]
+    out["plots"] = skipped or sorted(p.name for p in (bmp / f"analysis_{device}").glob("*.png"))
+
+    timing = TimingConfig.load_json(str(timing_path))
+    engine_log = replay_tmp / "engine_csv.csv"
+    table = pd.read_csv(engine_log)
+    wrm, _ = bb.discretize(table[WORM_COLS].to_numpy(), recording.hw, bb.BoxFormat.XYWH)
+    rng = np.random.default_rng(SEED + 29)
+    crops = rng.integers(0, 256, (len(table), int(wrm[:, 3].max()), int(wrm[:, 2].max())), dtype=np.uint8)
+    background = rng.integers(0, 256, recording.hw, dtype=np.uint8)
+    errors, secs = {}, {}
+    for dev in (device, device, "cpu"):  # the first run on the device warms up
+        an = DataAnalyzer.load(timing, str(engine_log))
+        an.initialize()
+        t0 = time.perf_counter()
+        an.calc_precise_error(ArrayReader(crops), background, diff_thresh=90, batched=True, device=dev)
+        secs[dev] = time.perf_counter() - t0
+        errors[dev] = an._orig_data["precise_error"].to_numpy()
+    if not np.array_equal(errors[device], errors["cpu"], equal_nan=True):
+        raise AssertionError("calc_precise_error on the card differs from the CPU's")
+    out.update(precise_rows=len(table), precise_rows_per_s=len(table) / secs[device], precise_s=secs[device],
+               precise_cpu_rows_per_s=len(table) / secs["cpu"], precise_card_equals_cpu=True,
+               precise_finite=int(np.isfinite(errors[device]).sum()))
+
+    vis = bmp / "visualize"
+    out["visualize_wall_s"], _, launches = run_cli("visualize", [
+        "--timing-config", timing_path, "--log", log_path, "--frames", bmp / "frames", "--save-frames", vis,
+        "--stop", VIS_FRAMES, "--device", device])
+    commands.append(launches)
+    reader = FrameReader.create_from_directory(str(bmp / "frames"))
+    vlc = VLC(files=[f"{reader.root_folder}/{f}" for f in reader.files], config=timing, log_path=str(log_path),
+              cam_type="plt", show_cam=True)
+    for i in range(VIS_FRAMES):
+        if not np.array_equal(imread(str(vis / f"frame_{i:09d}.png"), -1), vlc.render_frame(i)):
+            raise AssertionError(f"visualize frame {i} differs from VLC.render_frame")
+    out["visualize_frames"] = VIS_FRAMES
+    out["launches"] = check_no_hand_kernel("phase 29", commands)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -2151,6 +2507,30 @@ def main() -> int:
     pt = pt_detectors(params, recording, bmp, replay_tmp, timing_path)
     log(f".pt detector: track_video {pt['track_video_wall_s']:.1f} s, WeightEvaluator.eval {pt['weight_eval_ms']:.1f} ms")
     host_phases_s = time.perf_counter() - t0
+
+    # -- 26. dataset tools at the deployment size -------------------------------------
+    t0 = time.perf_counter()
+    dataset = dataset_tools((H, W))
+    log(f"dataset tools: background {dataset['background_s']:.2f} s over {dataset['probes']} probes, boxes "
+        f"{dataset['frames_per_s']:.1f} frames/s ({dataset['floods_per_chunk']:.1f} floods a chunk), one chunk's "
+        f"stages {dataset['chunk_split']}")
+
+    # -- 27. initialize_experiment, classical and yolo ---------------------------------
+    init_cli = initialize_experiment_cli(recording, bmp)
+    log(f"initialize_experiment: classical {init_cli['classical_wall_s']:.1f} s, "
+        f"yolo@{YOLO_INIT_IMGSZ} {init_cli[f'yolo{YOLO_INIT_IMGSZ}']}")
+
+    # -- 28. create_yolo_images ---------------------------------------------------------
+    samples = create_yolo_images_cli(recording, bmp)
+    log(f"create_yolo_images: {samples['wall_s']:.1f} s")
+
+    # -- 29. evaluation: analysis, the batched precise error, visualize -----------------
+    evaluated = evaluation(recording, bmp, replay_tmp, timing_path)
+    log(f"evaluation: analysis {evaluated['analysis_cuda_wall_s']:.1f} s, precise error "
+        f"{evaluated['precise_rows_per_s']:.0f} rows/s, visualize {evaluated['visualize_wall_s']:.1f} s, "
+        f"plots {evaluated['plots']}")
+    dataset_phases_s = time.perf_counter() - t0
+    new_launches = [p["launches"] for p in (dataset, init_cli, samples, evaluated)]
     bmp_dir.cleanup()
     replay_dir.cleanup()
 
@@ -2194,6 +2574,7 @@ def main() -> int:
                 "launches_int8_unfolded_per_cycle": int8_loops["unfolded_k1"]["crop_letterbox_launches"] / n_cycles,
                 "launches_int8_folded": int8_loops["folded"]["crop_letterbox_launches"],
                 "launches_host_yolo_pt": [host_yolo["launches"]["crop_letterbox"], pt["launches"]["crop_letterbox"]],
+                "launches_phases_26_29": [p["crop_letterbox"] for p in new_launches],
             },
             {
                 # one int8 forward at N=12 views: the sum over its 63 convolutions
@@ -2222,6 +2603,7 @@ def main() -> int:
                 "launches_per_cycle": {k: int8_loops[k]["conv_s8_launches_per_cycle"] for k in ("folded", "unfolded_k1")},
                 "launches_synthetic_per_run": int8_synth["conv_s8_launches_per_run"],
                 "launches_host_yolo_pt": [host_yolo["launches"]["conv_s8"], pt["launches"]["conv_s8"]],
+                "launches_phases_26_29": [p["conv_s8"] for p in new_launches],
                 "design": k2_design(),
                 "sass": k2_sass,
                 "classes": k2["classes"],
@@ -2276,6 +2658,10 @@ def main() -> int:
     print(json.dumps({"host_replay": {**host, "card": card}}))
     print(json.dumps({"host_yolo_loop": {**host_yolo, "card": card}}))
     print(json.dumps({"pt_detector": {**pt, "phases_23_25_s": host_phases_s, "card": card}}))
+    print(json.dumps({"dataset_tools": {**dataset, "card": card}}))
+    print(json.dumps({"initialize_experiment_cli": {**init_cli, "card": card}}))
+    print(json.dumps({"create_yolo_images_cli": {**samples, "card": card}}))
+    print(json.dumps({"evaluation": {**evaluated, "phases_26_29_s": dataset_phases_s, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

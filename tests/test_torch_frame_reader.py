@@ -18,11 +18,11 @@ import pytest
 
 import cv2
 
-from chip_smoke import write_gray_bmp
 from wtracker_tpu.runtime import native as jax_native
 from wtracker_tpu.utils import frame_reader as jfr
 from wtracker_tpu_torch.runtime import native
 from wtracker_tpu_torch.utils import frame_reader as tfr
+from wtracker_tpu_torch.utils.image_codec import imwrite
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W, N = 45, 61, 10
@@ -148,9 +148,10 @@ def test_failed_native_build_raises(dirs, tmp_path, monkeypatch):
 
 
 def test_chip_smoke_bmp_writer_round_trips(tmp_path):
+    """``chip_smoke.py`` writes its BMP frames with the port's codec."""
     frame = np.random.default_rng(3).integers(0, 256, (H, W), dtype=np.uint8)
     path = str(tmp_path / "f.bmp")
-    write_gray_bmp(path, frame)
+    assert imwrite(path, frame)
     np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_GRAYSCALE), frame)
     np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_COLOR), np.repeat(frame[..., None], 3, axis=2))
     assert native.probe_bmp(path) == (H, W, 1)
@@ -158,3 +159,20 @@ def test_chip_smoke_bmp_writer_round_trips(tmp_path):
     got = native.load_batch_bmp_window([path], H, W, np.array([[5, 7]]), 20, 30)[0]
     np.testing.assert_array_equal(got, frame[7:27, 5:35])
     assert os.path.getsize(path) == 14 + 40 + 1024 + H * 64  # rows padded from 61 to 64 bytes
+
+
+def test_single_frames_of_their_own_size(tmp_path):
+    """A directory of frames of several sizes (worm crops): ``reader[i]``
+    decodes each at its own size, as ``cv2.imread`` does, for the native
+    loader's flags and unconverted; a batch keeps the first frame's shape."""
+    rng = np.random.default_rng(4)
+    sizes = [(H, W), (12, 9), (H, W), (30, 61)]
+    for i, hw in enumerate(sizes):
+        assert imwrite(str(tmp_path / f"crop_{i:04d}.bmp"), rng.integers(0, 256, hw, dtype=np.uint8))
+    for flags in (tfr.IMREAD_GRAYSCALE, tfr.IMREAD_COLOR, -1):
+        reader = tfr.FrameReader.create_from_directory(str(tmp_path), read_format=flags)
+        for i in range(len(sizes)):
+            np.testing.assert_array_equal(reader[i], cv2.imread(str(tmp_path / f"crop_{i:04d}.bmp"), flags))
+        np.testing.assert_array_equal(reader.read_batch([0, 2])[1], reader[2])
+        with pytest.raises(ValueError):
+            reader.read_batch([0, 1])

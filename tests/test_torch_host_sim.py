@@ -138,12 +138,13 @@ def test_files_and_bulk_rename_equal_jax(tmp_path):
     assert (tmp_path / "deep" / "er").is_dir()
 
 
-def test_config_pickles_and_initialization_text(tmp_path, capsys):
+def test_config_pickles_and_initialization_text(tmp_path, capsys, monkeypatch):
     cfg = tc.PolyfitConfig(**POLYFIT)
     cfg.save_pickle(str(tmp_path / "p" / "cfg.pkl"))
     back = tc.PolyfitConfig.load_pickle(str(tmp_path / "p" / "cfg.pkl"))
     assert back == cfg and back.sample_times == sorted(POLYFIT["sample_times"])
-    with pytest.raises(ValueError, match="item 11"):
+    monkeypatch.delenv("DISPLAY", raising=False)  # a missing path prompts, as in JAX; headless, that raises
+    with pytest.raises(RuntimeError, match="need a display"):
         tc.PolyfitConfig.load_json(None)
     with pytest.raises(FileNotFoundError):
         tio.pickle_load_object(str(tmp_path / "missing.pkl"))
@@ -188,8 +189,18 @@ def test_image_saver_writes_the_jax_files(tmp_path):
             s.schedule_save(img, "sub/img.png")
         with mod.FrameSaver(reader, str(tmp_path / name), tqdm=False) as s:
             s.schedule_save(2, (5, 4, 12, 9), "crops/c.png")
+    # the port writes PNG with its own codec (no OpenCV on the card's host):
+    # another deflate stream, the same pixels when OpenCV reads the file
+    import cv2
+
     for rel in ("sub/img.png", "crops/c.png"):
-        assert (tmp_path / "torch" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes()
+        got = cv2.imread(str(tmp_path / "torch" / rel), cv2.IMREAD_UNCHANGED)
+        want = cv2.imread(str(tmp_path / "jax" / rel), cv2.IMREAD_UNCHANGED)
+        assert got is not None and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "torch" / "sub/img.png"), cv2.IMREAD_UNCHANGED), img)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "torch" / "crops/c.png"), cv2.IMREAD_UNCHANGED),
+                                  frames[2, 4:13, 5:17])
 
 
 # -- motors and view geometry ------------------------------------------------------

@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``wtracker_tpu_torch`` (nor
-``chip_smoke.py``, ``sweep_band_rows.py`` and ``sweep_conv_s8.py``) imports JAX, Flax, Optax or the JAX package, neither in
+``chip_smoke.py``, ``sweep_band_rows.py``, ``sweep_conv_s8.py`` and ``time_png_decode.py``) imports JAX, Flax, Optax or the JAX package, neither in
 its source nor when imported; and importing the port loads no OpenCV, which
-a GPU host need not have.  OpenCV and tqdm (the card's host has neither) are
-imported only inside the functions that write an image or show a progress
-bar, and every module imports on a Python where both are missing."""
+a GPU host need not have.  OpenCV, tqdm, matplotlib, seaborn and tkinter
+(the card's host has neither OpenCV nor tqdm) are imported only inside the
+functions that need them, and every module imports on a Python where all
+five are missing."""
 
 import ast
 import os
@@ -45,6 +46,13 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.sim.controllers.logging", "wtracker_tpu_torch.sim.controllers.mlp",
         "wtracker_tpu_torch.sim.controllers.yolo", "wtracker_tpu_torch.utils.log_utils",
         "wtracker_tpu_torch.utils.threading_utils", "wtracker_tpu_torch.utils.io_utils",
+        "wtracker_tpu_torch.ops.morphology", "wtracker_tpu_torch.dataset", "wtracker_tpu_torch.dataset.bg_extractor",
+        "wtracker_tpu_torch.dataset.box_calculator", "wtracker_tpu_torch.dataset.sample_extractor",
+        "wtracker_tpu_torch.utils.image_codec", "wtracker_tpu_torch.utils.gui_utils", "wtracker_tpu_torch.eval",
+        "wtracker_tpu_torch.eval.error_calculator", "wtracker_tpu_torch.eval.data_analyzer",
+        "wtracker_tpu_torch.eval.plotter", "wtracker_tpu_torch.eval.vlc",
+        "wtracker_tpu_torch.workflows.initialize_experiment", "wtracker_tpu_torch.workflows.create_yolo_images",
+        "wtracker_tpu_torch.workflows.analysis", "wtracker_tpu_torch.workflows.visualize",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()
@@ -53,7 +61,7 @@ def test_package_has_the_slice_modules():
 
 
 @pytest.mark.parametrize(
-    "path", [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "sweep_band_rows.py", "sweep_conv_s8.py"))],
+    "path", [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "sweep_band_rows.py", "sweep_conv_s8.py", "time_png_decode.py"))],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_nothing_of_jax(path):
@@ -72,7 +80,7 @@ def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} + ('cv2',))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} + ('cv2', 'matplotlib', 'seaborn', 'tkinter'))\n"
         "print('LOADED', bad)\n"
         "assert not bad, bad\n"
     )
@@ -84,7 +92,7 @@ def test_importing_every_module_loads_no_jax():
     assert "LOADED []" in out.stdout
 
 
-OPTIONAL = ("cv2", "tqdm")
+OPTIONAL = ("cv2", "tqdm", "matplotlib", "seaborn", "tkinter")
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))

@@ -11,13 +11,22 @@
 // bottom-up or top-down rows.  Grayscale conversion uses OpenCV's fixed-point
 // BGR weights so outputs match cv.imread(path, IMREAD_GRAYSCALE) bit-for-bit.
 //
+// The port's copy also undoes PNG row filters (wt_png_unfilter) for the
+// port's PNG decoder (utils/image_codec.py), and reports a BMP's layout for
+// an unconverted read (wt_bmp_layout), so that every BMP the port reads goes
+// through this one decoder.
+//
 // C ABI (ctypes):
 //   wt_probe_bmp(path, &h, &w, &channels)          -> 0 on success
+//   wt_bmp_layout(path, &h, &w, &bits,
+//                 &color_palette)                  -> 0 on success
 //   wt_load_batch_bmp(paths, n, out, stride, h, w,
 //                     gray, n_threads)             -> 0 on success (all frames)
 //   wt_load_batch_bmp_window(paths, n, out, stride, full_h, full_w,
 //                            x0s, y0s, win_h, win_w,
 //                            gray, n_threads)      -> 0 on success (all frames)
+//   wt_png_unfilter(raw, h, stride, bpp, out)      -> 0, or 1 + a row whose
+//                                                     filter type is unknown
 //
 // The window entry point exists for ROI streaming (engine_video.py): a
 // tracker that only ever crops a camera-sized view has no reason to read the
@@ -29,6 +38,7 @@
 
 #include <atomic>
 #include <cstdint>
+#include <cstdlib>
 #include <cstdio>
 #include <cstring>
 #include <thread>
@@ -203,6 +213,7 @@ int read_bmp_meta(FILE* f, BmpMeta& m) {
   if (m.info.bit_count == 8) {
     const uint32_t used = m.info.colors_used ? m.info.colors_used : 256;
     const size_t pal_off = sizeof(m.file) + m.info.header_size;
+    if (used > 256) return 9;                   // an 8-bit index reaches 256 entries at most
     if (pal_off + 4ul * used > got) return 9;  // palette past the prefix read
     std::memcpy(m.palette, prefix + pal_off, 4ul * used);
   }
@@ -300,6 +311,74 @@ int wt_probe_bmp(const char* path, int* h, int* w, int* channels) {
   *h = bmp.height;
   *w = bmp.info.width;
   *channels = bmp.info.bit_count == 8 ? 1 : 3;
+  return 0;
+}
+
+// (h, w), bits a pixel, and whether an 8-bit file's palette holds a
+// non-gray entry: OpenCV reads such a file unconverted as 3 channels, an
+// 8-bit file with a gray palette as 1.  Reads the headers only.
+int wt_bmp_layout(const char* path, int* h, int* w, int* bits, int* color_palette) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return 1;
+  BmpMeta m;
+  const int rc = read_bmp_meta(f, m);
+  std::fclose(f);
+  if (rc) return rc;
+  *h = m.height;
+  *w = m.info.width;
+  *bits = m.info.bit_count;
+  *color_palette = 0;
+  if (m.info.bit_count == 8) {
+    const uint32_t used = m.info.colors_used ? m.info.colors_used : 256;
+    for (uint32_t i = 0; i < used; ++i) {
+      const uint8_t* p = m.palette + 4 * i;
+      if (p[0] != p[1] || p[1] != p[2]) {
+        *color_palette = 1;
+        break;
+      }
+    }
+  }
+  return 0;
+}
+
+// Undo the row filters of a non-interlaced PNG with 8-bit samples: raw holds
+// h rows of 1 + stride bytes (the filter type, then the filtered bytes), out
+// receives h rows of stride bytes; bpp is the bytes a pixel.  Average and
+// Paeth rows depend on the byte bpp to the left, so each row is one pass.
+int wt_png_unfilter(const uint8_t* raw, int h, long stride, int bpp, uint8_t* out) {
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* line = raw + static_cast<long>(y) * (stride + 1);
+    const uint8_t kind = *line++;
+    uint8_t* o = out + static_cast<long>(y) * stride;
+    const uint8_t* up = y ? o - stride : nullptr;
+    switch (kind) {
+      case 0:
+        std::memcpy(o, line, stride);
+        break;
+      case 1:
+        for (long i = 0; i < stride; ++i) o[i] = line[i] + (i >= bpp ? o[i - bpp] : 0);
+        break;
+      case 2:
+        for (long i = 0; i < stride; ++i) o[i] = line[i] + (up ? up[i] : 0);
+        break;
+      case 3:
+        for (long i = 0; i < stride; ++i) {
+          const int a = i >= bpp ? o[i - bpp] : 0, b = up ? up[i] : 0;
+          o[i] = line[i] + ((a + b) >> 1);
+        }
+        break;
+      case 4:
+        for (long i = 0; i < stride; ++i) {
+          const int a = i >= bpp ? o[i - bpp] : 0, b = up ? up[i] : 0;
+          const int c = (up && i >= bpp) ? up[i - bpp] : 0;
+          const int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          o[i] = line[i] + ((pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c));
+        }
+        break;
+      default:
+        return y + 1;
+    }
+  }
   return 0;
 }
 

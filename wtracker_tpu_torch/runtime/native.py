@@ -1,7 +1,8 @@
 """ctypes bindings and on-demand build of the native BMP frame loader.
 
 Counterpart of :mod:`wtracker_tpu.runtime.native`.  ``frame_loader.cpp`` (a
-copy of the JAX package's) is compiled with ``g++ -O3`` at first use into
+copy of the JAX package's, plus the PNG row unfiltering of the port's image
+codec and a header-only BMP layout probe) is compiled with ``g++ -O3`` at first use into
 ``wtracker_tpu_torch/_build/`` (listed in ``.gitignore``) under a name that
 carries a hash of the source.  The BMP path of the frame reader has no other
 decoder (a GPU host need not have OpenCV), so a failed build or load raises
@@ -31,9 +32,19 @@ _L = ctypes.c_long
 # (argtypes, restype) of each entry point; buffers and path arrays are c_void_p
 _SIGNATURES = {
     "wt_probe_bmp": ([ctypes.c_char_p, _P, _P, _P], _I),
+    "wt_bmp_layout": ([ctypes.c_char_p, _P, _P, _P, _P], _I),
+    "wt_png_unfilter": ([_P, _I, _L, _I, _P], _I),
     "wt_load_batch_bmp": ([_P, _I, _P, _L, _I, _I, _I, _I], _I),
     "wt_load_batch_bmp_window": ([_P, _I, _P, _L, _I, _I, _P, _P, _I, _I, _I, _I], _I),
 }
+
+
+BMP_OPEN_FAILED = 1  # the loader's code for a file it cannot open
+BMP_SHAPE_MISMATCH = 8  # the loader's code for a frame of another size than asked
+
+
+class BmpShapeError(ValueError):
+    """A BMP of another size than the batch's frame shape."""
 
 
 def library_path() -> Path:
@@ -103,6 +114,34 @@ def probe_bmp(path: str) -> tuple[int, int, int]:
     return int(hwc[0]), int(hwc[1]), int(hwc[2])
 
 
+def bmp_layout(path: str) -> tuple[int, int, int, bool]:
+    """(h, w, bits a pixel, color palette) of a BMP, from its headers alone:
+    an 8-bit file with a gray palette reads unconverted as one channel.
+    Raises ``FileNotFoundError`` when the file cannot be opened and
+    ``ValueError`` for a layout the loader does not decode."""
+    vals = np.zeros(4, dtype=np.intc)
+    base, step = vals.ctypes.data, vals.itemsize
+    rc = get_lib().wt_bmp_layout(os.fsencode(path), base, base + step, base + 2 * step, base + 3 * step)
+    if rc == BMP_OPEN_FAILED:
+        raise FileNotFoundError(f"cannot open BMP {path}")
+    if rc != 0:
+        raise ValueError(f"BMP {path} has a layout the native loader does not decode (code {rc})")
+    return int(vals[0]), int(vals[1]), int(vals[2]), bool(vals[3])
+
+
+def png_unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters of a non-interlaced 8-bit PNG: ``raw`` is the
+    inflated image data, (h, 1 + stride) uint8 (each row's filter type, then
+    its bytes); returns the (h, stride) samples."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.empty((h, stride), dtype=np.uint8)
+    rc = get_lib().wt_png_unfilter(_ptr(raw), h, stride, bpp, _ptr(out))
+    if rc != 0:
+        raise ValueError(f"PNG row {rc - 1} has filter type {int(raw[rc - 1, 0])}")
+    return out
+
+
 def load_batch_bmp(
     paths: list[str],
     h: int,
@@ -124,6 +163,8 @@ def load_batch_bmp(
     out = _out(out, (n, h, w) if gray else (n, h, w, 3))
     frame_stride = h * w * (1 if gray else 3)
     rc = lib.wt_load_batch_bmp(_paths(paths), n, _ptr(out), frame_stride, h, w, int(gray), _threads(n_threads))
+    if rc == BMP_SHAPE_MISMATCH:
+        raise BmpShapeError(f"a BMP among the {n} asked for is not {h}x{w}")
     if rc != 0:
         raise ValueError(f"BMP batch decode failed (code {rc})")
     return out

@@ -49,6 +49,25 @@ class ExperimentConfig(ConfigBase):
         self.ms_per_frame = 1000 / self.frames_per_sec
         self.mm_per_px = 1 / self.px_per_mm
 
+    @classmethod
+    def from_frame_reader(
+        cls,
+        reader,
+        name: str,
+        frames_per_sec: int,
+        px_per_mm: float,
+        init_position: tuple[int, int],
+    ) -> "ExperimentConfig":
+        """Derive the frame count and resolution fields from a frame reader."""
+        return cls(
+            name=name,
+            num_frames=len(reader),
+            frames_per_sec=frames_per_sec,
+            orig_resolution=reader.frame_size,
+            px_per_mm=px_per_mm,
+            init_position=init_position,
+        )
+
 
 @dataclass
 class TimingConfig(ConfigBase):

@@ -9,9 +9,9 @@ files depend on are kept:
   ``__dict__.update``), so round-tripped configs keep their stored derived
   fields verbatim.
 
-The JAX package opens a file dialog when no path is given; that dialog lives
-in its ``gui_utils``, which the port has not taken over yet (ROADMAP Queue 1
-item 11), so here a missing path raises.
+A missing ``path`` opens a file dialog
+(:class:`~wtracker_tpu_torch.utils.gui_utils.UserPrompt`, tkinter imported
+then), as in the JAX package; without a display that raises a clear error.
 """
 
 from __future__ import annotations
@@ -24,13 +24,14 @@ from typing import TypeVar
 T = TypeVar("T", bound="ConfigBase")
 
 
-def _require_path(path: str | None, what: str) -> str:
-    if path is None:
-        raise ValueError(
-            f"{what}: a path is required (the file dialog of the JAX package's gui_utils is not ported "
-            "yet, ROADMAP Queue 1 item 11)"
-        )
-    return path
+def _resolve_path(path: str | None, title: str, save: bool) -> str:
+    if path is not None:
+        return path
+    from wtracker_tpu_torch.utils.gui_utils import UserPrompt  # tkinter is optional
+
+    if save:
+        return UserPrompt.save_file(title=title, file_types=[("json", ".json")], defaultextension=".json")
+    return UserPrompt.open_file(title=title, file_types=[("json", ".json")])
 
 
 @dataclass
@@ -39,14 +40,15 @@ class ConfigBase:
 
     @classmethod
     def load_json(cls: type[T], path: str | None = None) -> T:
-        with open(_require_path(path, f"{cls.__name__}.load_json"), "r") as f:
+        path = _resolve_path(path, f"Open {cls.__name__} File", save=False)
+        with open(path, "r") as f:
             data = json.load(f)
         obj = cls.__new__(cls)
         obj.__dict__.update(data)
         return obj
 
     def save_json(self, path: str | None = None) -> None:
-        path = _require_path(path, f"{type(self).__name__}.save_json")
+        path = _resolve_path(path, f"Save {type(self).__name__} As", save=True)
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         with open(path, "w") as f:
             json.dump(self.__dict__, f, indent=4)
@@ -55,12 +57,12 @@ class ConfigBase:
     def load_pickle(cls: type[T], path: str | None = None) -> T:
         from wtracker_tpu_torch.utils.io_utils import pickle_load_object
 
-        return pickle_load_object(_require_path(path, f"{cls.__name__}.load_pickle"))
+        return pickle_load_object(_resolve_path(path, f"Open {cls.__name__} File", save=False))
 
     def save_pickle(self, path: str | None = None) -> None:
         from wtracker_tpu_torch.utils.io_utils import pickle_save_object
 
-        pickle_save_object(self, _require_path(path, f"{type(self).__name__}.save_pickle"))
+        pickle_save_object(self, _resolve_path(path, f"Save {type(self).__name__} As", save=True))
 
 
 def print_initialization(cls, include_default: bool = True, init_fields_only: bool = True) -> str:

@@ -4,12 +4,17 @@ Port of :mod:`wtracker_tpu.utils.frame_reader`: ``FrameReader`` (with the
 batch decode ``read_batch`` and the ROI-streaming ``read_window_batch``),
 ``FrameStream``, ``DummyReader`` and ``ArrayReader``.
 
-BMP frames, the recordings' format, decode only through the native loader
+BMP frames, the recordings' format, decode through the native loader
 (:mod:`wtracker_tpu_torch.runtime.native`), byte for byte what OpenCV's
-``imread`` gives; a failure there raises.  Other image types need OpenCV,
+``imread`` gives; a failure there raises.  ``read_format`` takes OpenCV's
+``imread`` flags, defined here with cv2's values; with any other flag than
+the native loader's two (e.g. ``IMREAD_UNCHANGED``), and for PNG files, the
+port's own codec (:mod:`wtracker_tpu_torch.utils.image_codec`, whose BMPs
+the native loader decodes too) reads.  Other image types need OpenCV,
 imported when such a file is first read, so this module imports without it
-(GPU hosts may have none).  ``read_format`` takes OpenCV's ``imread``
-flags; the two the native loader serves are defined here with cv2's values.
+(GPU hosts may have none).  A single frame of another size than the
+reader's decodes at its own size, as ``cv2.imread`` does (worm crops are
+ragged); a batch takes the reader's frame shape.
 """
 
 from __future__ import annotations
@@ -20,10 +25,9 @@ import os
 import numpy as np
 
 from wtracker_tpu_torch.runtime import native
+from wtracker_tpu_torch.utils import image_codec
+from wtracker_tpu_torch.utils.image_codec import IMREAD_COLOR, IMREAD_GRAYSCALE
 from wtracker_tpu_torch.utils.path_utils import join_paths
-
-IMREAD_GRAYSCALE = 0  # cv2.IMREAD_GRAYSCALE
-IMREAD_COLOR = 1  # cv2.IMREAD_COLOR
 _NATIVE_FORMATS = (IMREAD_GRAYSCALE, IMREAD_COLOR)
 
 
@@ -38,19 +42,12 @@ def _is_bmp(path: str) -> bool:
 
 
 def _cv_imread(path: str, read_format: int) -> np.ndarray:
-    """OpenCV's ``imread`` for a non-BMP frame; raises when OpenCV is absent
-    or cannot read the file."""
-    try:
-        import cv2
-    except ImportError as e:
-        ext = os.path.splitext(path)[1] or "extension-less"
-        raise ImportError(
-            f"reading {ext!r} frames ({path}) needs OpenCV (cv2), which is not installed; "
-            "BMP frames decode without it"
-        ) from e
-    frame = cv2.imread(path, read_format)
+    """``imread`` of a frame the native loader does not serve: the port's
+    codec for PNG and BMP, OpenCV for anything else; raises when the file
+    cannot be read (or OpenCV is needed and absent)."""
+    frame = image_codec.imread(path, read_format)
     if frame is None:
-        raise ValueError(f"OpenCV cannot read frame {path}")
+        raise ValueError(f"cannot read frame {path}")
     return frame
 
 
@@ -116,7 +113,10 @@ class FrameReader:
         path = self._path_of(idx)
         if self._native([path]):
             h, w = self._frame_shape[:2]
-            return native.load_batch_bmp([path], h, w, gray=self._gray, n_threads=1)[0]
+            try:
+                return native.load_batch_bmp([path], h, w, gray=self._gray, n_threads=1)[0]
+            except native.BmpShapeError:
+                pass  # a frame of its own size: the codec probes it
         return _cv_imread(path, self._read_format).astype(np.uint8, copy=False)
 
     def read_batch(

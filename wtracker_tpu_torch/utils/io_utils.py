@@ -3,9 +3,10 @@
 Port of :mod:`wtracker_tpu.utils.io_utils`: ``ImageSaver`` and
 ``FrameSaver`` write on a :class:`~wtracker_tpu_torch.utils.threading_utils.TaskScheduler`
 worker thread, so disk writes never block the caller; a failed write retries
-once after creating the parent directory.  Images are written with OpenCV,
-imported in the write function only (the card's machine has no OpenCV, and
-a run that saves no image never needs it).
+once after creating the parent directory.  PNG and BMP files are written
+by the port's codec (:mod:`wtracker_tpu_torch.utils.image_codec`); other
+formats need OpenCV, imported only when such a file is written (the card's
+machine has no OpenCV).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import pickle
 import numpy as np
 
 from wtracker_tpu_torch.utils.frame_reader import FrameReader
+from wtracker_tpu_torch.utils.image_codec import imwrite
 from wtracker_tpu_torch.utils.path_utils import create_directory, create_parent_directory, join_paths
 from wtracker_tpu_torch.utils.threading_utils import TaskScheduler
 
@@ -29,14 +31,12 @@ class _DiskImageSink(TaskScheduler):
         create_directory(root_path)
 
     def _write(self, rel_name: str, img: np.ndarray) -> None:
-        import cv2 as cv
-
         target = join_paths(self._root_path, rel_name)
-        if cv.imwrite(target, img):
+        if imwrite(target, img):
             return
         # a first failure is usually a missing subdirectory
         create_parent_directory(target)
-        if not cv.imwrite(target, img):
+        if not imwrite(target, img):
             raise ValueError(f"Failed to save image {target}")
 
 
