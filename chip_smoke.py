@@ -59,11 +59,11 @@ live loop over many streams, at full width:
     bfloat16: within 2 px), and its stream-cycles/s;
 14. replays a seeded 61,200-frame worm log at the deployment configuration
     (4,079 cycles) through the csv, optimal, polyfit and mlp controllers and
-    the step motor (cycles/s each; polyfit's timed run over its first 1,000
-    cycles), polyfit over every cycle through ``python -m
-    wtracker_tpu_torch.workflows.simulate``, and every run once more, uncut,
-    on the CPU: the same ``bboxes.csv`` text (mlp: equal positions in >= 99.9 %
-    of frames, none more than 2 px apart);
+    the step motor (cycles/s each; polyfit over its first 1,000 cycles),
+    polyfit over the first 250 of them through ``python -m
+    wtracker_tpu_torch.workflows.simulate`` (the same rows), and every run
+    once more on the CPU: the same ``bboxes.csv`` text (mlp: equal positions
+    in >= 99.9 % of frames, none more than 2 px apart);
 15. runs ``python -m wtracker_tpu_torch.workflows.sweep`` over
     configs/exp0-exp4 (mixed geometry, each at its own length), each
     experiment equal to its single-stream run, then 96 streams of the
@@ -128,10 +128,31 @@ live loop over many streams, at full width:
     over phase 14's log (rows/s, card = CPU) and ``visualize
     --save-frames`` over 30 frames (``VLC.render_frame``'s pixels).
     Phases 26-29 launch neither hand kernel (asserted: each command runs
-    in a child process that reports its own launch counts).
+    in a child process that reports its own launch counts);
+30. trains the ResMLP at ``predictor_training``'s defaults over phase 14's
+    log: the first epoch's per-batch losses on the card against the CPU's,
+    in float32 (the first three at rtol 1e-4) and in float64 (the first 40
+    at rtol 1e-9; the whole epoch's mean loss in both), beside a CPU run
+    from weights nudged by one ulp; samples/s and s an epoch, then the
+    command itself (2 epochs) whose ``.npz`` loads in ``load_predictor``;
+31. runs the particle swarm (pop 100) over phase 14's log: ms an epoch,
+    the card's first 20 epochs of history equal to the CPU's bit for bit,
+    and the ``polyfit_optimizer`` command at its defaults (300 epochs);
+32. runs ``yolo_training`` at full width (YOLOv8s, 384 px, batch 72, the
+    full recipe with augmentation on) over 432 rendered worm images written
+    as PNGs with exact YOLO labels (72 held out: 5 steps an epoch), 3
+    epochs: the loss falls, ``best.npz`` loads, ``detect_multi`` gives the
+    run's last validation mAP50, and on the trained checkpoint the card's
+    ``detect_multi`` equals the CPU's and the validation pipeline's slot by
+    slot; steps/s, images/s, s an epoch, s a validation, peak device
+    memory; one step from the same weights on the card and on the CPU
+    (augmentation off), in float32 and float64, agrees, gradients
+    included; one recipe step runs under ``torch.profiler``;
+33. phases 30-32 launch neither hand kernel (each command counted in its
+    own process).
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 29 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 32 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -194,11 +215,13 @@ STREAM_CYCLES = 8
 STREAM_CHUNK_CYCLES = 4
 # replay at the deployment configuration: every logged cycle of its 61,200
 # frames (4,079); the simulate command's default polyfit sample times;
-# polyfit's in-process timed run is cut to 1,000 cycles (the simulate command
-# replays every cycle on the card once, and the CPU run too); --profile
-# traces a cut of 200 cycles (a polyfit cycle is ~1,500 launches)
+# polyfit (in process on the card and the CPU, and phase 23's host command)
+# is cut to the first 1,000 cycles, the simulate command to the first 250
+# (its text the first rows of the in-process run's); --profile traces a cut
+# of 200 cycles (a polyfit cycle is ~1,500 launches)
 REPLAY_POLYFIT_TIMES = (-15, -10, -5, 0, 3)
 REPLAY_POLYFIT_TIMED_CYCLES = 1000
+REPLAY_CLI_CYCLES = 250
 PROFILE_REPLAY_CYCLES = 200
 SWEEP_STREAMS = 96
 # the mixed-geometry live loop: 6 streams of each of exp0-exp4 (30 streams,
@@ -1031,11 +1054,13 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     csv controller on the step motor, at the deployment configuration over a
     seeded 61,200-frame worm log: cycles/s a controller (after a 20-cycle
     warm-up; polyfit's timed run over its first REPLAY_POLYFIT_TIMED_CYCLES
-    cycles), polyfit over every cycle through ``python -m
-    wtracker_tpu_torch.workflows.simulate`` (wall time; the timed run's
-    text is its first rows), and the same runs uncut on the CPU: csv,
-    optimal, polyfit and step give the same ``bboxes.csv`` text, mlp equal
-    positions in >= 99.9 % of frames and none 2 px apart.
+    cycles), polyfit over the first REPLAY_CLI_CYCLES of them through
+    ``python -m wtracker_tpu_torch.workflows.simulate`` with the experiment
+    cut to them (wall time; the timed run's first rows), and the same runs
+    on the CPU (polyfit
+    over the same cycles): csv, optimal, polyfit and step give the same
+    ``bboxes.csv`` text, mlp equal positions in >= 99.9 % of frames and
+    none 2 px apart.
     Returns the phase's numbers and, for ``--profile``, a function per
     profiled controller that runs PROFILE_REPLAY_CYCLES cycles."""
     from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor, save_predictor
@@ -1098,29 +1123,35 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         raise AssertionError(f"the replay controllers launched K1 {crop_letterbox_views.launches} times")
     out["crop_letterbox_launches"] = crop_letterbox_views.launches
 
-    # the command, as a user runs it (the default polyfit config)
+    # the command, as a user runs it (the default polyfit config), over the
+    # timed run's first REPLAY_CLI_CYCLES cycles: the experiment config cut
+    # to them (phase 23's polyfit runs over the timed run's cycles)
+    for name, cycles in (("exp_cut.json", REPLAY_POLYFIT_TIMED_CYCLES), ("exp_cli.json", REPLAY_CLI_CYCLES)):
+        cut = {**json.loads(exp_path.read_text()), "num_frames": cycles * params.cycle_n + 1}
+        (tmp / name).write_text(json.dumps(cut))
     cmd = [
         sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--timing-config", str(timing_path),
-        "--exp-config", str(exp_path), "--worm-csv", str(tmp / "worm.csv"), "--output", str(tmp / "simulate"),
-        "--controller", "polyfit", "--device", device,
+        "--exp-config", str(tmp / "exp_cli.json"), "--worm-csv", str(tmp / "worm.csv"), "--output",
+        str(tmp / "simulate"), "--controller", "polyfit", "--device", device,
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=900)
     out["cli_polyfit_wall_s"] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"simulate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    cli_text = (tmp / "simulate" / "bboxes.csv").read_text()
-    if cli_text.count("\n") != 1 + n * params.cycle_n or not cli_text.startswith(texts["polyfit"]):
-        raise AssertionError("the simulate command's bboxes.csv does not begin with the in-process polyfit run's")
-    texts["polyfit"] = cli_text
-    (tmp / "engine_polyfit.csv").write_text(cli_text)
+    cli_lines = (tmp / "simulate" / "bboxes.csv").read_text().splitlines()
+    if not (len(cli_lines) == 1 + REPLAY_CLI_CYCLES * params.cycle_n
+            and cli_lines == texts["polyfit"].splitlines()[:len(cli_lines)]):
+        raise AssertionError("the simulate command's bboxes.csv is not the in-process polyfit run's first rows")
+    out["cli_polyfit_cycles"] = REPLAY_CLI_CYCLES
     out["cli_stdout"] = proc.stdout.strip().splitlines()
 
-    # the same runs on the CPU
+    # the same runs on the CPU (polyfit over the card's cycles)
     cpu = {}
     for name in names:
-        params, logs, wall = run(name, "cpu")
-        cpu[name] = {"cycles_per_s": n / wall}
+        cycles = REPLAY_POLYFIT_TIMED_CYCLES if name == "polyfit" else n
+        params, logs, wall = run(name, "cpu", cycles)
+        cpu[name] = {"cycles_per_s": cycles / wall}
         if name == "mlp":
             diff = np.abs(logs.positions.numpy() - logs_by[name].positions.cpu().numpy()).max(axis=-1).reshape(-1)
             cpu[name].update(frames_equal_share=float((diff == 0).mean()), max_abs_pos_diff_px=int(diff.max()))
@@ -1712,7 +1743,8 @@ EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
 
 def host_replay(tmp: Path) -> dict:
     """Phase 23: ``python -m wtracker_tpu_torch.workflows.simulate --backend
-    host`` at phase 14's configuration on its worm log, uncut, with the csv,
+    host`` at phase 14's configuration on its worm log, uncut but polyfit
+    (phase 14's first 1,000 cycles), with the csv,
     optimal, polyfit (the command's default, degree 2 at [-15, -10, -5, 0,
     3]) and mlp (phase 14's predictor, on the card) controllers, one command
     after another, so that each loop's cycles/s is its own and not shared
@@ -1724,7 +1756,8 @@ def host_replay(tmp: Path) -> dict:
     for name in HOST_CONTROLLERS:
         cmd = [
             sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--backend", "host",
-            "--timing-config", str(timing_path), "--exp-config", str(exp_path), "--worm-csv", str(tmp / "worm.csv"),
+            "--timing-config", str(timing_path), "--worm-csv", str(tmp / "worm.csv"),
+            "--exp-config", str(tmp / "exp_cut.json" if name == "polyfit" else exp_path),
             "--output", str(tmp / f"host_{name}"), "--controller", name, "--device", "cuda",
             *(["--predictor", str(tmp / "predictor.npz")] if name == "mlp" else []),
         ]
@@ -2235,6 +2268,482 @@ def evaluation(recording, bmp: Path, replay_tmp: Path, timing_path: Path, device
 
 
 
+# ---------------------------------------------------------------------------
+# training (phases 30-33)
+# ---------------------------------------------------------------------------
+
+# predictor_training's defaults (16 input frames, 4 predicted, batch 128,
+# Adam 1e-3, wd 1e-5) over phase 14's log; epochs cut from 100 to 2 (each
+# epoch runs the same code; two exercise the command's best-checkpoint choice)
+PRED_INPUT_FRAMES = [0, -3, -6, -9, -12, -15, -18, -21, -24, -27, -30, -33, -36, -39, -42, -45]
+PRED_PRED_FRAMES = [3, 6, 9, 12]
+PRED_BATCH = 128
+PRED_EPOCHS = 2
+PRED_TIMED_EPOCHS = 1  # in-process epochs timed after the first
+# the first epoch's per-batch losses, card against CPU.  Training is chaotic:
+# on one CPU a one-ulp nudge of the float64 weights grows from 1e-16 to 1e-9
+# of the loss by batch 57 and to 0.14-0.18 by the epoch's end, and a float32
+# run leaves rtol 1e-4 from batch 10 to 17 (measured over this log on a CPU;
+# on the H100 the card's float64 epoch leaves the CPU's 1e-9 at batch 60).
+# So float32 is held for PRED_EQUAL_BATCHES batches at rtol 1e-4, float64
+# for PRED_F64_BATCHES at PRED_F64_RTOL, and the whole epoch by its mean
+# loss at PRED_MEAN_RTOL (the nudge moves it by 9e-5 to 4e-4)
+PRED_EQUAL_BATCHES = 3
+PRED_F64_BATCHES, PRED_F64_RTOL = 40, 1e-9
+PRED_MEAN_RTOL = 5e-3
+# polyfit_optimizer's defaults (pop 100, 300 epochs) in the command; in
+# process, the card and the CPU run the first 20 (the card's timed)
+PSO_POP, PSO_EPOCHS, PSO_CPU_EPOCHS = 100, 300, 20
+PSO_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
+# yolo_training at the reference recipe's width: YOLOv8s, 384 px, batch 72,
+# augmentation on; 432 rendered worm images, 72 held out (5 steps an epoch);
+# epochs cut from 100 to 3, with mosaic closed only for the last one (the
+# default close_mosaic=10 would close it for all three) and a 1-epoch warmup
+YOLO_IMAGES, YOLO_VAL = 432, 72
+YOLO_SCALE, YOLO_IMGSZ, YOLO_BATCH, YOLO_EPOCHS, YOLO_CLOSE_MOSAIC = "s", 384, 72, 3, 1
+YOLO_WARMUP_EPOCHS = 1  # the reference's 3 would make the cut run all warmup
+YOLO_STEP_CHECK_BATCH = 8  # the card-and-CPU step from the same weights
+# that step's gradients, per tensor by ‖g − g_ref‖/‖g_ref‖.  A BatchNorm
+# parameter's gradient is a sum over every pixel that cancels, so rounding
+# shows in it magnified.  In float64 (the loss itself stays float32, as in
+# the JAX package) the card's and the CPU's part by the loss's float32
+# rounding so magnified: 3e-7 to 1.6e-5 over seven batches on the H100,
+# the loss by up to 2e-7.  Held at YOLO_GRAD_RTOL_F64, which a backward off
+# by a factor of 1.001 fails.  In float32 they part by 3e-4 to 1.3e-2, and
+# for most tensors the CPU's float32 gradients lie ~10-30x further from the
+# float64 ones than the card's; so each device's float32 gradient is held
+# against the CPU's float64 one: the card's error at most
+# YOLO_GRAD_F32_FACTOR times the CPU's own, plus YOLO_GRAD_F32_FLOOR
+YOLO_GRAD_RTOL_F64, YOLO_LOSS_RTOL_F64 = 1e-3, 1e-5
+YOLO_GRAD_F32_FACTOR, YOLO_GRAD_F32_FLOOR = 10.0, 1e-4
+YOLO_DETECT_CPU_IMAGES = 16  # checkpoint detect_multi, card against CPU
+# YOLOv8s's published 28.6 GFLOPs at 640 px (ultralytics), scaled by pixels,
+# counted as multiply-adds (2 operations each); a training step is ~3 forwards
+YOLO_FORWARD_OPS_640 = 28.6e9
+PEAK_TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core operations (not used: TF32 is off)
+
+
+def first_epoch_losses(train, device, dtype=torch.float32, nudge: float = 0.0) -> tuple[np.ndarray, "MLPTrainer", float]:
+    """Phase 30's first epoch from the seeded predictor, in ``dtype`` (the
+    weights scaled by ``1 + nudge``): its per-batch losses, the trainer and
+    its seconds."""
+    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor
+    from wtracker_tpu_torch.neural.config import IOConfig
+    from wtracker_tpu_torch.neural.training import MLPTrainer
+
+    pred = make_rmlp_predictor(IOConfig(PRED_INPUT_FRAMES, PRED_PRED_FRAMES), seed=42, device=device)
+    pred.model.to(dtype)
+    with torch.no_grad():
+        for p in pred.model.parameters():
+            p.mul_(1 + nudge)
+    trainer = MLPTrainer(pred, optimizer="adam", learning_rate=1e-3, weight_decay=1e-5, seed=42)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    t0 = time.perf_counter()
+    losses = trainer.train_epoch((train.X.astype(np_dtype), train.y.astype(np_dtype)), batch_size=PRED_BATCH).losses
+    return np.asarray(losses), trainer, time.perf_counter() - t0
+
+
+def loss_gap(a: np.ndarray, b: np.ndarray, rtol: float) -> dict:
+    """Two runs' per-batch losses: the largest relative gap, the first batch
+    past ``rtol`` and the gap of the epoch's mean loss."""
+    rel = np.abs(a - b) / np.abs(b)
+    over = np.nonzero(rel > rtol)[0]
+    return {"max_rel": float(rel.max()), f"first_batch_over_{rtol:g}": int(over[0]) if len(over) else None,
+            "mean_loss_rel": float(abs(a.mean() - b.mean()) / abs(b.mean())), "rel": rel}
+
+
+def predictor_training_phase(replay_tmp: Path, device: str = "cuda") -> dict:
+    """Phase 30: the ResMLP trainer at ``predictor_training``'s defaults over
+    phase 14's 61,200-frame log.  In process: a first epoch on the card and
+    on the CPU from the same seed, in float32 and in float64, and a float64
+    CPU epoch from weights nudged by one ulp, the measure of how fast the
+    training itself parts two runs (the constants' comment).  The card's
+    per-batch losses equal the CPU's, in float32 the first at rtol 1e-5 and
+    the first PRED_EQUAL_BATCHES at rtol 1e-4, in float64 the first
+    PRED_F64_BATCHES at PRED_F64_RTOL, and each epoch's mean loss at
+    PRED_MEAN_RTOL; where the runs part is reported beside the nudge's.
+    Then PRED_TIMED_EPOCHS timed epochs (train and test) on the card; then
+    the command itself, PRED_EPOCHS epochs, whose ``.npz`` loads in
+    ``load_predictor`` and predicts finite centres."""
+    from wtracker_tpu_torch.models.resmlp import load_predictor
+    from wtracker_tpu_torch.neural.config import DatasetConfig
+    from wtracker_tpu_torch.neural.dataset import NumpyDataset
+
+    zero_hand_kernel_launches()
+    log_path = replay_tmp / "worm.csv"
+    t0 = time.perf_counter()
+    ds = NumpyDataset.create_from_config(DatasetConfig(PRED_INPUT_FRAMES, PRED_PRED_FRAMES, str(log_path)))
+    train, test = ds.split(0.8, seed=42)
+    out = {"samples": len(ds), "train_samples": len(train), "dataset_s": time.perf_counter() - t0}
+
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        for dev in (device, "cpu"):
+            runs[dtype, dev] = first_epoch_losses(train, dev, dtype)
+            out[f"first_epoch_s_{torch.device(dev).type}_{str(dtype)[6:]}"] = runs[dtype, dev][2]
+    nudged = first_epoch_losses(train, "cpu", torch.float64, nudge=2.0**-52)[0]
+    f32 = loss_gap(runs[torch.float32, device][0], runs[torch.float32, "cpu"][0], 1e-4)
+    f64 = loss_gap(runs[torch.float64, device][0], runs[torch.float64, "cpu"][0], PRED_F64_RTOL)
+    nudge = loss_gap(nudged, runs[torch.float64, "cpu"][0], PRED_F64_RTOL)
+    out["first_epoch_batches"] = len(f32["rel"])
+    out["first_epoch_float32"] = {k: v for k, v in f32.items() if k != "rel"}
+    out["first_epoch_float64"] = {k: v for k, v in f64.items() if k != "rel"}
+    out["first_epoch_float64_cpu_nudged"] = {k: v for k, v in nudge.items() if k != "rel"}
+    out["first_epoch_loss_rel_diff_float32"] = [float(v) for v in f32["rel"]]
+    out["first_epoch_loss_rel_diff_float64"] = [float(v) for v in f64["rel"]]
+    if not (f32["rel"][0] <= 1e-5 and f32["rel"][:PRED_EQUAL_BATCHES].max() <= 1e-4):
+        raise AssertionError(f"the card's first float32 losses leave the CPU's: {f32['rel'][:PRED_EQUAL_BATCHES]}")
+    if not f64["rel"][:PRED_F64_BATCHES].max() <= PRED_F64_RTOL:
+        raise AssertionError(f"the card's first {PRED_F64_BATCHES} float64 losses leave the CPU's: "
+                             f"{f64['rel'][:PRED_F64_BATCHES]}")
+    if not max(f32["mean_loss_rel"], f64["mean_loss_rel"]) <= PRED_MEAN_RTOL:
+        raise AssertionError(f"the card's first-epoch mean loss leaves the CPU's: float32 {f32['mean_loss_rel']}, "
+                             f"float64 {f64['mean_loss_rel']}")
+
+    trainer = runs[torch.float32, device][1]
+    epoch_s = []
+    for _ in range(PRED_TIMED_EPOCHS):
+        t0 = time.perf_counter()
+        trainer.train_epoch(train, batch_size=PRED_BATCH)
+        trainer.test_epoch(test, batch_size=PRED_BATCH)
+        epoch_s.append(time.perf_counter() - t0)
+    n_batches = len(train) // PRED_BATCH
+    out["epoch_s"] = epoch_s
+    out["samples_per_s"] = n_batches * PRED_BATCH / float(np.median(epoch_s))
+    out["epochs_per_s"] = 1.0 / float(np.median(epoch_s))
+
+    npz = replay_tmp / "predictor_trained.npz"
+    wall, stdout, launches = run_cli("predictor_training", [
+        "--logs", log_path, "--output", npz, "--epochs", PRED_EPOCHS, "--device", device])
+    pred = load_predictor(str(npz), device=device)
+    y = pred(torch.from_numpy(ds.X[:256]).to(device)).cpu().numpy()
+    if y.shape != (256, 2 * len(PRED_PRED_FRAMES)) or not np.isfinite(y).all():
+        raise AssertionError(f"the trained predictor gives {y.shape} outputs, finite: {np.isfinite(y).all()}")
+    out.update(command_wall_s=wall, command_epochs=PRED_EPOCHS, command_tail=stdout.splitlines()[-1],
+               launches=check_no_hand_kernel("phase 30", [launches]))
+    return out
+
+
+def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, device: str = "cuda") -> dict:
+    """Phase 31: the particle swarm over phase 14's log: its first
+    PSO_CPU_EPOCHS epochs at pop PSO_POP in process on the card (ms an
+    epoch, after a 2-epoch warm-up) and on the CPU (the same history bit for
+    bit); then the ``polyfit_optimizer`` command at its defaults (pop
+    PSO_POP, PSO_EPOCHS epochs), whose tuned error is at most the first
+    epochs' best."""
+    from wtracker_tpu_torch.neural.optimize import optimize_polyfit_weights
+    from wtracker_tpu_torch.sim.config import TimingConfig
+    from wtracker_tpu_torch.sim.controllers.polyfit import PolyfitConfig, WeightEvaluator
+
+    zero_hand_kernel_launches()
+    log_path = replay_tmp / "worm.csv"
+    timing = TimingConfig.load_json(str(timing_path))
+    pred_offset = timing.cycle_frame_num + timing.imaging_frame_num // 2
+    evaluators = {
+        dev: WeightEvaluator([str(log_path)], timing, np.asarray(PSO_SAMPLE_TIMES), pred_offset, device=dev)
+        for dev in (device, "cpu")
+    }
+    optimize_polyfit_weights(evaluators[device], pop_size=PSO_POP, epochs=2, seed=0)  # warm-up
+    runs, secs = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = optimize_polyfit_weights(evaluators[dev], pop_size=PSO_POP, epochs=PSO_CPU_EPOCHS, seed=0)
+        secs[dev] = time.perf_counter() - t0
+    if not np.array_equal(runs[device].history, runs["cpu"].history):
+        raise AssertionError(f"the card's swarm history leaves the CPU's: {runs[device].history} {runs['cpu'].history}")
+
+    out_json = replay_tmp / "polyfit_tuned.json"
+    cmd_wall, stdout, launches = run_cli("polyfit_optimizer", [
+        "--timing-config", timing_path, "--logs", log_path, "--output", out_json, "--pop", PSO_POP,
+        "--epochs", PSO_EPOCHS, "--device", device])
+    tuned = PolyfitConfig.load_json(str(out_json))
+    mae = [float(v) for v in re.search(r"MAE uniform (\S+) -> tuned (\S+)", stdout).groups()]
+    if not (mae[1] <= runs[device].best_value + 5e-5 and mae[1] < mae[0] and len(tuned.weights) == len(PSO_SAMPLE_TIMES)):
+        raise AssertionError(f"the command's MAE {mae} is not at most the first {PSO_CPU_EPOCHS} epochs' "
+                             f"{runs[device].best_value}")
+    return {
+        "pop": PSO_POP, "epochs": PSO_EPOCHS, "cycles": int(evaluators[device].y_target.shape[0] // 2),
+        "timed_epochs": PSO_CPU_EPOCHS, "ms_per_epoch": secs[device] / PSO_CPU_EPOCHS * 1e3,
+        "cpu_ms_per_epoch": secs["cpu"] / PSO_CPU_EPOCHS * 1e3, "mae_uniform_tuned": mae,
+        "command_wall_s": cmd_wall, "launches": check_no_hand_kernel("phase 31", [launches]),
+    }
+
+
+def worm_images(root: Path, device: str = "cuda") -> dict:
+    """YOLO_IMAGES seeded 384 px views of the synthetic scene (the worm at a
+    random place in each, the agar texture at a random arena offset), as
+    8-bit PNGs with the renderer's exact boxes as YOLO labels."""
+    from wtracker_tpu_torch.sim.synthetic import SyntheticScene
+    from wtracker_tpu_torch.utils.image_codec import imwrite
+
+    rng = np.random.default_rng(SEED + 32)
+    scene = SyntheticScene()
+    size = YOLO_IMGSZ
+    pos = rng.uniform(0.1 * size, 0.9 * size, (YOLO_IMAGES, 2)).astype(np.float32)
+    cam_tl = rng.integers(0, 4000, (YOLO_IMAGES, 2)).astype(np.float32)
+    frame_idx = rng.integers(0, 10_000, YOLO_IMAGES)
+    worm = torch.from_numpy(pos + cam_tl).to(device)
+    views = scene.render_views(worm, torch.from_numpy(cam_tl).to(device), (size, size), torch.from_numpy(frame_idx).to(device))
+    views = torch.round(views).to(torch.uint8).cpu().numpy()
+    boxes = scene.gt_bboxes(torch.from_numpy(pos)).numpy().astype(np.float64)  # xywh in view pixels
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for i in range(YOLO_IMAGES):
+        imwrite(str(root / "images" / f"worm_{i:04d}.png"), views[i])
+        x, y, w, h = (float(v) for v in boxes[i] / size)
+        (root / "labels" / f"worm_{i:04d}.txt").write_text(f"0 {x + w / 2!r} {y + h / 2!r} {w!r} {h!r}\n")
+    return {"images": YOLO_IMAGES, "size": size, "png_bytes": sum(p.stat().st_size for p in (root / "images").iterdir())}
+
+
+EPOCH_LINE = re.compile(r"epoch (\d+): loss (\S+)  val mAP50 (\S+)  lr (\S+)  train (\S+) s  val (\S+) s")
+
+
+def yolo_step_bound() -> dict:
+    """The least time of one training step: YOLO_FORWARD_OPS_640 scaled to
+    the step's pixels, three forwards' work (forward, and backward to inputs
+    and to weights), over the card's float32 peak (TF32 is off), and, for a
+    later change, over its TF32 tensor-core peak."""
+    ops = 3 * YOLO_FORWARD_OPS_640 * (YOLO_IMGSZ / 640) ** 2 * YOLO_BATCH
+    return {"step_ops": ops, "bound_ms_f32": ops / PEAK_F32_OPS_PER_S * 1e3, "bound_ms_tf32": ops / PEAK_TF32_OPS_PER_S * 1e3}
+
+
+def yolo_training_phase(tmp: Path, profile: bool, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 32: ``yolo_training`` at full width (YOLOv8s, 384 px, batch 72,
+    the full recipe with augmentation on) over :func:`worm_images`, 3
+    epochs: the loss is finite and falls, ``best.npz`` loads, and
+    ``detect_multi`` over the held-out images with the last epoch's weights
+    gives the run's last validation mAP50 (0 after so few steps from random
+    weights, so :func:`check_detect_multi` holds ``detect_multi`` on the
+    trained checkpoint); steps/s, images/s, s an epoch, s a validation and
+    the peak device memory from the command.  Then one step from
+    ``last.npz``'s weights on a batch of YOLO_STEP_CHECK_BATCH held-out
+    images, on the card and on the CPU (augmentation off), in float32 and
+    in float64, held together by :func:`compare_steps`.  And one profiled
+    step of the recipe on the card (top device operators, busy share)."""
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+    from wtracker_tpu_torch.neural.yolo_recipe import (
+        RecipeConfig, YoloTrainingRun, average_precision_50, expand_gray, load_yolo_dataset,
+    )
+    from wtracker_tpu_torch.neural.yolo_training import YoloTrainer
+
+    zero_hand_kernel_launches()
+    t0 = time.perf_counter()
+    data = worm_images(tmp, device)
+    data["write_s"] = time.perf_counter() - t0
+    run_dir = tmp / "run"
+    args = ["--images", tmp / "images", "--labels", tmp / "labels", "--output", run_dir / "det.npz", "--scale", YOLO_SCALE,
+            "--imgsz", YOLO_IMGSZ, "--batch", YOLO_BATCH, "--epochs", YOLO_EPOCHS, "--close-mosaic", YOLO_CLOSE_MOSAIC,
+            "--warmup-epochs", YOLO_WARMUP_EPOCHS, "--val-fraction", repr(YOLO_VAL / YOLO_IMAGES), "--seed", SEED,
+            "--device", device]
+    wall, stdout, launches = run_cli("yolo_training", args, timeout=900)
+    epochs = [dict(zip(("epoch", "loss", "map50", "lr", "train_s", "val_s"), (int(m[1]), *map(float, m.groups()[1:]))))
+              for m in EPOCH_LINE.finditer(stdout)]
+    peak = re.search(r"peak device memory (\d+) bytes", stdout)  # printed on a card
+    peak = int(peak.group(1)) if peak else None
+    if len(epochs) != YOLO_EPOCHS or not all(np.isfinite(e["loss"]) for e in epochs):
+        raise AssertionError(f"yolo_training ran {epochs}")
+    if not epochs[-1]["loss"] < epochs[0]["loss"]:
+        raise AssertionError(f"the training loss did not fall: {[e['loss'] for e in epochs]}")
+    steps = -(-(YOLO_IMAGES - YOLO_VAL) // YOLO_BATCH)
+    steady = [e["train_s"] for e in epochs[1:]]
+    out = {
+        **data, "epochs": epochs, "steps_per_epoch": steps, "command_wall_s": wall, "peak_memory_bytes": peak,
+        "steps_per_s": steps / float(np.mean(steady)), "images_per_s": steps * YOLO_BATCH / float(np.mean(steady)),
+        "epoch_s": float(np.mean(steady)), "first_epoch_s": epochs[0]["train_s"],
+        "validation_s": float(np.mean([e["val_s"] for e in epochs])), **yolo_step_bound(),
+    }
+    out["step_ms"] = 1e3 / out["steps_per_s"]
+    out["bound_share_f32"] = out["bound_ms_f32"] / out["step_ms"]
+    best = YoloV8Detector.load(str(run_dir / "best.npz"), imgsz=YOLO_IMGSZ, device=device)
+    if (best.model.scale, best.model.nc) != (YOLO_SCALE, 1):
+        raise AssertionError(f"best.npz holds YOLOv8{best.model.scale} nc={best.model.nc}")
+
+    # the last epoch's validation, again, through detect_multi
+    images, gt, cls, mask = load_yolo_dataset(str(tmp / "images"), str(tmp / "labels"), YOLO_IMGSZ, gray_uint8=True)
+    val_idx = np.random.default_rng(SEED).permutation(YOLO_IMAGES)[:YOLO_VAL]
+    last = YoloV8Detector.load(str(run_dir / "last.npz"), imgsz=YOLO_IMGSZ, conf=RecipeConfig.val_conf, device=device)
+    boxes, scores, valid = (t.cpu().numpy() for t in last.detect_multi(
+        torch.from_numpy(images[val_idx]).to(device), max_det=RecipeConfig.val_max_det, iou=RecipeConfig.val_iou))
+    out["detect_multi_map50"] = average_precision_50(xywh_to_xyxy(boxes), scores, valid, gt[val_idx], mask[val_idx])
+    out["detect_multi_map50_diff"] = abs(out["detect_multi_map50"] - epochs[-1]["map50"])
+    if not out["detect_multi_map50_diff"] <= 0.01:  # the command divides by 255, the letterbox multiplies by 1/255
+        raise AssertionError(f"detect_multi gives mAP50 {out['detect_multi_map50']}, the run {epochs[-1]['map50']}")
+    out["checkpoint_detect_multi"] = check_detect_multi(images[val_idx], gt[val_idx], mask[val_idx], device)
+
+    # one step from the same weights on the card and on the CPU, in float32
+    # and in float64
+    pick = val_idx[:YOLO_STEP_CHECK_BATCH]
+    batch = (expand_gray(torch.from_numpy(images[pick])).expand(-1, -1, -1, 3).contiguous(), *(
+        torch.from_numpy(a[pick]) for a in (gt, cls, mask)))
+    stepped = {}
+    for dtype in (torch.float32, torch.float64):
+        for role, dev in (("card", device), ("cpu", "cpu")):
+            model = YoloV8Detector.load(str(run_dir / "last.npz"), imgsz=YOLO_IMGSZ, device=dev).model.to(dtype)
+            trainer = YoloTrainer(model, (YOLO_IMGSZ, YOLO_IMGSZ))
+            t0 = time.perf_counter()
+            loss, _ = trainer.step(batch[0].to(dtype).numpy(), *(a.numpy() for a in batch[1:]))
+            stepped[dtype, role] = (loss, trainer, time.perf_counter() - t0)
+    out["step_check"] = compare_steps(stepped)
+
+    # one profiled step of the recipe, augmentation on (after a warm-up step)
+    model = YoloV8Detector.load(str(run_dir / "last.npz"), imgsz=YOLO_IMGSZ, device=device).model
+    run = YoloTrainingRun(model, (YOLO_IMGSZ, YOLO_IMGSZ), RecipeConfig(
+        epochs=YOLO_EPOCHS, batch=YOLO_BATCH, close_mosaic=YOLO_CLOSE_MOSAIC), steps_per_epoch=1)
+    d = [torch.from_numpy(a).to(device) for a in (images, gt, cls, mask)]
+    rng = np.random.default_rng(SEED)
+    run.run_epoch(0, *d, rng)
+
+    def one_step() -> float:
+        t0 = time.perf_counter()
+        run.run_epoch(1, *d, rng)
+        cuda_sync(device)
+        return time.perf_counter() - t0
+
+    out["profiled_step"] = profile_run(one_step, top=15)
+    out["launches"] = check_no_hand_kernel("phase 32", [launches])
+    return out, {"yolo_training_step": one_step} if profile else {}
+
+
+def xywh_to_xyxy(b: np.ndarray) -> np.ndarray:
+    return np.concatenate([b[..., :2], b[..., :2] + b[..., 2:]], axis=-1)
+
+
+def same_detections(a, b, what: str, score_rtol: float = 1e-3) -> dict:
+    """Two (boxes xywh, scores, valid) results, slot by slot: the same
+    validity, and where valid boxes at IoU >= 0.99 (BASELINE.md's bar) and
+    scores at ``score_rtol``."""
+    (box_a, score_a, valid_a), (box_b, score_b, valid_b) = a, b
+    if not np.array_equal(valid_a, valid_b):
+        raise AssertionError(f"{what}: validity differs in {int((valid_a != valid_b).sum())} of {valid_a.size} slots")
+    v = valid_a
+    ious = iou(box_a[v], box_b[v])
+    score_rel = np.abs(score_a[v] - score_b[v]) / np.abs(score_b[v])
+    if not (ious.min() >= 0.99 and score_rel.max() <= score_rtol):
+        raise AssertionError(f"{what}: boxes at IoU down to {ious.min()}, scores apart by {score_rel.max()} (relative)")
+    return {"valid": int(v.sum()), "slots": int(v.size), "min_iou": float(ious.min()), "max_score_rel": float(score_rel.max())}
+
+
+def check_detect_multi(images: np.ndarray, gt: np.ndarray, mask: np.ndarray, device: str = "cuda") -> dict:
+    """Phase 32's check of ``detect_multi`` and ``batched_nms`` where their
+    answer means something: the trained YOLOv8s checkpoint at 384 px on the
+    held-out rendered views, at its default score floor with the
+    validation's IoU and max_det.  The card's detections over all views
+    against the CPU's over the first YOLO_DETECT_CPU_IMAGES, and against
+    the validation's own pipeline on the card (``detections_for_map``: no
+    letterbox, the same NMS), slot by slot (:func:`same_detections`).  Both
+    valid and empty slots must occur, so a wrong suppression or validity
+    shows.  The checkpoint's mAP50 over the views is reported from both."""
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+    from wtracker_tpu_torch.neural.yolo_recipe import RecipeConfig, average_precision_50, detections_for_map
+
+    max_det, nms_iou = RecipeConfig.val_max_det, RecipeConfig.val_iou
+    dets, detectors = {}, {}
+    for role, dev, n in (("card", device, len(images)), ("cpu", "cpu", YOLO_DETECT_CPU_IMAGES)):
+        detectors[role] = YoloV8Detector.load(str(CHECKPOINT), imgsz=YOLO_IMGSZ, device=dev)
+        dets[role] = [t.cpu().numpy() for t in detectors[role].detect_multi(
+            torch.from_numpy(images[:n]).to(dev), max_det=max_det, iou=nms_iou)]
+    card_detector = detectors["card"]
+    valid = dets["card"][2]
+    if not 0 < valid.sum() < valid.size:
+        raise AssertionError(f"the checkpoint keeps {int(valid.sum())} of {valid.size} slots: the check could not fail")
+    val_xyxy, val_scores, val_valid = detections_for_map(
+        card_detector.model, images, (YOLO_IMGSZ, YOLO_IMGSZ), card_detector.conf, nms_iou, max_det)
+    val_xywh = np.concatenate([val_xyxy[..., :2], val_xyxy[..., 2:] - val_xyxy[..., :2]], axis=-1)
+    return {
+        "conf": card_detector.conf, "images": len(images), "per_image_valid": [int(n) for n in valid.sum(axis=1)],
+        "card_vs_cpu": same_detections([a[:YOLO_DETECT_CPU_IMAGES] for a in dets["card"]], dets["cpu"],
+                                       "detect_multi card vs CPU"),
+        "card_vs_validation": same_detections(dets["card"], (val_xywh, val_scores, val_valid),
+                                              "detect_multi vs detections_for_map"),
+        "map50": average_precision_50(xywh_to_xyxy(dets["card"][0]), dets["card"][1], valid, gt, mask),
+        "map50_validation": average_precision_50(val_xyxy, val_scores, val_valid, gt, mask),
+    }
+
+
+def grad_gaps(a: torch.nn.Module, b: torch.nn.Module) -> dict:
+    """Per parameter tensor, ``‖g_a − g_b‖ / ‖g_b‖`` of two models' gradients."""
+    grads_b = dict(b.named_parameters())
+    gaps = {}
+    for name, p in a.named_parameters():
+        ga, gb = p.grad.cpu().double(), grads_b[name].grad.cpu().double()
+        gaps[name] = float((ga - gb).norm() / gb.norm().clamp_min(1e-300))
+    return gaps
+
+
+def compare_steps(stepped: dict) -> dict:
+    """Phase 32's card-and-CPU step from the same weights on the same batch,
+    ``stepped[dtype, "card" | "cpu"] = (loss, trainer, seconds)`` for a
+    float32 and a float64 model (TF32 is off).
+
+    The gradients are held per tensor: in float64 the card's against the
+    CPU's, ``‖g_card − g_cpu‖/‖g_cpu‖ <= YOLO_GRAD_RTOL_F64``; in float32
+    each device's against the CPU's float64 gradient, the card's error at
+    most YOLO_GRAD_F32_FACTOR times the CPU's own plus YOLO_GRAD_F32_FLOOR
+    (the constants' comment); the tensors of the largest float32 gaps are
+    listed by name.  In float32 also the loss at rtol 1e-4, the BatchNorm
+    statistics (the batch's, no optimizer in between) at rtol 1e-4 / atol
+    1e-5, and the weights: Adam's first step is ``lr·g/(|g| + ε)``, about
+    ``lr·sign(g)``, so an entry whose gradient is near zero and takes
+    another sign on the two devices parts by up to 2·lr; every entry is
+    held to that bound and at least 99 % of them to rtol 1e-4 / atol 1e-4.
+    In float64 the loss at YOLO_LOSS_RTOL_F64 (the loss is float32)."""
+    f32, f64 = torch.float32, torch.float64
+    (loss_g, tr_g, s_g), (loss_c, tr_c, s_c) = stepped[f32, "card"], stepped[f32, "cpu"]
+    (loss_g64, tr_g64, s_g64), (loss_c64, tr_c64, s_c64) = stepped[f64, "card"], stepped[f64, "cpu"]
+    out = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
+           "loss_rel_diff_float64": abs(loss_g64 - loss_c64) / abs(loss_c64),
+           "card_step_s": s_g, "cpu_step_s": s_c, "card_step_s_float64": s_g64, "cpu_step_s_float64": s_c64}
+    gaps = {
+        "float32": grad_gaps(tr_g.model, tr_c.model),
+        "float64": grad_gaps(tr_g64.model, tr_c64.model),
+        "card_float32_vs_cpu_float64": grad_gaps(tr_g.model, tr_c64.model),
+        "cpu_float32_vs_cpu_float64": grad_gaps(tr_c.model, tr_c64.model),
+    }
+    for key, gap in gaps.items():
+        worst = max(gap, key=gap.get)
+        out[f"grad_gap_{key}"] = {"max": gap[worst], "tensor": worst, "median": float(np.median(list(gap.values())))}
+    card_err, cpu_err = gaps["card_float32_vs_cpu_float64"], gaps["cpu_float32_vs_cpu_float64"]
+    share = {name: card_err[name] / (YOLO_GRAD_F32_FACTOR * cpu_err[name] + YOLO_GRAD_F32_FLOOR) for name in card_err}
+    out["grad_float32_largest"] = [
+        {"tensor": name, "card_vs_cpu": gaps["float32"][name], "card_vs_float64": card_err[name],
+         "cpu_vs_float64": cpu_err[name]} for name in sorted(card_err, key=lambda n: -gaps["float32"][n])[:5]]
+    worst = max(share, key=share.get)
+    out["grad_float32_card_error_share_of_bound"] = {
+        "tensor": worst, "share": share[worst], "card_vs_float64": card_err[worst], "cpu_vs_float64": cpu_err[worst]}
+    if not out["loss_rel_diff"] <= 1e-4:
+        raise AssertionError(f"the card's step loss {loss_g} leaves the CPU's {loss_c}")
+    if not out["loss_rel_diff_float64"] <= YOLO_LOSS_RTOL_F64:
+        raise AssertionError(f"the card's float64 step loss {loss_g64} leaves the CPU's {loss_c64}")
+    if not out["grad_gap_float64"]["max"] <= YOLO_GRAD_RTOL_F64:
+        raise AssertionError(f"card and CPU float64 gradients part by {out['grad_gap_float64']}")
+    if not share[worst] <= 1:
+        raise AssertionError(f"the card's float32 gradient of {worst} is {card_err[worst]:.3g} from the float64 one, "
+                             f"the CPU's {cpu_err[worst]:.3g}: {out}")
+
+    lr = tr_c.optimizer.param_groups[0]["lr"]
+    params_c = dict(tr_c.model.named_parameters())
+    state_c = tr_c.model.state_dict()
+    within, total, stats_worst = 0, 0, 0.0
+    for name, t in tr_g.model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        g, c = t.float().cpu(), state_c[name].float()
+        if name not in params_c:  # running mean and variance
+            stats_worst = max(stats_worst, float(((g - c).abs() - 1e-4 * c.abs()).max()))
+            continue
+        diff = (g - c).abs()
+        if not diff.max() <= 2 * lr * 1.001:
+            raise AssertionError(f"{name}: card and CPU weights part by {float(diff.max()):.3g}, more than one Adam step can")
+        within += int((diff <= 1e-4 * c.abs() + 1e-4).sum())
+        total += g.numel()
+    out.update(weights_within_tolerance_share=within / total, weights=total, stats_max_excess=stats_worst)
+    if not stats_worst <= 1e-5:
+        raise AssertionError(f"card and CPU BatchNorm statistics differ by {stats_worst:.3g} beyond rtol 1e-4")
+    if not within >= 0.99 * total:
+        raise AssertionError(f"only {within / total:.4f} of the weights agree at rtol 1e-4 / atol 1e-4")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -2532,9 +3041,36 @@ def main() -> int:
     dataset_phases_s = time.perf_counter() - t0
     new_launches = [p["launches"] for p in (dataset, init_cli, samples, evaluated)]
     bmp_dir.cleanup()
+
+    # -- 30. predictor_training over phase 14's log ------------------------------------
+    profile = "--profile" in sys.argv
+    t0 = time.perf_counter()
+    pred_train = predictor_training_phase(replay_tmp)
+    log(f"predictor_training: {pred_train['samples_per_s']:.0f} samples/s, {np.median(pred_train['epoch_s']):.2f} s an "
+        f"epoch, first-epoch losses card vs CPU: float32 {pred_train['first_epoch_float32']}, float64 "
+        f"{pred_train['first_epoch_float64']}, float64 CPU nudged by an ulp {pred_train['first_epoch_float64_cpu_nudged']}, "
+        f"command {pred_train['command_wall_s']:.1f} s")
+
+    # -- 31. polyfit_optimizer over phase 14's log ---------------------------------------
+    pso = polyfit_optimizer_phase(replay_tmp, timing_path)
+    log(f"polyfit_optimizer: {pso['ms_per_epoch']:.2f} ms an epoch (CPU {pso['cpu_ms_per_epoch']:.1f}), "
+        f"command {pso['command_wall_s']:.1f} s, MAE {pso['mae_uniform_tuned']}")
     replay_dir.cleanup()
 
-    profile = "--profile" in sys.argv
+    # -- 32. yolo_training at full width --------------------------------------------------
+    yolo_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_yolo_")
+    yolo, profiled = yolo_training_phase(Path(yolo_dir.name), profile)
+    to_profile.update(profiled)
+    yolo_dir.cleanup()
+    log(f"yolo_training: {yolo['steps_per_s']:.2f} steps/s, {yolo['images_per_s']:.0f} images/s, "
+        f"epoch {yolo['epoch_s']:.2f} s, validation {yolo['validation_s']:.2f} s, peak memory "
+        f"{yolo['peak_memory_bytes'] / 2**30:.1f} GiB, losses {[e['loss'] for e in yolo['epochs']]}, "
+        f"step card vs CPU {yolo['step_check']}")
+
+    # -- 33. neither hand kernel on the training paths (asserted in each phase) ------------
+    training_phases_s = time.perf_counter() - t0
+    training_launches = [p["launches"] for p in (pred_train, pso, yolo)]
+
     profiles = {name: profile_run(run) for name, run in to_profile.items()} if profile else {}
 
     # -- results ---------------------------------------------------------------
@@ -2575,6 +3111,7 @@ def main() -> int:
                 "launches_int8_folded": int8_loops["folded"]["crop_letterbox_launches"],
                 "launches_host_yolo_pt": [host_yolo["launches"]["crop_letterbox"], pt["launches"]["crop_letterbox"]],
                 "launches_phases_26_29": [p["crop_letterbox"] for p in new_launches],
+                "launches_phases_30_32": [p["crop_letterbox"] for p in training_launches],
             },
             {
                 # one int8 forward at N=12 views: the sum over its 63 convolutions
@@ -2604,6 +3141,7 @@ def main() -> int:
                 "launches_synthetic_per_run": int8_synth["conv_s8_launches_per_run"],
                 "launches_host_yolo_pt": [host_yolo["launches"]["conv_s8"], pt["launches"]["conv_s8"]],
                 "launches_phases_26_29": [p["conv_s8"] for p in new_launches],
+                "launches_phases_30_32": [p["conv_s8"] for p in training_launches],
                 "design": k2_design(),
                 "sass": k2_sass,
                 "classes": k2["classes"],
@@ -2662,6 +3200,9 @@ def main() -> int:
     print(json.dumps({"initialize_experiment_cli": {**init_cli, "card": card}}))
     print(json.dumps({"create_yolo_images_cli": {**samples, "card": card}}))
     print(json.dumps({"evaluation": {**evaluated, "phases_26_29_s": dataset_phases_s, "card": card}}))
+    print(json.dumps({"predictor_training": {**pred_train, "card": card}}))
+    print(json.dumps({"polyfit_optimizer": {**pso, "card": card}}))
+    print(json.dumps({"yolo_training": {**yolo, "phases_30_33_s": training_phases_s, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

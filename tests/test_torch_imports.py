@@ -1,10 +1,10 @@
 """The port stands alone: no module of ``wtracker_tpu_torch`` (nor
-``chip_smoke.py``, ``sweep_band_rows.py``, ``sweep_conv_s8.py`` and ``time_png_decode.py``) imports JAX, Flax, Optax or the JAX package, neither in
+``chip_smoke.py``, ``sweep_band_rows.py``, ``sweep_conv_s8.py`` and ``time_png_decode.py``) imports JAX, Flax, Optax, orbax or the JAX package, neither in
 its source nor when imported; and importing the port loads no OpenCV, which
-a GPU host need not have.  OpenCV, tqdm, matplotlib, seaborn and tkinter
-(the card's host has neither OpenCV nor tqdm) are imported only inside the
-functions that need them, and every module imports on a Python where all
-five are missing."""
+a GPU host need not have.  OpenCV, tqdm, matplotlib, seaborn, tkinter and
+tensorboard (the card's host has neither OpenCV nor tqdm) are imported only
+inside the functions that need them, and every module imports on a Python
+where all of them are missing."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "wtracker_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "wtracker_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wtracker_tpu")
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__") for p in PKG.rglob("*.py")
 )
@@ -53,6 +53,12 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.eval.plotter", "wtracker_tpu_torch.eval.vlc",
         "wtracker_tpu_torch.workflows.initialize_experiment", "wtracker_tpu_torch.workflows.create_yolo_images",
         "wtracker_tpu_torch.workflows.analysis", "wtracker_tpu_torch.workflows.visualize",
+        "wtracker_tpu_torch.models.batchnorm", "wtracker_tpu_torch.ops.boxes", "wtracker_tpu_torch.ops.nms",
+        "wtracker_tpu_torch.neural.dataset", "wtracker_tpu_torch.neural.train_results",
+        "wtracker_tpu_torch.neural.training", "wtracker_tpu_torch.neural.optimize",
+        "wtracker_tpu_torch.neural.yolo_training", "wtracker_tpu_torch.neural.yolo_recipe",
+        "wtracker_tpu_torch.workflows.predictor_training", "wtracker_tpu_torch.workflows.polyfit_optimizer",
+        "wtracker_tpu_torch.workflows.yolo_training",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()
@@ -80,7 +86,7 @@ def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} + ('cv2', 'matplotlib', 'seaborn', 'tkinter'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} + ('cv2', 'matplotlib', 'seaborn', 'tkinter', 'tensorboard'))\n"
         "print('LOADED', bad)\n"
         "assert not bad, bad\n"
     )
@@ -92,7 +98,11 @@ def test_importing_every_module_loads_no_jax():
     assert "LOADED []" in out.stdout
 
 
-OPTIONAL = ("cv2", "tqdm", "matplotlib", "seaborn", "tkinter")
+OPTIONAL = ("cv2", "tqdm", "matplotlib", "seaborn", "tkinter", "tensorboard", "torch.utils.tensorboard")
+
+
+def _optional(name: str) -> bool:
+    return any(name == m or name.startswith(m + ".") for m in OPTIONAL)
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
@@ -100,9 +110,9 @@ def test_optional_packages_are_imported_inside_functions(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in tree.body:  # module level only: imports inside functions are lazy
         if isinstance(node, ast.Import):
-            bad = [a.name for a in node.names if a.name.split(".")[0] in OPTIONAL]
+            bad = [a.name for a in node.names if _optional(a.name)]
         elif isinstance(node, ast.ImportFrom):
-            bad = [node.module] if node.module and node.module.split(".")[0] in OPTIONAL else []
+            bad = [node.module] if node.module and _optional(node.module) else []
         else:
             continue
         assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad} at module level"

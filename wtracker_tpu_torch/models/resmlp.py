@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wtracker_tpu_torch.models.batchnorm import flax_batch_norm
 from wtracker_tpu_torch.neural.config import IOConfig
 from wtracker_tpu_torch.utils import flax_init
 from wtracker_tpu_torch.utils.device import resolve_device
@@ -42,14 +43,15 @@ class MLPLayer(nn.Module):
         super().__init__()
         self.nonlin = nonlin
         self.dense = nn.Linear(in_dim, out_dim)
-        # torch BatchNorm1d defaults (eps 1e-5, momentum 0.1), as the reference trains with
+        # torch BatchNorm1d defaults (eps 1e-5, momentum 0.1), as the reference trains with;
+        # train mode normalises as Flax does (models/batchnorm.py)
         use_bn = batch_norm and nonlin not in ("none", None)
         self.bn = nn.BatchNorm1d(out_dim, eps=1e-5, momentum=0.1) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.dense(x.reshape(x.shape[0], -1))
         if self.bn is not None:
-            x = self.bn(x)
+            x = flax_batch_norm(x, self.bn) if self.training else self.bn(x)
         return ACTIVATIONS[self.nonlin](x)
 
 

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wtracker_tpu_torch.models.batchnorm import flax_batch_norm
 from wtracker_tpu_torch.ops.image import _interp_matrix, letterbox
 from wtracker_tpu_torch.utils import flax_init
 from wtracker_tpu_torch.utils.device import resolve_device
@@ -63,13 +64,14 @@ class ConvBN(nn.Module):
         super().__init__()
         self.fused = fused
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2, bias=fused)
-        # Flax BatchNorm(epsilon=1e-3, momentum=0.97) = torch momentum 0.03
+        # Flax BatchNorm(epsilon=1e-3, momentum=0.97) = torch momentum 0.03;
+        # train mode normalises as Flax does (models/batchnorm.py)
         self.bn = None if fused else nn.BatchNorm2d(out_ch, eps=1e-3, momentum=0.03)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = flax_batch_norm(x, self.bn) if self.training else self.bn(x)
         return _silu(x)
 
 
@@ -612,6 +614,32 @@ class YoloV8Detector:
         x, _ = preprocess_batch(frames, self.imgsz)
         box_logits, cls_logits = self.model(x)
         return decode_predictions(box_logits, cls_logits, self.imgsz, self.model.reg_max)
+
+    @torch.inference_mode()
+    def detect_multi(
+        self, frames: torch.Tensor, max_det: int = 300, iou: float = 0.7
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Multi-detection inference through the general NMS
+        (:func:`wtracker_tpu_torch.ops.nms.batched_nms`): every anchor
+        decoded, the class-agnostic score suppressed at ``iou`` with
+        ``conf`` as the score floor, survivors mapped back to source pixels.
+
+        Returns ``(boxes, scores, valid)``: (B, max_det, 4) xywh in source
+        frame pixels (zero rows where invalid), (B, max_det) scores and the
+        (B, max_det) validity mask.
+        """
+        from wtracker_tpu_torch.ops.nms import batched_nms
+
+        x, (scale, pad_top, pad_left) = preprocess_batch(frames, self.imgsz)
+        box_logits, cls_logits = self.model(x)
+        boxes, scores = decode_predictions(box_logits, cls_logits, self.imgsz, self.model.reg_max)
+        kept, kept_scores, valid = batched_nms(boxes, scores.amax(dim=-1), iou, self.conf, max_det)
+
+        pad = torch.tensor([pad_left, pad_top], dtype=kept.dtype, device=kept.device)
+        xy = (kept[..., :2] - pad) / scale
+        wh = (kept[..., 2:] - kept[..., :2]) / scale
+        out = torch.cat([xy, wh], dim=-1)
+        return torch.where(valid[..., None], out, 0.0), kept_scores, valid
 
     def fuse(self) -> "YoloV8Detector":
         """Inference-fused copy: BN folded into conv weights and biases."""

@@ -59,15 +59,17 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 12) -> tuple[torch.Tensor, torch.
     identity, selected with ``torch.where``, never by a branch on a value).
     Rows ``p`` and ``q`` of a rotation are one strided view, updated as
     ``c·rows + (−s, s)·rows.flip()``: the same two products and one add
-    per entry as ``c·row_p − s·row_q`` and ``s·row_p + c·row_q``.
+    per entry as ``c·row_p − s·row_q`` and ``s·row_p + c·row_q``.  Leading
+    axes of ``a`` (..., k, k) are a batch of matrices, each rotated by the
+    same launches.
 
     Returns ``(eigenvalues, eigenvectors)`` with columns as eigenvectors,
     like ``jnp.linalg.eigh`` (not sorted).
     """
-    k = a.shape[0]
+    k = a.shape[-1]
     a = a.clone()
-    flat = a.view(-1)
-    v = torch.eye(k, dtype=a.dtype, device=a.device)
+    flat = a.view(*a.shape[:-2], k * k)
+    v = torch.eye(k, dtype=a.dtype, device=a.device).expand(a.shape).clone()
     tiny = torch.finfo(a.dtype).tiny
     signs = torch.tensor([-1.0, 1.0], dtype=a.dtype, device=a.device)
 
@@ -75,7 +77,7 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 12) -> tuple[torch.Tensor, torch.
         for p in range(k - 1):
             for q in range(p + 1, k):
                 d = q - p
-                apq, app, aqq = a[p, q], a[p, p], a[q, q]
+                apq, app, aqq = a[..., p, q], a[..., p, p], a[..., q, q]
 
                 rotate = apq.abs() > tiny
                 safe_apq = torch.where(rotate, apq, 1.0)
@@ -85,20 +87,20 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 12) -> tuple[torch.Tensor, torch.
                 t = torch.where(sgn == 0, (tau + root).reciprocal(), sgn / (tau.abs() + root))
                 c = _sqrt(t * t + 1.0).reciprocal()
                 s = t * c
-                c = torch.where(rotate, c, 1.0)
-                ms = torch.where(rotate, s, 0.0) * signs  # (−s, s)
+                c = torch.where(rotate, c, 1.0)[..., None, None]
+                ms = torch.where(rotate, s, 0.0)[..., None] * signs  # (..., 2): (−s, s)
 
                 # a <- Gᵀ a G on rows/cols p, q, then the pivot pair zeroed
-                rows = a[p::d][:2]
-                rows.copy_(c * rows + ms[:, None] * rows.flip(0))
-                cols = a[:, p::d][:, :2]
-                cols.copy_(c * cols + ms * cols.flip(1))
-                flat[p * k + q :: d * (k - 1)][:2].zero_()  # a[p, q] and a[q, p]
+                rows = a[..., p::d, :][..., :2, :]
+                rows.copy_(c * rows + ms[..., :, None] * rows.flip(-2))
+                cols = a[..., :, p::d][..., :, :2]
+                cols.copy_(c * cols + ms[..., None, :] * cols.flip(-1))
+                flat[..., p * k + q :: d * (k - 1)][..., :2].zero_()  # a[p, q] and a[q, p]
 
-                vcols = v[:, p::d][:, :2]
-                vcols.copy_(c * vcols + ms * vcols.flip(1))
+                vcols = v[..., :, p::d][..., :, :2]
+                vcols.copy_(c * vcols + ms[..., None, :] * vcols.flip(-1))
 
-    return a.diagonal().clone(), v
+    return a.diagonal(dim1=-2, dim2=-1).clone(), v
 
 
 def lstsq_minnorm(a: torch.Tensor, b: torch.Tensor, rcond: float) -> torch.Tensor:
@@ -108,19 +110,21 @@ def lstsq_minnorm(a: torch.Tensor, b: torch.Tensor, rcond: float) -> torch.Tenso
     and drops eigenvalues below ``max(rcond², 16·eps)·λmax``, mirroring
     ``np.linalg.lstsq``'s singular-value cutoff (the floor is the
     normal-equations noise level: forming ``aᵀa`` squares singular values but
-    not the noise).  ``b`` is (n, M).
+    not the noise).  ``a`` is (..., n, k) and ``b`` (..., n, M), leading
+    axes a batch.
     """
-    ata = _sum0(a[:, :, None] * a[:, None, :])
-    atb = _sum0(a[:, :, None] * b[:, None, :])
+    at, bt = a.movedim(-2, 0), b.movedim(-2, 0)  # samples first, summed in order
+    ata = _sum0(at[..., :, None] * at[..., None, :])
+    atb = _sum0(at[..., :, None] * bt[..., None, :])
     evals, evecs = jacobi_eigh(ata)
     evals = evals.clamp_min(0.0)
     eps = torch.finfo(ata.dtype).eps
-    cutoff = max(rcond**2, 16 * eps) * evals.max()
+    cutoff = max(rcond**2, 16 * eps) * evals.amax(dim=-1, keepdim=True)
     keep = evals > cutoff
     inv = torch.where(keep, torch.where(keep, evals, 1.0).reciprocal(), 0.0)
-    proj = _sum0(evecs[:, :, None] * atb[:, None, :])  # evecsᵀ @ atb
-    scaled = inv[:, None] * proj
-    return _sum0((evecs[:, :, None] * scaled[None, :, :]).transpose(0, 1))  # evecs @ scaled
+    proj = _sum0((evecs[..., :, :, None] * atb[..., :, None, :]).movedim(-3, 0))  # evecsᵀ @ atb
+    scaled = inv[..., :, None] * proj
+    return _sum0((evecs[..., :, :, None] * scaled[..., None, :, :]).movedim(-2, 0))  # evecs @ scaled
 
 
 def polyvander(x: torch.Tensor, deg: int) -> torch.Tensor:
@@ -139,10 +143,12 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
         x: sample positions, shape (N,).
         y: sample values, shape (N,) or (N, M) for M simultaneous fits.
         deg: polynomial degree.
-        w: optional per-sample weights (N,); zero excludes a sample.
+        w: optional per-sample weights (N,), or (..., N) for a batch of
+            weightings of the same samples; zero excludes a sample.
 
     Returns:
-        float64 coefficients in increasing order, shape (deg + 1,) or (deg + 1, M).
+        float64 coefficients in increasing order, shape (..., deg + 1) or
+        (..., deg + 1, M).
     """
     x = torch.as_tensor(x, dtype=torch.float64)
     y = torch.as_tensor(y, dtype=torch.float64, device=x.device)
@@ -151,16 +157,16 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     rhs = y if y.ndim > 1 else y[:, None]
     if w is not None:
         w = torch.as_tensor(w, dtype=torch.float64, device=x.device)
-        lhs = lhs * w[:, None]
-        rhs = rhs * w[:, None]
+        lhs = lhs * w[..., :, None]
+        rhs = rhs * w[..., :, None]
 
     # column scaling for conditioning, as numpy's polyutils._fit
-    scl = _sqrt(_sum0(lhs * lhs))
+    scl = _sqrt(_sum0((lhs * lhs).movedim(-2, 0)))
     scl = torch.where(scl == 0, 1.0, scl)
 
     rcond = x.shape[0] * torch.finfo(x.dtype).eps
-    c = lstsq_minnorm(lhs / scl, rhs, rcond) / scl[:, None]
-    return c if y.ndim > 1 else c[:, 0]
+    c = lstsq_minnorm(lhs / scl[..., None, :], rhs, rcond) / scl[..., :, None]
+    return c if y.ndim > 1 else c[..., 0]
 
 
 def polyval(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:

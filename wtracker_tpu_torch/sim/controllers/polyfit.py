@@ -9,7 +9,7 @@ to the cycle start) and extrapolates to ``cycle_frame_num +
 imaging_frame_num // 2``, the middle of the *next* imaging phase.  On the
 host it calls numpy's ``polyfit``, as the JAX package's host path does; its
 engine twin is :func:`wtracker_tpu_torch.sim.engine.polyfit_controller`.
-:meth:`WeightEvaluator.eval` runs the port's float64
+:meth:`WeightEvaluator.mae` runs the port's float64
 :mod:`~wtracker_tpu_torch.ops.polyfit` on its device, every sum a fixed
 chain or tree of adds, so the card gives the CPU's bits.
 """
@@ -88,15 +88,16 @@ class PolyfitController(CsvController):
 
 
 def _tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of a 1-D tensor by halving: zero-padded to a power of two, then
-    ``v[:h] + v[h:]`` until one element is left.  Elementwise adds only, so
-    the order (and the float64 result) is the same on every device."""
-    n = 1 << max(v.shape[0] - 1, 0).bit_length()
-    v = torch.cat([v, v.new_zeros(n - v.shape[0])])
-    while v.shape[0] > 1:
-        half = v.shape[0] // 2
-        v = v[:half] + v[half:]
-    return v[0]
+    """Sum over the last axis by halving: zero-padded to a power of two, then
+    ``v[..., :h] + v[..., h:]`` until one element is left.  Elementwise adds
+    only, so the order (and the float64 result) is the same on every
+    device."""
+    n = 1 << max(v.shape[-1] - 1, 0).bit_length()
+    v = torch.cat([v, v.new_zeros((*v.shape[:-1], n - v.shape[-1]))], dim=-1)
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
 
 
 class WeightEvaluator:
@@ -142,6 +143,7 @@ class WeightEvaluator:
             name: torch.as_tensor(np.asarray(getattr(self, name), dtype=np.float64), device=self.device)
             for name in ("x_input", "y_input", "y_target", "x_target")
         }
+        self._dev["count"] = torch.tensor(float(self.y_target.shape[0]), dtype=torch.float64, device=self.device)
 
     def _load_log_pairs(self, log_idx: int, path: str) -> tuple[np.ndarray, np.ndarray]:
         """One log's (inputs, target) pairs, reporting how much of it
@@ -186,18 +188,25 @@ class WeightEvaluator:
 
         return y_input.swapaxes(0, 1).reshape(n_inputs, -1), y_target.reshape(-1)
 
-    @torch.inference_mode()
-    def eval(self, weights: np.ndarray, deg: int = 2) -> float:
-        """MAE of the weighted polynomial fit over the whole dataset.
+    @torch.no_grad()
+    def mae(self, weights, deg: int = 2) -> torch.Tensor:
+        """MAE of the weighted polynomial fit over the whole dataset, for P
+        weight vectors at once: ``weights`` (P, N) → float64 (P,) on the
+        evaluator's device.
 
         Each of the M columns of ``y_input`` gets its own polynomial over
-        the shared sample times, evaluated at its own target time.
+        the shared sample times, evaluated at its own target time.  One
+        batched fit serves all P vectors (the particle swarm's population).
         """
         d = self._dev
-        w = torch.as_tensor(np.asarray(weights, dtype=np.float64), device=self.device)
-        coeffs = polyfit(d["x_input"], d["y_input"], deg, w=w)  # (deg+1, M)
+        w = torch.as_tensor(weights, dtype=torch.float64, device=self.device)
+        coeffs = polyfit(d["x_input"], d["y_input"], deg, w=w)  # (P, deg+1, M)
         van = polyvander(d["x_target"], deg)  # (M, deg+1)
-        y_pred = _sum0(van.T * coeffs)  # (M,)
-        # the mean's division on the host: on the card, a tensor divided by
-        # a Python number is a product with its reciprocal, an ulp off
-        return float(_tree_sum(torch.abs(d["y_target"] - y_pred))) / d["y_target"].shape[0]
+        y_pred = _sum0((van.T * coeffs).movedim(-2, 0))  # (P, M)
+        # a tensor divides correctly rounded on every device; a Python number
+        # would be a product with its reciprocal on the card, an ulp off
+        return _tree_sum(torch.abs(d["y_target"] - y_pred)) / d["count"]
+
+    def eval(self, weights: np.ndarray, deg: int = 2) -> float:
+        """MAE of the weighted polynomial fit for one (N,) weight vector."""
+        return float(self.mae(np.asarray(weights, dtype=np.float64)[None], deg)[0])

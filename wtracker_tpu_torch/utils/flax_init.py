@@ -23,6 +23,13 @@ and rounded once, which gives the same float32.  ``erfinv`` is XLA's float32
 polynomial (Giles), but its ``log1p`` is numpy's: about 1 % of the draws
 differ from JAX's by one or two ulps, so the weights agree to about 2e-7,
 not bit for bit.
+
+The same hash gives the draws of the JAX package's training code, which runs
+with ``jax_enable_x64``: float64 ``uniform`` (64 random bits a value, the
+two words of the hash side by side) and int64 ``randint`` (two 64-bit draws
+from a split key, reduced with JAX's span multiplier).  Inside ``jit`` XLA
+computes ``floats·(max − min) + min`` as one fused multiply-add, in float64
+too; :func:`fma` gives that rounding without an FMA instruction.
 """
 
 from __future__ import annotations
@@ -84,17 +91,69 @@ def random_bits(k: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     return (y0 ^ y1).reshape(shape)
 
 
-def uniform(k: np.ndarray, shape: tuple[int, ...], minval: np.float32, maxval: np.float32) -> np.ndarray:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits in [1, 2),
-    shifted to [0, 1), then scaled to [minval, maxval)."""
+def random_bits64(k: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """64 random bits per element: the two words of each counter's hash,
+    the first one high."""
+    y0, y1 = threefry2x32(k, *_iota_2x32(math.prod(shape)))
+    return ((y0.astype(np.uint64) << np.uint64(32)) | y1.astype(np.uint64)).reshape(shape)
+
+
+def uniform(k: np.ndarray, shape: tuple[int, ...], minval=0.0, maxval=1.0, dtype=np.float32) -> np.ndarray:
+    """``jax.random.uniform``: random mantissa bits in [1, 2), shifted to
+    [0, 1), then scaled to [minval, maxval) with one rounding (the fused
+    multiply-add of jitted code).  Bounds may be arrays that broadcast to
+    ``shape``.  float32 takes 32 bits a value, float64 64."""
+    if np.dtype(dtype) == np.float64:
+        bits = (random_bits64(k, shape) >> np.uint64(12)) | np.array(1.0).view(np.uint64)
+        floats = bits.view(np.float64) - 1.0
+        lo, hi = np.asarray(minval, np.float64), np.asarray(maxval, np.float64)
+        return np.maximum(lo, fma(floats, hi - lo, np.broadcast_to(lo, shape)))
     bits = (random_bits(k, shape) >> _U32(9)) | np.array(1.0, np.float32).view(_U32)
     floats = bits.view(np.float32) - np.float32(1.0)
-    return np.maximum(minval, _fma(floats, maxval - minval, minval))
+    lo, hi = np.asarray(minval, np.float32), np.asarray(maxval, np.float32)
+    return np.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+def randint(k: np.ndarray, shape: tuple[int, ...], minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint`` in int64 (JAX with x64): two 64-bit draws from
+    the halves of a split key, combined modulo the span as
+    ``((hi mod span)·m + lo mod span) mod span`` with ``m = (2³² mod span)²
+    mod span``, so that ``2·64`` random bits feed each value."""
+    k1, k2 = split(k)
+    higher, lower = random_bits64(k1, shape), random_bits64(k2, shape)
+    span = np.uint64(max(maxval - minval, 1))
+    multiplier = np.uint64(2**32) % span
+    with np.errstate(over="ignore"):
+        multiplier = (multiplier * multiplier) % span
+        offset = ((higher % span) * multiplier + lower % span) % span
+    return np.int64(minval) + offset.astype(np.int64)
 
 
 def _fma(a, b, c) -> np.ndarray:
     """float32 ``a·b + c`` with one rounding, as a fused multiply-add."""
     return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _split_float64(a):
+    hi = a * 134217729.0  # 2**27 + 1: Veltkamp's split into two 26-bit halves
+    hi = hi - (hi - a)
+    return hi, a - hi
+
+
+def fma(a, b, c):
+    """float64 ``a·b + c`` rounded once, as a fused multiply-add, from plain
+    float64 products and sums (numpy arrays or torch tensors alike): Dekker's
+    exact product ``a·b = p + e``, Knuth's exact sum ``p + c = s + t``, then
+    ``s + (t + e)``.  Correctly rounded unless ``t + e`` rounds exactly where
+    the final sum needs it, which no input of this project meets."""
+    p = a * b
+    ah, al = _split_float64(a)
+    bh, bl = _split_float64(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
 
 
 # erfinv's float32 polynomial in w = -log(1 - x²) (Giles), as XLA computes it:
