@@ -93,9 +93,9 @@ live loop over many streams, at full width:
 22. runs ``track_video`` with the int8 artifact on the BMPs, held to the
     tracking bar;
 23. runs ``python -m wtracker_tpu_torch.workflows.simulate --backend host``
-    (the hook-based simulator) over phase 14's worm log, uncut, with the
-    csv, optimal, polyfit and mlp controllers (four commands, one after
-    another): each ``bboxes.csv`` is phase
+    (the hook-based simulator) over phase 14's worm log, uncut but polyfit
+    (its first 1,000 cycles), with the csv, optimal, polyfit and mlp
+    controllers (four commands at once): each ``bboxes.csv`` is phase
     14's engine text row for row (mlp: differing rows counted, held to
     phase 14's bar), with wall time and the loop's cycles/s;
 24. runs the live host loop, ``Simulator`` + ``LoggingController(
@@ -119,15 +119,15 @@ live loop over many streams, at full width:
 27. runs ``python -m wtracker_tpu_torch.workflows.initialize_experiment`` on
     phase 12's BMPs, classical (background and boxes equal to this
     process's) and with the trained YOLOv8s at 1920 px (the trained scale
-    on whole frames; held to the tracking bar);
+    on whole frames; held to the tracking bar), the two commands at once;
 28. runs ``create_yolo_images`` (64 crops of 384 px) on them: each PNG,
     decoded by the port's codec, is the recording at the seed's window;
 29. runs ``analysis`` on phase 12's ``bboxes.csv`` with BMP worm crops and
     phase 27's background on the card and on the CPU (the same
     ``analyzed.csv``), ``DataAnalyzer.calc_precise_error(batched=True)``
     over phase 14's log (rows/s, card = CPU) and ``visualize
-    --save-frames`` over 30 frames (``VLC.render_frame``'s pixels).
-    Phases 26-29 launch neither hand kernel (asserted: each command runs
+    --save-frames`` over 30 frames (``VLC.render_frame``'s pixels), the
+    three commands at once.  Phases 26-29 launch neither hand kernel (asserted: each command runs
     in a child process that reports its own launch counts);
 30. trains the ResMLP at ``predictor_training``'s defaults over phase 14's
     log: the first epoch's per-batch losses on the card against the CPU's,
@@ -149,10 +149,31 @@ live loop over many streams, at full width:
     (augmentation off), in float32 and float64, agrees, gradients
     included; one recipe step runs under ``torch.profiler``;
 33. phases 30-32 launch neither hand kernel (each command counted in its
-    own process).
+    own process);
+34. runs ``run_video_live_sharded`` over phase 13's recordings on a mesh of
+    two slots on the card (``parallel/mesh.py``; each slot's slice of a
+    chunk uploaded to its own device), through K1 (``fold_stem=False``: 2
+    launches a cycle a slot, asserted) and folded (0): each slot equal to
+    its streams run alone bit for bit, the whole within the bf16 bar of
+    phase 13's run, stream-cycles/s beside the unsharded run;
+35. runs the int8 serving loop (phase 21's folded detect,
+    ``make_stream_batch_fused``) through ``run_engine_sharded`` on the two
+    slots, a controller a slot from a factory: each slot equal to its
+    streams alone, K2 62 launches a forward (asserted);
+36. (run right after phase 15) runs the ``sweep`` command's ``main()``
+    again with ``--mesh 2``: every ``bboxes.csv`` byte for byte phase 15's;
+37. (run right after phase 32, on its images) the data-parallel detector
+    step, YOLOv8s at 384 px, two gloo ranks on the card (this script run
+    as ``--dp-worker``) against one device on the whole batch: float64 at
+    batch 8 equal at rtol 1e-9 (loss, all-reduced gradients, BatchNorm
+    statistics), float32 at batch 72 for 3 steps within phase 32's float32
+    bounds; then the same two processes run ``yolo_training --dp
+    --dp-ranks 2`` for one epoch, each as a rank that the command's
+    launcher starts.  Neither hand kernel launches on these paths (counted
+    in each rank from its start, asserted).
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 32 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 37 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -244,8 +265,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", file=sys.stderr, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -935,11 +959,13 @@ def track_video_cli(params, recording, cam: int, detector: Path, timing_config: 
     return {**out, **quality, "csv_rows": params.n_logged_cycles(n) * params.cycle_n}
 
 
-def video_streams(params, base, models, predictor) -> dict:
+def video_streams(params, base, models, predictor) -> tuple[dict, dict]:
     """``run_video_live_sharded`` over STREAMS seeded recordings at full
     width (default ``fold_stem=None``), each stream held against its own
     ``run_video_live``: float32 positions exact and boxes within 1e-2 px,
-    bfloat16 within 2 px; then stream-cycles/s of the bfloat16 loop."""
+    bfloat16 within 2 px; then stream-cycles/s of the bfloat16 loop.
+    Returns the phase's numbers and, for phase 34, the recordings, their
+    start positions and the bfloat16 logs."""
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
     from wtracker_tpu_torch.sim.engine_video import run_video_live, run_video_live_sharded
@@ -958,9 +984,11 @@ def video_streams(params, base, models, predictor) -> dict:
         return logs, time.perf_counter() - t0
 
     out = {"streams": STREAMS, "cycles": STREAM_CYCLES, "cycles_per_chunk": STREAM_CHUNK_CYCLES}
+    kept = {"recs": recs, "init": init, "num_frames": num_frames}
     crop_letterbox_views.launches = 0
     for dtype, model in models.items():
         logs, _ = sharded(model)
+        kept[f"logs_{dtype}"] = logs
         if logs.positions.shape != (STREAM_CYCLES, STREAMS, params.cycle_n, 2):
             raise AssertionError(f"stream log shape {tuple(logs.positions.shape)}")
         diffs = []
@@ -982,7 +1010,7 @@ def video_streams(params, base, models, predictor) -> dict:
     secs = [sharded(models["bf16"])[1] for _ in range(3)]
     out["run_s"] = secs
     out["stream_cycles_per_s"] = STREAMS * STREAM_CYCLES / float(np.median(secs))
-    return out
+    return out, kept
 
 
 # ---------------------------------------------------------------------------
@@ -1744,16 +1772,18 @@ EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
 def host_replay(tmp: Path) -> dict:
     """Phase 23: ``python -m wtracker_tpu_torch.workflows.simulate --backend
     host`` at phase 14's configuration on its worm log, uncut but polyfit
-    (phase 14's first 1,000 cycles), with the csv,
-    optimal, polyfit (the command's default, degree 2 at [-15, -10, -5, 0,
-    3]) and mlp (phase 14's predictor, on the card) controllers, one command
-    after another, so that each loop's cycles/s is its own and not shared
-    with the others' start-up.  Each ``bboxes.csv`` (``\\r\\n`` line
-    ends, the csv module's) must be phase 14's engine text row for row; for mlp the rows that
-    differ are counted and held to phase 14's card-against-CPU bar."""
+    (phase 14's first 1,000 cycles), with the csv, optimal, polyfit (the
+    command's default, degree 2 at [-15, -10, -5, 0, 3]) and mlp (phase 14's
+    predictor, on the card) controllers, the four commands at once (their
+    start-ups overlap; each loop's cycles/s is taken beside the others').
+    Each ``bboxes.csv`` (``\\r\\n`` line ends, the csv module's) must be
+    phase 14's engine text row for row; for mlp the rows that differ are
+    counted and held to phase 14's card-against-CPU bar."""
+    from concurrent.futures import ThreadPoolExecutor
+
     exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
-    out = {"controllers": {}}
-    for name in HOST_CONTROLLERS:
+
+    def command(name: str):
         cmd = [
             sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--backend", "host",
             "--timing-config", str(timing_path), "--worm-csv", str(tmp / "worm.csv"),
@@ -1764,11 +1794,15 @@ def host_replay(tmp: Path) -> dict:
         started = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
                               capture_output=True, text=True, timeout=600)
-        stdout, stderr = proc.stdout, proc.stderr
-        wall = time.perf_counter() - started
+        return proc, time.perf_counter() - started
+
+    with ThreadPoolExecutor(len(HOST_CONTROLLERS)) as pool:
+        runs = list(pool.map(command, HOST_CONTROLLERS))
+    out = {"controllers": {}, "concurrent_commands": len(HOST_CONTROLLERS)}
+    for name, (proc, wall) in zip(HOST_CONTROLLERS, runs):
         if proc.returncode != 0:
-            raise AssertionError(f"simulate --backend host {name} exited {proc.returncode}:\n{stderr[-4000:]}")
-        stdout = stdout.strip().splitlines()
+            raise AssertionError(f"simulate --backend host {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        stdout = proc.stdout.strip().splitlines()
         m = re.search(r"\((\d+) cycles, ([\d.]+) s in the simulator loop\)", stdout[-1])
         if m is None:
             raise AssertionError(f"simulate --backend host {name} printed {stdout}")
@@ -1974,6 +2008,15 @@ def run_cli(name: str, args: list, timeout: int = 600, env: dict | None = None) 
     return wall, stdout, json.loads(counts)
 
 
+def run_clis(jobs: list[tuple[str, list]]) -> list[tuple[float, str, dict]]:
+    """``run_cli`` over several commands at once (their start-ups overlap;
+    each one's wall seconds are taken beside the others'), in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(lambda job: run_cli(*job), jobs))
+
+
 def zero_hand_kernel_launches() -> None:
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
@@ -2121,17 +2164,22 @@ def initialize_experiment_cli(recording, bmp: Path, device: str = "cuda") -> dic
     1920 px keep the worm at the scale the detector was trained on (a 360
     px view at 416; at 416 px a whole frame shrinks it fourfold), and the
     boxes are held to the tracking bar (>= 95 % detected, median centre
-    error <= 4 px).  Each command's K1/K2 launches are counted in its own
-    process."""
+    error <= 4 px).  The two commands run at once.  Each command's K1/K2
+    launches are counted in its own process."""
     import pandas as pd
 
     from wtracker_tpu_torch.dataset import BGExtractor, BoxCalculator
     from wtracker_tpu_torch.utils.frame_reader import FrameReader
 
     zero_hand_kernel_launches()
-    frames, out = bmp / "frames", {}
-    out["classical_wall_s"], stdout, classical_launches = run_cli("initialize_experiment", [
-        "--frames", frames, "--output", bmp / "init_classical", "--device", device])
+    frames, out, imgsz = bmp / "frames", {}, YOLO_INIT_IMGSZ
+    (out["classical_wall_s"], stdout, classical_launches), (wall, _, yolo_launches) = run_clis([
+        ("initialize_experiment", ["--frames", frames, "--output", bmp / "init_classical", "--device", device]),
+        ("initialize_experiment", [
+            "--frames", frames, "--output", bmp / f"init_yolo{imgsz}", "--detector", "yolo", "--yolo-weights",
+            CHECKPOINT, "--imgsz", imgsz, "--batch", YOLO_INIT_BATCH, "--device", device,
+            "--init-position", *(int(round(v)) for v in recording.traj[0])]),  # a run without a box needs it
+    ])
     out["classical_stdout"] = stdout.strip().splitlines()
     reader = FrameReader.create_from_directory(str(frames))
     bg = BGExtractor(reader).calc_background(BG_PROBES, device=device)
@@ -2144,11 +2192,7 @@ def initialize_experiment_cli(recording, bmp: Path, device: str = "cuda") -> dic
         raise AssertionError("initialize_experiment's classical boxes differ from BoxCalculator's in this process")
     out["classical_detected_share"] = float(np.isfinite(got).all(axis=1).mean())
 
-    n, imgsz = len(reader), YOLO_INIT_IMGSZ
-    wall, _, yolo_launches = run_cli("initialize_experiment", [
-        "--frames", frames, "--output", bmp / f"init_yolo{imgsz}", "--detector", "yolo", "--yolo-weights",
-        CHECKPOINT, "--imgsz", imgsz, "--batch", YOLO_INIT_BATCH, "--device", device,
-        "--init-position", *(int(round(v)) for v in recording.traj[0])])  # a run without a box needs it
+    n = len(reader)
     got = pd.read_csv(bmp / f"init_yolo{imgsz}" / "init_bboxes.csv").to_numpy()
     found = np.isfinite(got).all(axis=1)
     err = np.hypot(*(got[found, :2] + got[found, 2:] / 2 - recording.traj[:n][found]).T)
@@ -2195,7 +2239,8 @@ def evaluation(recording, bmp: Path, replay_tmp: Path, timing_path: Path, device
     ``DataAnalyzer.calc_precise_error(batched=True)`` over phase 14's whole
     log with seeded crops (rows/s; the card's errors equal the CPU's); then
     ``visualize --save-frames`` for VIS_FRAMES frames, the pixels of
-    ``VLC.render_frame`` in this process."""
+    ``VLC.render_frame`` in this process.  The three commands run at once,
+    before the in-process timing."""
     import importlib.util
 
     import pandas as pd
@@ -2216,12 +2261,17 @@ def evaluation(recording, bmp: Path, replay_tmp: Path, timing_path: Path, device
         imwrite(str(bmp / "crops" / f"crop_{f:06d}.bmp"), recording.data[f, y : y + max(h, 1), x : x + max(w, 1)])
     args = ["--timing-config", timing_path, "--log", log_path, "--worm-crops", bmp / "crops", "--background",
             bmp / "init_classical" / "background.npy"]
-    csv, stdout, commands = {}, {}, []
-    for dev in (device, "cpu"):
-        out[f"analysis_{dev}_wall_s"], stdout[dev], launches = run_cli(
-            "analysis", [*args, "--output", bmp / f"analysis_{dev}", "--device", dev])
-        commands.append(launches)
+    vis = bmp / "visualize"
+    ran = run_clis([
+        *(("analysis", [*args, "--output", bmp / f"analysis_{dev}", "--device", dev]) for dev in (device, "cpu")),
+        ("visualize", ["--timing-config", timing_path, "--log", log_path, "--frames", bmp / "frames", "--save-frames",
+                       vis, "--stop", VIS_FRAMES, "--device", device]),
+    ])
+    csv, stdout, commands = {}, {}, [launches for _, _, launches in ran]
+    for dev, (wall, printed, _) in zip((device, "cpu"), ran):
+        out[f"analysis_{dev}_wall_s"], stdout[dev] = wall, printed
         csv[dev] = (bmp / f"analysis_{dev}" / "analyzed.csv").read_bytes()
+    out["visualize_wall_s"] = ran[2][0]
     if csv[device] != csv["cpu"]:
         raise AssertionError("analysis wrote another analyzed.csv on the card than on the CPU")
     errs = pd.read_csv(bmp / f"analysis_{device}" / "analyzed.csv")["precise_error"]
@@ -2251,11 +2301,6 @@ def evaluation(recording, bmp: Path, replay_tmp: Path, timing_path: Path, device
                precise_cpu_rows_per_s=len(table) / secs["cpu"], precise_card_equals_cpu=True,
                precise_finite=int(np.isfinite(errors[device]).sum()))
 
-    vis = bmp / "visualize"
-    out["visualize_wall_s"], _, launches = run_cli("visualize", [
-        "--timing-config", timing_path, "--log", log_path, "--frames", bmp / "frames", "--save-frames", vis,
-        "--stop", VIS_FRAMES, "--device", device])
-    commands.append(launches)
     reader = FrameReader.create_from_directory(str(bmp / "frames"))
     vlc = VLC(files=[f"{reader.root_folder}/{f}" for f in reader.files], config=timing, log_path=str(log_path),
               cam_type="plt", show_cam=True)
@@ -2744,6 +2789,412 @@ def compare_steps(stepped: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# scale-out: the stream mesh (two slots on the card) and data parallelism
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = ("cuda:0", "cuda:0")  # two slots on the one card
+INT8_MESH_STREAMS, INT8_MESH_CYCLES = 16, 6  # phase 35: 8 streams a slot
+DP_F64_BATCH, DP_F32_BATCH, DP_F32_STEPS = 8, 72, 3  # phase 37's steps
+DP_GT = 4
+DP_CLI_IMAGES = 80  # yolo_training --dp: 72 to train (one step of batch 72), 8 to validate
+DP_RTOL_F64 = 1e-9
+
+
+def sharded_video(params, base, model, predictor, runs: dict) -> dict:
+    """Phase 34: ``run_video_live_sharded`` over phase 13's STREAMS
+    recordings on a mesh of two slots on the card (YOLOv8s@416 bf16),
+    through K1 (``fold_stem=False``: 2 launches a cycle a slot, asserted)
+    and folded (0): each slot's logs equal ``mesh=None`` runs of its own
+    streams bit for bit, and the whole is held to phase 13's run within the
+    bf16 detector bar (2 px); cycles/s of the sharded loop, total and a
+    slot, beside the unsharded run of all four streams."""
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.parallel.mesh import make_mesh
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
+    from wtracker_tpu_torch.sim.engine_video import run_video_live_sharded
+
+    recs, init, num_frames = runs["recs"], runs["init"], runs["num_frames"]
+    mesh = make_mesh(devices=list(MESH_SLOTS))
+    per = STREAMS // mesh.size
+    n = params.n_logged_cycles(num_frames)
+
+    def run(cfg, streams, mesh_=None):
+        t0 = time.perf_counter()
+        logs = run_video_live_sharded(
+            params, cfg, [recs[s].frames for s in streams], num_frames, model, predictor, init[list(streams)],
+            cycles_per_chunk=STREAM_CHUNK_CYCLES, mesh=mesh_, device="cuda",
+        )
+        torch.cuda.synchronize()
+        return logs, time.perf_counter() - t0
+
+    out = {"slots": [str(d) for d in mesh.devices], "streams": STREAMS, "cycles": n}
+    for route, cfg, k1_per_slot_cycle in (
+        ("k1", LiveLoopConfig(**base), 2), ("folded", LiveLoopConfig(**{**base, "fold_stem": None}), 0)
+    ):
+        run(cfg, range(STREAMS), mesh)  # warm-up
+        crop_letterbox_views.launches = 0
+        logs, secs = run(cfg, range(STREAMS), mesh)
+        launches = crop_letterbox_views.launches
+        if launches != k1_per_slot_cycle * mesh.size * n:
+            raise AssertionError(f"the sharded {route} loop launched K1 {launches} times in {n} cycles on {mesh.size} slots")
+        for k in range(mesh.size):
+            solo, _ = run(cfg, range(k * per, (k + 1) * per))
+            mine = type(solo)(logs.positions[:, k * per : (k + 1) * per], logs.worm_bboxes[:, k * per : (k + 1) * per])
+            if not (torch.equal(mine.positions, solo.positions)
+                    and torch.equal(mine.worm_bboxes.nan_to_num(-1.0), solo.worm_bboxes.nan_to_num(-1.0))):
+                raise AssertionError(f"slot {k} of the sharded {route} loop differs from its streams run alone")
+        pos, box = log_diffs(logs, runs["logs_bf16"])
+        if not (pos <= 2 and box <= 2.0):
+            raise AssertionError(f"the sharded {route} loop leaves phase 13's run: {pos} px, {box} px")
+        run(cfg, range(STREAMS))  # the unsharded run's warm-up
+        one_s = run(cfg, range(STREAMS))[1]
+        for s, rec in enumerate(recs):
+            check_tracking(tracking_quality(params, type(logs)(logs.positions[:, s], logs.worm_bboxes[:, s]), rec),
+                           params.cam_w)
+        out[route] = {
+            "crop_letterbox_launches": launches, "crop_letterbox_launches_per_slot": launches // mesh.size,
+            "run_s": secs, "cycles_per_s": n / secs, "stream_cycles_per_s": STREAMS * n / secs,
+            "stream_cycles_per_s_per_slot": per * n / secs, "unsharded_run_s": one_s,
+            "unsharded_stream_cycles_per_s": STREAMS * n / one_s, "slots_equal_to_alone": True,
+            "vs_phase13_pos_box_max_abs_diff": [pos, box],
+        }
+    return out
+
+
+def sharded_int8(q, qw, predictor) -> dict:
+    """Phase 35: the int8 serving loop (phase 21's folded int8 detect in
+    ``make_stream_batch_fused``, ``delayed_log``) through
+    ``run_engine_sharded`` on two slots of the card, one controller a slot
+    from a factory: INT8_MESH_STREAMS streams, INT8_MESH_CYCLES cycles; each
+    slot's logs equal ``run_engine_streams`` over its streams alone bit for
+    bit; K2 62 launches a forward (asserted), K1 none."""
+    from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.parallel.mesh import make_mesh, run_engine_sharded
+    from wtracker_tpu_torch.sim.engine import run_engine_streams
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_stream_batch_fused
+    from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+
+    _, params = bench_setup()
+    S, cycles = INT8_MESH_STREAMS, INT8_MESH_CYCLES
+    trajs = np.stack([make_trajectory(400, (1400, 1600), seed=200 + i) for i in range(S)])
+    init = np.tile([700, 700], (S, 1))
+    cfg = LiveLoopConfig(imgsz=(416, 416), conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=54.0)
+    detect, _ = make_detect_fns(q, src_hw=(params.cam_h, params.cam_w), imgsz=(416, 416), qw=qw)
+    det = Int8Detector(q, qw)
+
+    def factory(dev, lo, hi):
+        return make_stream_batch_fused(params, cfg, SyntheticScene(), trajs[lo:hi], det, predictor, detect_fn=detect, device=dev)
+
+    mesh = make_mesh(devices=list(MESH_SLOTS))
+
+    def sharded():
+        t0 = time.perf_counter()
+        logs = run_engine_sharded(params, factory, init, cycles, mesh, batched_controller=True, delayed_log=True)
+        torch.cuda.synchronize()
+        return logs, time.perf_counter() - t0
+
+    sharded()  # warm-up
+    crop_letterbox_views.launches = conv_s8.launches = 0
+    logs, secs = sharded()
+    k1, k2 = crop_letterbox_views.launches, conv_s8.launches
+    forwards = mesh.size * (cycles + 1)  # a forward a slot a step; delayed_log steps once more
+    if k1 != 0 or k2 != 62 * forwards:
+        raise AssertionError(f"the sharded int8 loop launched K1 {k1} and K2 {k2} times, expected 0 and {62 * forwards}")
+    per = S // mesh.size
+    for k in range(mesh.size):
+        alone = run_engine_streams(params, factory(mesh.devices[k], k * per, (k + 1) * per), init[k * per : (k + 1) * per],
+                                   cycles, delayed_log=True, device="cuda")
+        part = slice(k * per, (k + 1) * per)
+        if not (torch.equal(logs.positions[:, part], alone.positions)
+                and torch.equal(logs.worm_bboxes[:, part].nan_to_num(-1.0), alone.worm_bboxes.nan_to_num(-1.0))):
+            raise AssertionError(f"slot {k} of the sharded int8 loop differs from its streams run alone")
+    quality = synthetic_quality(params, logs, trajs)
+    if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
+        raise AssertionError(f"the sharded int8 loop lost the worm: {quality}")
+    return {
+        "slots": [str(d) for d in mesh.devices], "streams": S, "cycles": cycles, "run_s": secs,
+        "steps_per_s": S * cycles * params.cycle_n / secs, "crop_letterbox_launches": k1, "conv_s8_launches": k2,
+        "conv_s8_launches_per_forward": k2 / forwards, "slots_equal_to_alone": True, **quality,
+    }
+
+
+def sweep_mesh(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 36: phase 15's ``sweep`` command over exp0-exp4 again with
+    ``--mesh 2`` (two slots on the card, the five experiments padded to
+    six), its ``main()`` run in this process (phase 15 timed the command's
+    start-up): every ``bboxes.csv`` byte for byte phase 15's."""
+    import contextlib
+    import io
+
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    from wtracker_tpu_torch.workflows import sweep as sweep_cli
+
+    exps, _, cfgs = exp0_4()
+    out_dir = tmp / "sweep_mesh"
+    args = [
+        "--worm-csvs", *[str(tmp / f"sweep_worm{i}.csv") for i in range(5)], "--exp-configs", *[str(e) for e, _ in cfgs],
+        "--timing-configs", *[str(t) for _, t in cfgs], "--output", str(out_dir), "--device", device, "--mesh", "2",
+    ]
+    crop_letterbox_views.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        sweep_cli.main(args)
+    cuda_sync(device)
+    wall = time.perf_counter() - t0
+    for i in range(len(exps)):
+        if (out_dir / f"exp{i}" / "bboxes.csv").read_bytes() != (tmp / "sweep" / f"exp{i}" / "bboxes.csv").read_bytes():
+            raise AssertionError(f"sweep --mesh wrote another exp{i}/bboxes.csv than the run without it")
+    if (out_dir / "exp5").exists():
+        raise AssertionError("sweep --mesh wrote its padded stream's log")
+    if crop_letterbox_views.launches:
+        raise AssertionError("sweep --mesh launched K1")
+    return {"experiments": len(exps), "slots": 2, "main_s": wall, "equal_to_unsharded": True,
+            "stdout": stdout.getvalue().strip().splitlines()}
+
+
+def dp_batches(n: int, batch: int, seed: int) -> list:
+    """``n`` seeded (images, gt, cls, mask) batches at YOLO_IMGSZ: noise
+    images, DP_GT box slots, the first half of each batch holding boxes in
+    every slot and the second half in one (so each rank's target-score sum
+    differs)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        images = rng.random((batch, YOLO_IMGSZ, YOLO_IMGSZ, 3), dtype=np.float32)
+        c = rng.uniform(40, YOLO_IMGSZ - 40, (batch, DP_GT, 2))
+        wh = rng.uniform(12, 60, (batch, DP_GT, 2))
+        gt = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+        mask = np.zeros((batch, DP_GT), bool)
+        mask[: batch // 2] = True
+        mask[batch // 2 :, 0] = True
+        out.append((images, gt, np.zeros((batch, DP_GT), np.int32), mask))
+    return out
+
+
+def dp_model(dtype=torch.float32):
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+
+    model = YoloV8Detector.init_random(nc=1, scale=YOLO_SCALE, imgsz=YOLO_IMGSZ, seed=SEED, device="cuda").model
+    return model.to(dtype)
+
+
+def one_device_grads(model, batch, dtype) -> tuple[float, dict]:
+    """The loss and gradients of one device's step on the whole ``batch``
+    from ``model``'s weights (a copy in ``dtype``; no update)."""
+    import copy
+
+    from wtracker_tpu_torch.neural.yolo_training import detection_loss
+
+    ref = copy.deepcopy(model).to(dtype).train()
+    images, gt, cls, mask = (torch.from_numpy(a).cuda() for a in batch)
+    box_l, cls_l = ref(images)
+    loss, _ = detection_loss(box_l, cls_l, gt, cls, mask, (YOLO_IMGSZ, YOLO_IMGSZ), ref.reg_max)
+    loss.backward()
+    return float(loss), {n: p.grad.detach() for n, p in ref.named_parameters()}
+
+
+def grad_gap(a: dict, b: dict) -> dict:
+    """Per tensor ``‖a − b‖/‖b‖`` in float64."""
+    return {n: float((a[n].double() - b[n].double()).norm() / b[n].double().norm().clamp_min(1e-300)) for n in b}
+
+
+def dp_command_args(tmp: Path) -> list[str]:
+    """The arguments of phase 37's ``yolo_training --dp --dp-ranks 2``: one
+    epoch over the first DP_CLI_IMAGES of phase 32's images (linked into
+    ``tmp/dp_data``) at batch 72, one step, 8 images held out."""
+    sub = tmp / "dp_data"
+    if not sub.exists():
+        names = sorted(p.stem for p in (tmp / "images").iterdir())[:DP_CLI_IMAGES]
+        for kind, ext in (("images", ".png"), ("labels", ".txt")):
+            (sub / kind).mkdir(parents=True)
+            for name in names:
+                (sub / kind / f"{name}{ext}").symlink_to(tmp / kind / f"{name}{ext}")
+    args = ["--images", sub / "images", "--labels", sub / "labels", "--output", tmp / "dp_run" / "det.npz", "--scale",
+            YOLO_SCALE, "--imgsz", YOLO_IMGSZ, "--batch", YOLO_BATCH, "--epochs", 1, "--warmup-epochs", 1, "--val-fraction",
+            repr((DP_CLI_IMAGES - YOLO_BATCH) / DP_CLI_IMAGES), "--seed", SEED, "--device", "cuda", "--dp", "--dp-ranks", 2]
+    return [str(a) for a in args]
+
+
+def hand_kernel_launches() -> dict:
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+
+    return {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+
+
+def dp_worker(rank: int, init_method: str, out: str) -> int:
+    """One of phase 37's two gloo ranks on the card (``chip_smoke.py
+    --dp-worker RANK INIT OUT``): the float64 step at DP_F64_BATCH and
+    DP_F32_STEPS float32 steps at DP_F32_BATCH, each on its half of the
+    batches of :func:`dp_batches`.  Before each step rank 0 also takes one
+    device's loss and gradients on the whole batch from the same weights
+    (float32 and float64; the other rank waits in the step's first
+    collective), and after it compares them with the step's all-reduced
+    ones; the step alone is timed.  Then the rank runs the ``yolo_training
+    --dp`` command as that command's launcher runs each rank (``python -m``
+    with the rank's environment, a new group).  The K1/K2 launches of this
+    process are counted from its start, over the steps and over the
+    command.  Writes ``OUT/rank{RANK}.json``."""
+    import copy
+    import io
+    import runpy
+
+    from wtracker_tpu_torch.neural.yolo_training import YoloTrainer, make_dp_yolo_train_step
+    from wtracker_tpu_torch.parallel import mesh as pm
+
+    t_rank = time.perf_counter()
+    mesh = pm.make_mesh(axis="data", devices=list(MESH_SLOTS))
+    pm.init_data_parallel(mesh, rank, init_method)
+    zero_hand_kernel_launches()
+    imgsz = (YOLO_IMGSZ, YOLO_IMGSZ)
+    res = {"rank": rank}
+
+    # float64: the step equals one device's (loss, gradients, statistics)
+    t0 = time.perf_counter()
+    model32 = dp_model()
+    trainer = YoloTrainer(copy.deepcopy(model32).to(torch.float64), imgsz)
+    batch = dp_batches(1, DP_F64_BATCH, SEED + 37)[0]
+    if rank == 0:
+        one = YoloTrainer(copy.deepcopy(trainer.model), imgsz)
+        one_loss, _ = one.step(*batch)
+    loss, _ = make_dp_yolo_train_step(trainer, mesh)(*batch)
+    res["f64_loss"] = float(loss)
+    if rank == 0:
+        gaps = grad_gap({n: p.grad for n, p in trainer.model.named_parameters()},
+                        {n: p.grad for n, p in one.model.named_parameters()})
+        worst = max(gaps, key=gaps.get)
+        ours, theirs = trainer.model.state_dict(), one.model.state_dict()
+        stats = max(float((ours[k] - v).abs().max() / v.abs().max().clamp_min(1e-300))
+                    for k, v in theirs.items() if k.endswith(("running_mean", "running_var")))
+        res["f64"] = {"loss": float(loss), "loss_one_device": one_loss, "loss_rel_diff": abs(float(loss) - one_loss) / abs(one_loss),
+                      "grad_gap_max": gaps[worst], "grad_gap_tensor": worst, "grad_gap_median": float(np.median(list(gaps.values()))),
+                      "stats_rel_max": stats}
+        del one
+    del trainer
+    res["f64_s"] = time.perf_counter() - t0
+
+    # float32: each step against one device's from the same weights
+    t0 = time.perf_counter()
+    trainer = YoloTrainer(model32, imgsz)
+    step = make_dp_yolo_train_step(trainer, mesh)
+    res["f32"], res["f32_losses"] = [], []
+    for batch in dp_batches(DP_F32_STEPS, DP_F32_BATCH, SEED + 38):
+        if rank == 0:
+            loss32, g32 = one_device_grads(trainer.model, batch, torch.float32)
+            _, g64 = one_device_grads(trainer.model, batch, torch.float64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        res["f32_losses"].append(float(loss))
+        if rank == 0:
+            dp = {n: p.grad for n, p in trainer.model.named_parameters()}
+            dp_err, own_err = grad_gap(dp, g64), grad_gap(g32, g64)
+            share = {n: dp_err[n] / (YOLO_GRAD_F32_FACTOR * own_err[n] + YOLO_GRAD_F32_FLOOR) for n in dp_err}
+            worst = max(share, key=share.get)
+            vs32 = grad_gap(dp, g32)
+            res["f32"].append({
+                "loss": float(loss), "loss_one_device": loss32, "loss_rel_diff": abs(float(loss) - loss32) / abs(loss32),
+                "ms": 1e3 * seconds, "grad_share_of_bound": share[worst], "grad_tensor": worst,
+                "dp_vs_float64": dp_err[worst], "one_device_vs_float64": own_err[worst],
+                "dp_vs_one_device_max": max(vs32.values()), "dp_vs_one_device_median": float(np.median(list(vs32.values()))),
+            })
+            del g32, g64
+    del trainer, step, model32
+    res["f32_s"] = time.perf_counter() - t0
+    res["launches"] = hand_kernel_launches()
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the command's rank: the environment its launcher gives each rank
+    zero_hand_kernel_launches()
+    os.environ.update(pm.spawn_env(rank, list(MESH_SLOTS), f"file://{Path(out) / 'dp_cli_store'}"))
+    module = "wtracker_tpu_torch.workflows.yolo_training"
+    saved_argv, sys.argv = sys.argv, [module, *dp_command_args(Path(out))]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved_argv
+    res["command"] = {"rank_s": time.perf_counter() - t0, "stdout": printed.getvalue(), "launches": hand_kernel_launches()}
+    res["rank_s"] = time.perf_counter() - t_rank
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def dp_steps(tmp: Path) -> dict:
+    """Phase 37, the data-parallel detector step and ``yolo_training --dp``:
+    YOLOv8s at YOLO_IMGSZ, two gloo ranks on the card (:func:`dp_worker`,
+    child processes; rank 0 takes one device's step on the whole batch from
+    the same weights).  float64 at DP_F64_BATCH: the loss, the all-reduced
+    gradients (per tensor, ``‖g_dp − g‖/‖g‖``) and the BatchNorm running
+    statistics at DP_RTOL_F64.  float32 at DP_F32_BATCH, DP_F32_STEPS AdamW
+    steps, each against one device from the same weights: the loss at rtol
+    1e-4, the gradients with phase 32's float32 bound (the ranks' distance
+    from the float64 gradient at most YOLO_GRAD_F32_FACTOR times one
+    device's, plus YOLO_GRAD_F32_FLOOR).  (Two float32 runs do not stay
+    together over steps: Adam's first step moves an entry whose gradient is
+    rounding noise by ``lr`` either way.)  Both ranks report the same
+    losses.  The data-parallel step's ms.  Then the same two processes run
+    the command's ranks (:func:`dp_command_args`): one epoch line (rank 0
+    alone prints), a finite loss, ``det.npz`` loads.  Neither hand kernel
+    launches in either rank (counted in each rank from its start)."""
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+
+    zero_hand_kernel_launches()
+    dp_command_args(tmp)  # the command's images, linked before the ranks start
+    t0 = time.perf_counter()
+    store = tmp / "dp_store"
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", str(r), f"file://{store}", str(tmp)],
+                              cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"a data-parallel rank exited {p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    r0, r1 = ranks
+    if [r0["f64_loss"], *r0["f32_losses"]] != [r1["f64_loss"], *r1["f32_losses"]]:
+        raise AssertionError("the two ranks report different losses")
+    out = {"ranks": 2, "slots": list(MESH_SLOTS), "backend": "gloo", "f64_batch": DP_F64_BATCH, "f32_batch": DP_F32_BATCH,
+           "ranks_wall_s": time.perf_counter() - t0, "rank_s": [r["rank_s"] for r in ranks],
+           "rank0_f64_s": r0["f64_s"], "rank0_f32_s": r0["f32_s"], "f64": r0["f64"], "f32_steps": r0["f32"]}
+    f64 = r0["f64"]
+    if not (f64["loss_rel_diff"] <= DP_RTOL_F64 and f64["grad_gap_max"] <= DP_RTOL_F64 and f64["stats_rel_max"] <= DP_RTOL_F64):
+        raise AssertionError(f"the float64 data-parallel step leaves one device's: {f64}")
+    for i, st in enumerate(r0["f32"]):
+        if not (st["loss_rel_diff"] <= 1e-4 and st["grad_share_of_bound"] <= 1):
+            raise AssertionError(f"float32 data-parallel step {i} leaves one device's from the same weights: {st}")
+    out["dp_step_ms"] = [st["ms"] for st in r0["f32"]]
+    out["launches"] = check_no_hand_kernel("phase 37's steps", [r["launches"] for r in ranks])
+
+    if r1["command"]["stdout"].strip():
+        raise AssertionError(f"rank 1 of yolo_training --dp printed: {r1['command']['stdout'][:400]}")
+    epochs = [m.groups() for m in EPOCH_LINE.finditer(r0["command"]["stdout"])]
+    if len(epochs) != 1 or not np.isfinite(float(epochs[0][1])):
+        raise AssertionError(f"yolo_training --dp printed {r0['command']['stdout'][-2000:]}")
+    YoloV8Detector.load(str(tmp / "dp_run" / "det.npz"), imgsz=YOLO_IMGSZ, device="cuda")
+    out["command"] = {
+        "rank_s": [r["command"]["rank_s"] for r in ranks], "loss": float(epochs[0][1]), "train_s": float(epochs[0][4]),
+        "val_s": float(epochs[0][5]),
+        "launches": check_no_hand_kernel("yolo_training --dp's ranks", [r["command"]["launches"] for r in ranks]),
+    }
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -2945,7 +3396,7 @@ def main() -> int:
     log(f"track_video: whole frames {cli['whole_frames_wall_s']:.1f} s, ROI {cli['roi_wall_s']:.1f} s")
 
     # -- 13. the multi-recording loop --------------------------------------------
-    streams = video_streams(params, base, {"f32": model32, "bf16": model}, predictor)
+    streams, stream_runs = video_streams(params, base, {"f32": model32, "bf16": model}, predictor)
     log(f"video streams: {streams['stream_cycles_per_s']:.2f} stream-cycles/s")
 
     # -- 14. replay through the four controllers, and the simulate command ------
@@ -2959,6 +3410,12 @@ def main() -> int:
     # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process ------
     swept = sweep(replay_tmp)
     log(f"sweep: {swept['stream_cycles_per_s']:.0f} stream-cycles/s at S={swept['streams']}")
+
+    # -- 36. the sweep command with --mesh 2 (two slots on the card) ------------
+    t0 = time.perf_counter()
+    swept_mesh = sweep_mesh(replay_tmp)
+    scale_out_s = time.perf_counter() - t0
+    log(f"sweep --mesh 2: {swept_mesh['main_s']:.1f} s, files equal to phase 15's")
 
     # -- 16. the live loop over mixed camera geometries --------------------------
     hetero, to_profile["hetero_live"] = hetero_live({"bf16": model, "f32": model32}, predictor)
@@ -3061,15 +3518,32 @@ def main() -> int:
     yolo_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_yolo_")
     yolo, profiled = yolo_training_phase(Path(yolo_dir.name), profile)
     to_profile.update(profiled)
+
+    # -- 37. the data-parallel detector step, and yolo_training --dp --------------
+    t1 = time.perf_counter()
+    dp = dp_steps(Path(yolo_dir.name))
+    dp_s = time.perf_counter() - t1
     yolo_dir.cleanup()
+    log(f"data-parallel step: float64 {dp['f64']}, float32 steps {dp['f32_steps']}, "
+        f"command ranks {dp['command']['rank_s']} s")
     log(f"yolo_training: {yolo['steps_per_s']:.2f} steps/s, {yolo['images_per_s']:.0f} images/s, "
         f"epoch {yolo['epoch_s']:.2f} s, validation {yolo['validation_s']:.2f} s, peak memory "
         f"{yolo['peak_memory_bytes'] / 2**30:.1f} GiB, losses {[e['loss'] for e in yolo['epochs']]}, "
         f"step card vs CPU {yolo['step_check']}")
 
     # -- 33. neither hand kernel on the training paths (asserted in each phase) ------------
-    training_phases_s = time.perf_counter() - t0
+    training_phases_s = time.perf_counter() - t0 - dp_s
     training_launches = [p["launches"] for p in (pred_train, pso, yolo)]
+
+    # -- 34. the multi-recording loop sharded over two slots of the card ----------
+    t0 = time.perf_counter()
+    sharded = sharded_video(params, base, model, predictor, stream_runs)
+    log(f"sharded video: {({r: sharded[r]['stream_cycles_per_s'] for r in ('k1', 'folded')})} stream-cycles/s")
+
+    # -- 35. the int8 serving loop through run_engine_sharded ---------------------
+    sharded8 = sharded_int8(q, qw, predictor)
+    log(f"sharded int8 loop: {sharded8['steps_per_s']:.0f} steps/s, K2 {sharded8['conv_s8_launches']}")
+    scale_out_s += time.perf_counter() - t0 + dp_s
 
     profiles = {name: profile_run(run) for name, run in to_profile.items()} if profile else {}
 
@@ -3112,6 +3586,11 @@ def main() -> int:
                 "launches_host_yolo_pt": [host_yolo["launches"]["crop_letterbox"], pt["launches"]["crop_letterbox"]],
                 "launches_phases_26_29": [p["crop_letterbox"] for p in new_launches],
                 "launches_phases_30_32": [p["crop_letterbox"] for p in training_launches],
+                "launches_sharded_video_per_slot": sharded["k1"]["crop_letterbox_launches_per_slot"],
+                "launches_sharded_folded_int8_sweep": [
+                    sharded["folded"]["crop_letterbox_launches"], sharded8["crop_letterbox_launches"], 0
+                ],
+                "launches_data_parallel": [dp["launches"]["crop_letterbox"], dp["command"]["launches"]["crop_letterbox"]],
             },
             {
                 # one int8 forward at N=12 views: the sum over its 63 convolutions
@@ -3142,6 +3621,8 @@ def main() -> int:
                 "launches_host_yolo_pt": [host_yolo["launches"]["conv_s8"], pt["launches"]["conv_s8"]],
                 "launches_phases_26_29": [p["conv_s8"] for p in new_launches],
                 "launches_phases_30_32": [p["conv_s8"] for p in training_launches],
+                "launches_sharded_int8": sharded8["conv_s8_launches"],
+                "launches_data_parallel": [dp["launches"]["conv_s8"], dp["command"]["launches"]["conv_s8"]],
                 "design": k2_design(),
                 "sass": k2_sass,
                 "classes": k2["classes"],
@@ -3203,6 +3684,10 @@ def main() -> int:
     print(json.dumps({"predictor_training": {**pred_train, "card": card}}))
     print(json.dumps({"polyfit_optimizer": {**pso, "card": card}}))
     print(json.dumps({"yolo_training": {**yolo, "phases_30_33_s": training_phases_s, "card": card}}))
+    print(json.dumps({"sharded_video": {**sharded, "card": card}}))
+    print(json.dumps({"sharded_int8": {**sharded8, "card": card}}))
+    print(json.dumps({"sweep_mesh": {**swept_mesh, "card": card}}))
+    print(json.dumps({"data_parallel": {**dp, "phases_34_37_s": scale_out_s, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))
@@ -3212,4 +3697,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 37, started by the script itself
+        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -38,6 +38,7 @@ from wtracker_tpu_torch.models.resmlp import RMLP, WormPredictor
 from wtracker_tpu_torch.models.yolov8 import YoloV8
 from wtracker_tpu_torch.neural.config import IOConfig
 from wtracker_tpu_torch.ops import image as ti
+from wtracker_tpu_torch.parallel.mesh import make_mesh
 from wtracker_tpu_torch.sim import engine as te
 from wtracker_tpu_torch.sim import engine_hetero as th
 from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
@@ -115,8 +116,14 @@ def test_sweep_on_a_mesh_raises(tracks):
     exps, timings = _configs(ExperimentConfig, TimingConfig)
     params, geom = th.geometry_from_configs(timings, exps)
     ctl = th.csv_controller_hetero(th.pad_worm_tables(tracks), params, geom, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        th.run_sweep_hetero(params, geom, ctl, np.asarray([e.init_position for e in exps]), mesh=object(), device="cpu")
+    init = np.asarray([e.init_position for e in exps])
+    # the mesh is ported (tests/test_torch_parallel.py); what it refuses:
+    # streams that do not split evenly, and a plain controller on a mesh
+    # whose slots are on other devices than its tensors
+    with pytest.raises(ValueError, match="not a multiple of the mesh size 3"):
+        th.run_sweep_hetero(params, geom, ctl, init, mesh=make_mesh(devices=["cpu"] * 3), device="cpu")
+    with pytest.raises(ValueError, match="pass a factory"):
+        th.run_sweep_hetero(params, geom, ctl, init, mesh=make_mesh(devices=["cpu", "meta"]), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

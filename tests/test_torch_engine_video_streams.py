@@ -7,7 +7,8 @@ camera, chunks of 6 cycles), YOLOv8 scale "n" at 64 px, float32, the weights
 of ``tests/test_torch_engine_video.py``.  Positions must match exactly and
 boxes to 1e-3 px; each stream must also match the port's own single-stream
 ``run_video_live`` (positions exactly, boxes to 1e-4 px), with the detector
-batch in one piece and in two sub-batches.
+batch in one piece and in two sub-batches.  Sharded over a mesh of two CPU
+slots the loop gives the one-device logs bit for bit.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from wtracker_tpu.sim.config import ExperimentConfig as JaxExperimentConfig
 from wtracker_tpu.sim.config import TimingConfig as JaxTimingConfig
 from wtracker_tpu.sim.engine_live import LiveLoopConfig as JaxLiveLoopConfig
 from wtracker_tpu.sim.engine_video import run_video_live_sharded as jax_run_video_live_sharded
+from wtracker_tpu_torch.parallel.mesh import make_mesh
 from wtracker_tpu_torch.sim import engine
 from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
 from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
@@ -95,7 +97,27 @@ def test_streams_refuse_a_mesh_and_bad_positions(recordings, models):
     _, (tmodel, tpred) = models
     params = _params(engine, ExperimentConfig, TimingConfig)
     args = (params, LiveLoopConfig(**LOOP_KW), _sources(recordings), FR, tmodel, tpred)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        run_video_live_sharded(*args, np.tile(INIT, (S, 1)), mesh=object(), device="cpu")
+    # the mesh is ported (tests/test_torch_parallel.py); it refuses streams
+    # that do not split evenly and a custom detect_fn over several devices
+    with pytest.raises(ValueError, match="not a multiple of the mesh size 3"):
+        run_video_live_sharded(*args, np.tile(INIT, (S, 1)), mesh=make_mesh(devices=["cpu"] * 3), device="cpu")
+    with pytest.raises(ValueError, match="a mesh of one device"):
+        run_video_live_sharded(*args, np.tile(INIT, (S, 1)), mesh=make_mesh(devices=["cpu", "meta"]),
+                               detect_fn=lambda *a: None, device="cpu")
     with pytest.raises(ValueError, match=r"init_positions must be \(4, 2\)"):
         run_video_live_sharded(*args, np.tile(INIT, (S - 1, 1)), device="cpu")
+
+
+def test_streams_on_a_mesh_equal_one_device(recordings, models, jax_logs):
+    """The streams sharded over two CPU slots (each slot's slice of every
+    chunk on its own device, a controller a slot): the one-device run's logs
+    bit for bit, so JAX's within the bars above."""
+    _, (tmodel, tpred) = models
+    params = _params(engine, ExperimentConfig, TimingConfig)
+    args = (params, LiveLoopConfig(**LOOP_KW), _sources(recordings), FR, tmodel, tpred, np.tile(INIT, (S, 1)))
+    one = run_video_live_sharded(*args, cycles_per_chunk=CHUNK, device="cpu")
+    sharded = run_video_live_sharded(*args, cycles_per_chunk=CHUNK, mesh=make_mesh(devices=["cpu", "cpu"]), device="cpu")
+    np.testing.assert_array_equal(sharded.positions.numpy(), one.positions.numpy())
+    np.testing.assert_array_equal(sharded.worm_bboxes.numpy(), one.worm_bboxes.numpy())
+    np.testing.assert_array_equal(sharded.positions.numpy(), jax_logs[0])
+    np.testing.assert_allclose(sharded.worm_bboxes.numpy(), jax_logs[1], atol=1e-3)

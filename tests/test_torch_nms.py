@@ -23,13 +23,13 @@ from wtracker_tpu.ops import boxes as jb
 from wtracker_tpu.utils.bbox import BoxFormat as JaxBoxFormat
 from wtracker_tpu_torch.models import yolov8 as ty
 from wtracker_tpu_torch.ops import boxes as tb
-from wtracker_tpu_torch.ops import nms as tn
 from wtracker_tpu_torch.utils.bbox import BoxFormat
 
 torch.set_num_threads(2)
 
 CHECKPOINT = "models/yolov8s_worm416.npz"
 jn = importlib.import_module("wtracker_tpu.ops.nms")  # the package re-exports the function as ops.nms
+tn = importlib.import_module("wtracker_tpu_torch.ops.nms")  # so is the port's
 
 
 def _boxes(rng, shape, fmt):

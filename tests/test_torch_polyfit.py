@@ -17,7 +17,7 @@ import torch
 import jax.numpy as jnp
 
 jp = importlib.import_module("wtracker_tpu.ops.polyfit")  # the package's ``polyfit`` name is the function
-from wtracker_tpu_torch.ops import polyfit as tp
+tp = importlib.import_module("wtracker_tpu_torch.ops.polyfit")  # so is the port's
 
 
 def _rel_err(got, want) -> float:

@@ -212,7 +212,11 @@ def test_unported_options_raise(files, tmp_path):
             simulate.main([*common, "--backend", backend, "--controller", "mlp", "--predictor", str(tmp_path / "p.pt")])
     with pytest.raises(SystemExit):
         simulate.main([*common, "--controller", "mlp"])  # no predictor
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sweep.main(["--worm-csvs", str(root / "worm.csv"), "--exp-configs", sweep_exps[0], "--timing-config",
-                    str(root / "timing.json"), "--output", str(tmp_path / "sweep"), "--mesh", "--device", "cpu"])
-    assert not (tmp_path / "out").exists() and not (tmp_path / "sweep").exists()
+    assert not (tmp_path / "out").exists()
+    # --mesh is ported: two CPU slots, the one experiment padded to two streams, the run's own file
+    sweep_args = ["--worm-csvs", str(root / "worm.csv"), "--exp-configs", sweep_exps[0], "--timing-config",
+                  str(root / "timing.json"), "--device", "cpu"]
+    sweep.main([*sweep_args, "--output", str(tmp_path / "sweep_mesh"), "--mesh", "2"])
+    sweep.main([*sweep_args, "--output", str(tmp_path / "sweep")])
+    assert (tmp_path / "sweep_mesh" / "exp0" / "bboxes.csv").read_text() == (tmp_path / "sweep" / "exp0" / "bboxes.csv").read_text()
+    assert not (tmp_path / "sweep_mesh" / "exp1").exists()

@@ -207,3 +207,152 @@ def load_predictor(path: str, device: str | torch.device = "cuda") -> WormPredic
     model.load_state_dict(resmlp_from_flax(variables))
     io_config = IOConfig(list(meta["input_frames"]), list(meta["pred_frames"]))
     return WormPredictor(model.to(dev).eval(), io_config)
+
+
+# ---------------------------------------------------------------------------
+# the reference's whole-module .pt files, read without running them
+# ---------------------------------------------------------------------------
+
+# the only callables a whole-module torch pickle may name besides module
+# classes: tensor and parameter rebuilds, and two containers
+_PICKLE_CALLABLES = {
+    ("torch._utils", "_rebuild_tensor_v2"): "torch._utils",
+    ("torch._utils", "_rebuild_parameter"): "torch._utils",
+    ("collections", "OrderedDict"): "collections",
+    ("builtins", "set"): "builtins",
+    ("__builtin__", "set"): "builtins",
+}
+
+
+class _Pickled:
+    """An inert stand-in for a pickled object of a class the loader does not
+    run (the upstream ``wtracker`` classes, torch's module classes): it only
+    keeps the pickled attributes (``__dict__``, so ``_modules``,
+    ``_parameters``, ``_buffers`` for a module)."""
+
+    _pickled_class = ""
+
+    def __setstate__(self, state) -> None:
+        if isinstance(state, tuple):  # (dict state, slot state)
+            state = {**(state[0] or {}), **(state[1] or {})}
+        self.__dict__.update(state)
+
+    def __getattr__(self, name: str):
+        """A module's submodules, parameters and buffers as attributes."""
+        if not name.startswith("__"):
+            for group in ("_modules", "_parameters", "_buffers"):
+                if name in self.__dict__.get(group, {}):
+                    return self.__dict__[group][name]
+        raise AttributeError(name)
+
+
+def _restricted_pickle_module():
+    """A ``pickle_module`` for ``torch.load`` whose unpickler maps module
+    classes to :class:`_Pickled` stand-ins, allows the callables of
+    ``_PICKLE_CALLABLES`` and refuses every other global."""
+    import importlib
+    import pickle
+    import types
+
+    stubs: dict = {}
+
+    class Unpickler(pickle.Unpickler):
+        def find_class(self, module: str, name: str):
+            key = (module, name)
+            if key in _PICKLE_CALLABLES:
+                return getattr(importlib.import_module(_PICKLE_CALLABLES[key]), name)
+            if module.split(".")[0] == "wtracker" or module.startswith("torch.nn.modules."):
+                if key not in stubs:
+                    stubs[key] = type(name, (_Pickled,), {"_pickled_class": f"{module}.{name}"})
+                return stubs[key]
+            raise pickle.UnpicklingError(f"refusing to load {module}.{name} from a predictor checkpoint")
+
+    mod = types.ModuleType("restricted_pickle")
+    mod.Unpickler = Unpickler
+    mod.load = lambda f, **kw: Unpickler(f, **kw).load()
+    mod.__name__ = "restricted_pickle"
+    return mod
+
+
+def _pickled_state_dict(module: _Pickled, prefix: str = "") -> dict[str, np.ndarray]:
+    """``state_dict()`` of a pickled module tree, from its stand-ins."""
+    out = {}
+    skip = module.__dict__.get("_non_persistent_buffers_set", set())
+    for name, p in module.__dict__.get("_parameters", {}).items():
+        if p is not None:
+            out[prefix + name] = p.detach().numpy()
+    for name, b in module.__dict__.get("_buffers", {}).items():
+        if b is not None and name not in skip:
+            out[prefix + name] = b.detach().numpy()
+    for name, child in module.__dict__.get("_modules", {}).items():
+        if child is not None:
+            out.update(_pickled_state_dict(child, f"{prefix}{name}."))
+    return out
+
+
+def _children(module: _Pickled) -> list:
+    return list(module.__dict__["_modules"].values())
+
+
+def load_torch_checkpoint(path: str, reference_root: str | None = None) -> WormPredictor:
+    """Load a reference ``WormPredictor`` ``.pt`` (a whole-module pickle of
+    the upstream ``wtracker`` package) as a CPU :class:`WormPredictor`.
+
+    The pickle is read with a restricted unpickler: the upstream classes
+    (and torch's module classes) become inert stand-ins that only collect
+    the pickled attributes, tensors are rebuilt from their storages, and any
+    other global refuses the file.  Nothing is put on ``sys.path`` and no
+    code of the checkpoint's package runs, so ``reference_root`` (the JAX
+    package's way to import that package) is accepted and not needed.  The
+    topology is read from the module tree as the JAX package reads it
+    (``wtracker_tpu/models/resmlp.py``: ReLU blocks, BatchNorm when the
+    pickle has running statistics).
+    """
+    from wtracker_tpu_torch.convert import resmlp_from_flax
+
+    tm = torch.load(path, map_location="cpu", pickle_module=_restricted_pickle_module(), weights_only=False)
+    io = tm.io_config
+    io_config = IOConfig(list(io.input_frames), list(io.pred_frames))
+    sd = _pickled_state_dict(tm)
+
+    rmlp = tm.model
+    has_input = "model.input.mlp_layer.0.weight" in sd
+    blocks = _children(rmlp.blocks)
+    sequence = _children(blocks[0].sequence)
+
+    def linear(layer):
+        return _children(layer.mlp_layer)[0]
+
+    block_dims = [linear(layer).out_features for layer in sequence]
+    has_bn = any(".mlp_layer.1.running_mean" in k for k in sd)
+    model = RMLP(
+        block_in_dim=linear(sequence[0]).in_features,
+        block_dims=tuple(block_dims),
+        block_nonlins=("relu",) * len(block_dims),
+        n_blocks=len(blocks),
+        out_dim=rmlp.output.out_features,
+        in_dim=linear(rmlp.input).in_features if has_input else None,
+        batch_norm=has_bn,
+    )
+
+    def layer(prefix: str):
+        p = {"dense": {"kernel": sd[f"{prefix}.mlp_layer.0.weight"].T.copy(), "bias": sd[f"{prefix}.mlp_layer.0.bias"]}}
+        s = {}
+        if has_bn:
+            p["bn"] = {"scale": sd[f"{prefix}.mlp_layer.1.weight"], "bias": sd[f"{prefix}.mlp_layer.1.bias"]}
+            s = {"bn": {"mean": sd[f"{prefix}.mlp_layer.1.running_mean"], "var": sd[f"{prefix}.mlp_layer.1.running_var"]}}
+        return p, s
+
+    params, stats = {}, {}
+    if has_input:
+        params["input"], stats["input"] = layer("model.input")
+    for b in range(len(blocks)):
+        parts = [layer(f"model.blocks.{b}.sequence.{i}") for i in range(len(block_dims))]
+        params[f"block_{b}"] = {f"layer_{i}": p for i, (p, _) in enumerate(parts)}
+        stats[f"block_{b}"] = {f"layer_{i}": s for i, (_, s) in enumerate(parts)}
+    params["output"] = {"kernel": sd["model.output.weight"].T.copy(), "bias": sd["model.output.bias"]}
+    variables = {"params": params}
+    if has_bn:
+        variables["batch_stats"] = stats
+    model.load_state_dict(resmlp_from_flax(variables))
+    return WormPredictor(model.eval(), io_config)

@@ -10,7 +10,6 @@ re-bases).  Persistence is ``.npz``.
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
 from wtracker_tpu_torch.neural.config import DatasetConfig
 from wtracker_tpu_torch.utils import bbox as bb
@@ -56,6 +55,8 @@ class NumpyDataset:
 
         X_parts, y_parts = [], []
         for path in paths:
+            import pandas as pd  # here: the package's other modules import it only where a command reads a log
+
             data = pd.read_csv(path)
             wrm_boxes = data[WORM_COLS].to_numpy(dtype=np.float64)
             wrm_centers = bb.center(wrm_boxes)

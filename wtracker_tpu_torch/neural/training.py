@@ -17,13 +17,15 @@ device until the epoch ends.  The optimizers are
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
-from wtracker_tpu_torch.models.resmlp import WormPredictor
 from wtracker_tpu_torch.neural.config import LOSSES, TrainConfig, make_optimizer
+
+if TYPE_CHECKING:  # models.resmlp imports neural.config: import it here only for the annotations
+    from wtracker_tpu_torch.models.resmlp import WormPredictor
 from wtracker_tpu_torch.neural.dataset import NumpyDataset
 from wtracker_tpu_torch.neural.train_results import EpochResult, FitResult
 

@@ -45,12 +45,6 @@ from wtracker_tpu_torch.utils import flax_init
 
 BORDER = 114.0 / 255.0  # ultralytics letterbox/affine fill, normalized
 
-MESH_NOT_PORTED = (
-    "data-parallel training is not ported yet (ROADMAP Queue 1 item 8: parallel/mesh.py); "
-    "one H100 runs the recipe on one device"
-)
-
-
 # ---------------------------------------------------------------------------
 # configuration
 # ---------------------------------------------------------------------------
@@ -221,28 +215,47 @@ def load_yolo_dataset(images_dir: str, labels_dir: str, imgsz: int, max_gt: int 
 # ---------------------------------------------------------------------------
 
 
+def _sample_mosaic(key: np.ndarray, batch: int, p: float) -> dict:
+    """The mosaic's draws from its key: three partners per image (indices
+    into the whole batch) and whether the image is tiled."""
+    k_pick, k_apply = flax_init.split(key)
+    return {
+        "partners": flax_init.randint(k_pick, (batch, 3), 0, batch),
+        "use_mosaic": flax_init.uniform(k_apply, (batch,), dtype=np.float64) < p,
+    }
+
+
+def _sample_spatial(key: np.ndarray, batch: int, hw: tuple[int, int], cfg: AugmentConfig) -> dict:
+    """The affine jitter's draws from its key (JAX's ``_sample_affine``)."""
+    f64 = np.float64
+    h, w = hw
+    ks, kt, kfx, kfy = flax_init.split(key, 4)
+    t = flax_init.uniform(kt, (batch, 2), -cfg.translate, cfg.translate, dtype=f64)
+    return {
+        "scale": flax_init.fma(cfg.scale, flax_init.uniform(ks, (batch,), -1.0, 1.0, dtype=f64), 1.0),
+        "tx": t[:, 0] * w,
+        "ty": t[:, 1] * h,
+        "flip_x": flax_init.uniform(kfx, (batch,), dtype=f64) < cfg.fliplr,
+        "flip_y": flax_init.uniform(kfy, (batch,), dtype=f64) < cfg.flipud,
+    }
+
+
+def _sample_photometric(key: np.ndarray, batch: int, cfg: AugmentConfig) -> dict:
+    """The brightness and contrast gains' draws from their key."""
+    kb, kc = flax_init.split(key)
+    return {
+        "bright": flax_init.fma(cfg.brightness, flax_init.uniform(kb, (batch,), -1.0, 1.0, dtype=np.float64), 1.0),
+        "contr": flax_init.fma(cfg.contrast, flax_init.uniform(kc, (batch,), -1.0, 1.0, dtype=np.float64), 1.0),
+    }
+
+
 def sample_augment(key: np.ndarray, batch: int, hw: tuple[int, int], cfg: AugmentConfig) -> dict:
     """One batch's augmentation draws from ``key``, as JAX's
     ``augment_batch`` draws them (float64, int64).  The multiply-adds that
     XLA fuses are rounded once (:func:`~wtracker_tpu_torch.utils.flax_init.fma`)."""
-    f64 = np.float64
-    h, w = hw
     k_m, k_s, k_p = flax_init.split(key, 3)
-    draws = {}
-    if cfg.mosaic > 0:
-        k_pick, k_apply = flax_init.split(k_m)
-        draws["partners"] = flax_init.randint(k_pick, (batch, 3), 0, batch)
-        draws["use_mosaic"] = flax_init.uniform(k_apply, (batch,), dtype=f64) < cfg.mosaic
-    ks, kt, kfx, kfy = flax_init.split(k_s, 4)
-    draws["scale"] = flax_init.fma(cfg.scale, flax_init.uniform(ks, (batch,), -1.0, 1.0, dtype=f64), 1.0)
-    t = flax_init.uniform(kt, (batch, 2), -cfg.translate, cfg.translate, dtype=f64)
-    draws["tx"], draws["ty"] = t[:, 0] * w, t[:, 1] * h
-    draws["flip_x"] = flax_init.uniform(kfx, (batch,), dtype=f64) < cfg.fliplr
-    draws["flip_y"] = flax_init.uniform(kfy, (batch,), dtype=f64) < cfg.flipud
-    kb, kc = flax_init.split(k_p)
-    draws["bright"] = flax_init.fma(cfg.brightness, flax_init.uniform(kb, (batch,), -1.0, 1.0, dtype=f64), 1.0)
-    draws["contr"] = flax_init.fma(cfg.contrast, flax_init.uniform(kc, (batch,), -1.0, 1.0, dtype=f64), 1.0)
-    return draws
+    draws = _sample_mosaic(k_m, batch, cfg.mosaic) if cfg.mosaic > 0 else {}
+    return {**draws, **_sample_spatial(k_s, batch, hw, cfg), **_sample_photometric(k_p, batch, cfg)}
 
 
 def sample_epoch(seed: int, n_batches: int, batch: int, hw: tuple[int, int], cfg: AugmentConfig, device) -> dict:
@@ -361,16 +374,50 @@ def photometric_apply(images: torch.Tensor, draws: dict) -> torch.Tensor:
     return ((images - mean) * contr + mean * bright).clamp(0.0, 1.0)
 
 
-def apply_augment(draws: dict, images, gt, cls, mask, cfg: AugmentConfig, mosaic_on: bool = True):
+def _upload(draws: dict, device) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in draws.items()}
+
+
+def spatial_augment(key: np.ndarray, images: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, cfg: AugmentConfig):
+    """JAX's ``spatial_augment``: random centred scale + translate + flips
+    on a (B, H, W, C) batch, drawn from ``key`` (a uint32 key pair, the value
+    of a ``jax.random`` key); returns (images, gt, mask)."""
+    B, H, W = images.shape[:3]
+    draws = _upload(_sample_spatial(np.asarray(key, np.uint32), B, (H, W), cfg), images.device)
+    return spatial_apply(images, gt, mask, draws, cfg)
+
+
+def mosaic_augment(key: np.ndarray, images: torch.Tensor, gt, cls, mask, p: float):
+    """JAX's ``mosaic_augment``: a fixed-grid 2×2 mosaic with probability
+    ``p`` per image, drawn from ``key``; gt capacity grows to 4·G."""
+    draws = _upload(_sample_mosaic(np.asarray(key, np.uint32), images.shape[0], p), images.device)
+    return mosaic_apply(images, gt, cls, mask, draws)
+
+
+def photometric_augment(key: np.ndarray, images: torch.Tensor, cfg: AugmentConfig) -> torch.Tensor:
+    """JAX's ``photometric_augment``: brightness and contrast jitter drawn
+    from ``key``."""
+    draws = _upload(_sample_photometric(np.asarray(key, np.uint32), images.shape[0], cfg), images.device)
+    return photometric_apply(images, draws)
+
+
+def apply_augment(draws: dict, images, gt, cls, mask, cfg: AugmentConfig, mosaic_on: bool = True, rows: slice | None = None):
     """The augmentation chain for one batch, given its draws: returns
     (images, gt, cls, mask) with gt capacity 4·G whenever mosaic is
     configured (also while ``mosaic_on`` is false, during the close-mosaic
-    epochs, so every step sees one shape)."""
+    epochs, so every step sees one shape).
+
+    ``rows``: only those rows of the result (a data-parallel rank's share):
+    the mosaic runs over the whole batch, whose images its partners index,
+    and the per-image steps over the rows alone."""
     if cfg.mosaic > 0:
         if mosaic_on:
             images, gt, cls, mask = mosaic_apply(images, gt, cls, mask, draws)
         else:
             gt, cls, mask = _pad_gt(gt, cls, mask, 3 * gt.shape[1])
+    if rows is not None:
+        images, gt, cls, mask = images[rows], gt[rows], cls[rows], mask[rows]
+        draws = {k: v[rows] for k, v in draws.items()}
     images, gt, mask = spatial_apply(images, gt, mask, draws, cfg)
     images = photometric_apply(images, draws)
     return images, gt, cls, mask
@@ -380,8 +427,7 @@ def augment_batch(key: np.ndarray, images, gt, cls, mask, cfg: AugmentConfig, mo
     """JAX's ``augment_batch``: the draws of ``key`` (a uint32 key pair, the
     value of a ``jax.random`` key) applied to a (B, H, W, C) batch."""
     draws = sample_augment(np.asarray(key, np.uint32), images.shape[0], tuple(images.shape[1:3]), cfg)
-    draws = {k: torch.from_numpy(np.asarray(v)).to(images.device) for k, v in draws.items()}
-    return apply_augment(draws, images, gt, cls, mask, cfg, mosaic_on)
+    return apply_augment(_upload(draws, images.device), images, gt, cls, mask, cfg, mosaic_on)
 
 
 def expand_gray(images: torch.Tensor) -> torch.Tensor:
@@ -518,6 +564,18 @@ class YoloTrainingRun:
     ``model`` is trained in place; :attr:`ema_model` holds the EMA weights
     (with the training model's BatchNorm statistics copied in before each
     validation and save), the weights the JAX package validates and ships.
+
+    Data parallelism (``mesh``, a data mesh of
+    :mod:`wtracker_tpu_torch.parallel.mesh`): one process a slot, each
+    joined with :func:`~wtracker_tpu_torch.parallel.mesh.init_data_parallel`
+    and holding ``model`` on its slot's device.  Every rank holds the whole
+    dataset and makes the epoch's draws (sample order, augmentation) from
+    the same seeds, gathers each whole batch, mosaics it (its partners index
+    the whole batch) and steps on its contiguous rows; BatchNorm statistics,
+    the loss's normaliser and the gradients are the whole batch's, so the
+    weights, schedule and EMA stay the same on every rank and equal one
+    device's run.  Only rank 0 validates (the others get its value), logs
+    and writes checkpoints; every rank reads them on resume.
     """
 
     def __init__(
@@ -528,9 +586,18 @@ class YoloTrainingRun:
         steps_per_epoch: int | None = None,
         n_train: int | None = None,
         mesh=None,
+        data_axis: str = "data",
     ):
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.rank = 0
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+            from wtracker_tpu_torch.parallel.mesh import dp_rank
+
+            self.rank = dp_rank(mesh)
+            if model.b1.conv.weight.device != mesh.devices[self.rank]:
+                raise ValueError(f"rank {self.rank}'s model is on {model.b1.conv.weight.device}, its slot on "
+                                 f"{mesh.devices[self.rank]}")
         self.model = model
         self.config = config
         self.imgsz = tuple(imgsz)
@@ -587,6 +654,11 @@ class YoloTrainingRun:
         cfg, aug = self.config, self.config.augment
         n = images.shape[0]
         bs = min(cfg.batch, n)
+        rows = None
+        if self.mesh is not None:
+            from wtracker_tpu_torch.parallel.mesh import dp_rows
+
+            rows = dp_rows(self.mesh, bs)  # raises for a batch that does not split evenly
         order = torch.from_numpy(self._epoch_order(n, rng)).to(self.device)
         mosaic_on = epoch_idx < cfg.epochs - cfg.close_mosaic
         gray = images.dtype == torch.uint8
@@ -603,13 +675,19 @@ class YoloTrainingRun:
                 b_images = expand_gray(b_images)
             if draws is not None:
                 step_draws = {k: v[i] for k, v in draws.items()}
-                b_images, b_gt, b_cls, b_mask = apply_augment(step_draws, b_images, b_gt, b_cls, b_mask, aug, mosaic_on)
+                b_images, b_gt, b_cls, b_mask = apply_augment(
+                    step_draws, b_images, b_gt, b_cls, b_mask, aug, mosaic_on, rows=rows
+                )
+            elif rows is not None:
+                b_images, b_gt, b_cls, b_mask = b_images[rows], b_gt[rows], b_cls[rows], b_mask[rows]
             if gray:
                 b_images = b_images.expand(*b_images.shape[:3], 3)
 
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.step_count)
-            loss, _ = train_step(self.model, self.optimizer, b_images, b_gt, b_cls, b_mask, self.imgsz)
+            loss, _ = train_step(
+                self.model, self.optimizer, b_images, b_gt, b_cls, b_mask, self.imgsz, data_parallel=rows is not None
+            )
             self._update_ema()
             self.step_count += 1
             losses.append(loss)
@@ -702,8 +780,14 @@ class YoloTrainingRun:
         without a validation value (NaN) does not count as an improvement
         for the writes (it still refreshes the best weights and the patience
         count, as in JAX).
+
+        Data-parallel (``mesh``): every rank calls this with the same data;
+        rank 0 alone validates, logs and writes (tensorboard included).
         """
         cfg = self.config
+        main = self.rank == 0
+        if not main:
+            log, tensorboard_dir = (lambda *a, **k: None), None
         if val_images is None:
             n = train_images.shape[0]
             idx = np.random.default_rng(cfg.seed).permutation(n)
@@ -761,9 +845,15 @@ class YoloTrainingRun:
                     self.eval_model(), val_images, val_gt, val_mask, self.imgsz,
                     conf=cfg.val_conf, iou=cfg.val_iou, max_det=cfg.val_max_det,
                 )
-                if val_images is not None and len(val_images)
+                if main and val_images is not None and len(val_images)
                 else float("nan")
             )
+            if self.mesh is not None:  # rank 0's value, on every rank
+                import torch.distributed as dist
+
+                box = [val_map]
+                dist.broadcast_object_list(box, src=0)
+                val_map = box[0]
             t2 = time.perf_counter()
             lr = self.schedule(self.step_count - 1)
             history.append(EpochResult(e, loss, val_map, lr, t1 - t0, t2 - t1))
@@ -785,7 +875,7 @@ class YoloTrainingRun:
             stop = e - best_epoch >= cfg.patience
             last_epoch = stop or e == cfg.epochs - 1 or (stop_after is not None and ran >= stop_after)
             gained = improved and not np.isnan(val_map)
-            if ckpt_dir and (gained or last_epoch or (e + 1) % cfg.ckpt_every == 0):
+            if main and ckpt_dir and (gained or last_epoch or (e + 1) % cfg.ckpt_every == 0):
                 self._save(os.path.join(ckpt_dir, "best.npz"), self.best_state)
                 self._save(os.path.join(ckpt_dir, "last.npz"), self.state())
                 self.save_state(ckpt_dir, e, best_map, best_epoch)

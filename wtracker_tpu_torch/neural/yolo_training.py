@@ -12,17 +12,25 @@ imgsz 384, batch 72, AdamW, one class):
 * :func:`detection_loss`: BCE against the normalised align metric, CIoU box
   loss and distribution-focal loss on the two bins next to the target, with
   gains 7.5 / 0.5 / 1.5;
-* :class:`YoloTrainer`: AdamW steps over padded-gt batches.
+* :class:`YoloTrainer`: AdamW steps over padded-gt batches;
+* :func:`make_dp_yolo_train_step`: the same step data-parallel over a mesh,
+  one process a rank (:mod:`wtracker_tpu_torch.parallel.mesh`).
 
 The ground truth is padded to a fixed ``G`` slots with a validity mask, and
 the assigner runs on the whole batch at once.  Its outputs are targets, not
 functions to differentiate: it runs without autograd on detached inputs (the
 JAX package's ``stop_gradient``).  ``sort(...)[:, -k]`` is the k-th largest
 value and ``argmax`` takes the first maximum, as in JAX.
+
+The loss heads compute in float32, as the JAX package's do, or in float64
+when the model does (the JAX package keeps them float32 whatever its
+compute dtype): a float64 step is then float64 throughout, so a
+data-parallel float64 step equals the one-device step to rounding.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -156,6 +164,7 @@ def detection_loss(
     box_w: float = 7.5,
     cls_w: float = 0.5,
     dfl_w: float = 1.5,
+    data_parallel: bool = False,
 ):
     """The YOLOv8 training loss for a batch.
 
@@ -164,32 +173,42 @@ def detection_loss(
         gt_xyxy: (B, G, 4) padded ground truth in input pixels.
         gt_cls: (B, G) class ids.
         gt_mask: (B, G) gt validity.
+        data_parallel: this rank's share of the whole batch's loss,
+            normalised by the target-score sum of the whole batch (summed
+            over the ranks of the default ``torch.distributed`` group), so
+            the ranks' losses sum to the whole batch's.
     Returns:
         scalar loss and a dict of its three parts.
     """
     B = box_logits[0].shape[0]
     nc = cls_logits[0].shape[-1]
+    dtype = torch.promote_types(box_logits[0].dtype, torch.float32)  # float32, or float64 for a float64 model
     box_flat = torch.cat([t.reshape(B, -1, 4 * reg_max) for t in box_logits], dim=1)
-    cls_flat = torch.cat([t.reshape(B, -1, nc) for t in cls_logits], dim=1).float()
+    cls_flat = torch.cat([t.reshape(B, -1, nc) for t in cls_logits], dim=1).to(dtype)
     A = box_flat.shape[1]
 
     anchors, strides = _anchor_tables(imgsz, box_flat.device)  # (A, 2) stride units, (A, 1)
     anchors_px = anchors * strides
 
-    dist = box_flat.reshape(B, A, 4, reg_max).float()
-    bins = torch.arange(reg_max, dtype=torch.float32, device=dist.device)
+    dist = box_flat.reshape(B, A, 4, reg_max).to(dtype)
+    bins = torch.arange(reg_max, dtype=dtype, device=dist.device)
     ltrb = (torch.softmax(dist, dim=-1) * bins).sum(-1)  # (B, A, 4)
     pred_xyxy = torch.cat([(anchors - ltrb[..., :2]) * strides, (anchors + ltrb[..., 2:]) * strides], dim=-1)
 
     scores = torch.sigmoid(cls_flat)
-    gt_xyxy = gt_xyxy.float()
+    gt_xyxy = gt_xyxy.to(dtype)
     fg_mask, best_gt, target_scores = task_aligned_assigner(
         scores.detach(), pred_xyxy.detach(), anchors_px, gt_xyxy, gt_cls, gt_mask
     )
     fg = fg_mask.float()
 
     # classification: BCE against the aligned target scores
-    score_sum = target_scores.sum().clamp_min(1.0)
+    score_sum = target_scores.sum()
+    if data_parallel:
+        from wtracker_tpu_torch.parallel.mesh import all_reduce_sum
+
+        score_sum = all_reduce_sum(score_sum)
+    score_sum = score_sum.clamp_min(1.0)
     cls_loss = sigmoid_binary_cross_entropy(cls_flat, target_scores).sum() / score_sum
 
     # box: CIoU of each anchor with its assigned gt, weighted by target score
@@ -214,16 +233,34 @@ def detection_loss(
     return total, {"box": box_loss, "cls": cls_loss, "dfl": dfl_loss}
 
 
-def train_step(model: YoloV8, optimizer: torch.optim.Optimizer, images, gt_xyxy, gt_cls, gt_mask, imgsz):
+def train_step(
+    model: YoloV8, optimizer: torch.optim.Optimizer, images, gt_xyxy, gt_cls, gt_mask, imgsz, data_parallel: bool = False
+):
     """One optimisation step in train mode: forward, the loss, backward and
-    the optimizer's update; returns the loss and its parts as tensors."""
+    the optimizer's update; returns the loss and its parts as tensors.
+
+    ``data_parallel``: the arguments are this rank's rows of the whole
+    batch (:mod:`wtracker_tpu_torch.parallel.mesh`); BatchNorm and the
+    loss's normaliser take the whole batch's statistics, the gradients are
+    summed over the ranks before the update, and the returned loss and parts
+    are the whole batch's: the step of one device on the whole batch."""
+    from wtracker_tpu_torch.models.batchnorm import synced_batch_norm
+
     model.train()
-    box_l, cls_l = model(images)
-    loss, parts = detection_loss(box_l, cls_l, gt_xyxy, gt_cls, gt_mask, imgsz, model.reg_max)
+    with synced_batch_norm() if data_parallel else contextlib.nullcontext():
+        box_l, cls_l = model(images)
+    loss, parts = detection_loss(box_l, cls_l, gt_xyxy, gt_cls, gt_mask, imgsz, model.reg_max, data_parallel=data_parallel)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    parts = {k: v.detach() for k, v in parts.items()}
+    if data_parallel:
+        from wtracker_tpu_torch.parallel.mesh import all_reduce_gradients, all_reduce_sum
+
+        all_reduce_gradients(model.parameters())
+        loss, *summed = all_reduce_sum(torch.stack([loss.detach(), *parts.values()])).unbind(0)
+        parts = dict(zip(parts, summed))
     optimizer.step()
-    return loss.detach(), {k: v.detach() for k, v in parts.items()}
+    return loss.detach(), parts
 
 
 @dataclass
@@ -252,3 +289,26 @@ class YoloTrainer:
         args = (torch.as_tensor(np.asarray(a)).to(self.device) for a in (images, gt_xyxy, gt_cls, gt_mask))
         loss, parts = train_step(self.model, self.optimizer, *args, self.imgsz)
         return float(loss), {k: float(v) for k, v in parts.items()}
+
+
+def make_dp_yolo_train_step(trainer: YoloTrainer, mesh, axis: str = "data"):
+    """Data-parallel detector train step over a mesh: one process a slot
+    (joined with :func:`~wtracker_tpu_torch.parallel.mesh.init_data_parallel`),
+    ``trainer`` holding the model on this rank's device.
+
+    Returns ``step(images, gt_xyxy, gt_cls, gt_mask) -> (loss, parts)``:
+    every rank passes the whole batch and steps on its contiguous rows
+    (:func:`train_step` with ``data_parallel=True``); the weights, BatchNorm
+    statistics and optimizer state stay the same on every rank and equal
+    one device's step on the whole batch.  The JAX package's step threads
+    ``(params, batch_stats, opt_state)``; here the trainer holds them.
+    """
+    from wtracker_tpu_torch.parallel.mesh import dp_rows
+
+    def step(images, gt_xyxy, gt_cls, gt_mask):
+        rows = dp_rows(mesh, int(images.shape[0]))
+        args = (torch.as_tensor(np.asarray(a))[rows].to(trainer.device) for a in (images, gt_xyxy, gt_cls, gt_mask))
+        loss, parts = train_step(trainer.model, trainer.optimizer, *args, trainer.imgsz, data_parallel=True)
+        return loss, parts
+
+    return step

@@ -83,6 +83,15 @@ def get_lib() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the native loader builds and loads on this host."""
+    try:
+        get_lib()
+    except RuntimeError:
+        return False
+    return True
+
+
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 

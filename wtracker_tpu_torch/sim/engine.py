@@ -517,9 +517,11 @@ def _cam_consts(params: EngineParams, device: torch.device) -> tuple[torch.Tenso
     return half, mid
 
 
-def _csv_predict_all(params: EngineParams, cam_half: torch.Tensor, device: torch.device, dim: int = 0):
+def _csv_predict_all(params: EngineParams, cam_half, device: torch.device, dim: int = 0):
     """predict_all for the playback family: the cycle's ground-truth rows
-    (``dim=1``: of every stream of an (S, N, 4) table).
+    (``dim=1``: of every stream of an (S, N, 4) table).  ``cam_half`` is the
+    half camera size, or a function of ``consts`` giving it (per-stream
+    sizes read from ``consts``, so a stream slice of them stays consistent).
 
     The host path shifts rows into camera coordinates and back before
     logging; the subtract/add round trip costs an ulp on some values, and is
@@ -530,7 +532,8 @@ def _csv_predict_all(params: EngineParams, cam_half: torch.Tensor, device: torch
 
     def predict_all(consts, state, cycle_idx, positions):
         rows = frames.rows(consts["csv"], cycle_idx * params.cycle_n, dim)
-        cam_tl = (positions - cam_half).to(torch.float64)
+        half = cam_half(consts) if callable(cam_half) else cam_half
+        cam_tl = (positions - half).to(torch.float64)
         rel = rows[..., :2] - cam_tl  # keep the ulp
         return torch.cat([rel + cam_tl, rows[..., 2:]], dim=-1)
 

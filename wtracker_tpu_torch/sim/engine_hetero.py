@@ -39,7 +39,6 @@ from wtracker_tpu_torch.sim.engine import (
     _table,
     headless_frame_shape,
     logs_to_frame,
-    run_engine_streams,
 )
 from wtracker_tpu_torch.sim.engine_live import (
     _batched_move_from_history,
@@ -119,6 +118,11 @@ def geometry_from_configs(
     return params, geometry
 
 
+def slice_geometry(geometry: StreamGeometry, lo: int, hi: int) -> StreamGeometry:
+    """Streams ``[lo, hi)`` of a sweep's geometry (a mesh slot's share)."""
+    return StreamGeometry(*(a[lo:hi] for a in geometry))
+
+
 def pad_worm_tables(tables: list[np.ndarray]) -> np.ndarray:
     """Stack per-experiment (Nᵢ, 4) worm tables into (S, max N, 4), NaN-padded
     — out-of-range rows behave exactly like out-of-range frame queries."""
@@ -175,7 +179,7 @@ def csv_controller_hetero(
         valid = torch.isfinite(bbox).all(dim=1)
         return state, torch.where(valid[:, None], torch.round(target), 0.0).to(torch.int32)
 
-    predict_all = _csv_predict_all(params, consts["cam_half"][:, None, :], dev, dim=1)
+    predict_all = _csv_predict_all(params, lambda c: c["cam_half"][:, None, :], dev, dim=1)
     return CycleController(init=lambda: (), decide=decide, predict_all=predict_all, consts=consts)
 
 
@@ -311,7 +315,7 @@ def yolo_mlp_controller_hetero(
 def run_sweep_hetero(
     params: EngineParams,
     geometry: StreamGeometry,
-    controller: CycleController,
+    controller,
     init_positions: np.ndarray,
     mesh=None,
     device: str | torch.device = "cuda",
@@ -319,16 +323,21 @@ def run_sweep_hetero(
     """Run the mixed sweep and split the logs back per experiment.
 
     Returns a list of per-experiment DataFrames (17-column bboxes.csv
-    schema), each trimmed to its own experiment length.  ``mesh`` must be
-    ``None``: the streams run on ``device``.
+    schema), each trimmed to its own experiment length.  ``mesh=None`` runs
+    the streams on ``device`` (a mesh of that one slot); a stream mesh
+    (:func:`~wtracker_tpu_torch.parallel.mesh.run_engine_sharded`) shards
+    them, each slot clamping its streams to their own ``stream_bounds``.
+    ``controller`` is a factory ``(device, lo, hi) -> CycleController``
+    over streams ``[lo, hi)`` (e.g. a closure over
+    :func:`csv_controller_hetero` with :func:`slice_geometry`), or a
+    :func:`csv_controller_hetero` on a mesh whose slots share its device
+    (it keeps its per-stream data in ``consts``, which each slot slices).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep_hetero over a device mesh is not ported yet (ROADMAP Queue 1 item 8: "
-            "parallel/mesh.py); pass mesh=None to run the streams on one device"
-        )
+    from wtracker_tpu_torch.parallel.mesh import make_mesh, run_engine_sharded
+
     n_cycles = params.n_logged_cycles(int(geometry.num_frames.max()))
-    logs = run_engine_streams(params, controller, init_positions, n_cycles, batched_controller=True, device=device)
+    mesh = make_mesh(devices=[device]) if mesh is None else mesh
+    logs = run_engine_sharded(params, controller, init_positions, n_cycles, mesh, batched_controller=True)
 
     frames = []
     for i in range(len(geometry.num_frames)):

@@ -23,8 +23,9 @@ reads a crop at any offset, so a chunk is stored unpadded (the JAX package
 pads it to the Pallas kernel's tile grid).  Chunks are uploaded from
 pageable host memory: the copy has left the host buffer when ``.to(device)``
 returns, so a buffer may be refilled as soon as its chunk is dispatched.
-``run_video_live_sharded`` runs its streams on one device; a device mesh is
-not ported.
+``run_video_live_sharded`` runs its streams on one device, or sharded over
+a device mesh (:mod:`wtracker_tpu_torch.parallel.mesh`), each slot's slice
+of every chunk uploaded straight to its own device.
 """
 
 from __future__ import annotations
@@ -44,13 +45,17 @@ from wtracker_tpu_torch.sim.engine import (
     CycleLog,
     DecideCtx,
     EngineParams,
-    _scan,
     init_carry,
-    init_stream_carry,
-    make_batched_cycle_step,
     run_engine,
 )
-from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, _LoopParts, _ring_set, _shift_boxes, _sub_batches
+from wtracker_tpu_torch.sim.engine_live import (
+    LiveLoopConfig,
+    _LoopParts,
+    _model_device,
+    _ring_set,
+    _shift_boxes,
+    _sub_batches,
+)
 from wtracker_tpu_torch.utils.device import resolve_device
 
 _SCRATCH: dict = {}
@@ -106,6 +111,25 @@ def _prefetcher(fetch: Callable):
     return prefetch, take
 
 
+def _use_fused_preproc(params: EngineParams, config: LiveLoopConfig, parts: _LoopParts, detect_fn, detect_preprocessed_fn) -> bool:
+    """Whether a video controller crops and letterboxes through the kernel:
+    ``config.use_fused_preproc`` (auto: on a card), for a square camera and
+    imgsz, unless the detector folds the letterbox into its stem or is a
+    custom one without a preprocessed-input form."""
+    square = params.cam_w == params.cam_h and config.imgsz[0] == config.imgsz[1]
+    if config.use_fused_preproc is None:  # auto: the kernel runs on the card
+        use_fused = square and parts.dev.type == "cuda"
+    else:
+        use_fused = config.use_fused_preproc and square
+    if getattr(parts.detect, "folds_preproc", False):
+        # a folded-stem detector letterboxes inside its stem matmuls: the
+        # kernel branch would route around the fold
+        return False
+    if detect_fn is not None and detect_preprocessed_fn is None:
+        return False  # custom detector without a preprocessed-input form
+    return use_fused
+
+
 def video_live_controller(
     params: EngineParams,
     config: LiveLoopConfig,
@@ -154,17 +178,7 @@ def video_live_controller(
     win_max = torch.tensor([W - params.cam_w, H - params.cam_h], dtype=torch.int32, device=dev)
 
     _detect = parts.detect
-    square = params.cam_w == params.cam_h and config.imgsz[0] == config.imgsz[1]
-    if config.use_fused_preproc is None:  # auto: the kernel runs on the card
-        use_fused = square and dev.type == "cuda"
-    else:
-        use_fused = config.use_fused_preproc and square
-    if getattr(_detect, "folds_preproc", False):
-        # a folded-stem detector letterboxes inside its stem matmuls: the
-        # kernel branch would route around the fold
-        use_fused = False
-    elif detect_fn is not None and detect_preprocessed_fn is None:
-        use_fused = False  # custom detector without a preprocessed-input form
+    use_fused = _use_fused_preproc(params, config, parts, detect_fn, detect_preprocessed_fn)
     _detect_pre = detect_preprocessed_fn or detect_top1_preprocessed
     scale, _, _, pad_top, pad_left = letterbox_params(view_hw, config.imgsz)
 
@@ -549,10 +563,12 @@ def video_stream_controller(
     ``consts["frames"]`` is (S, C, H, W), one chunk per recording, and
     ``decide``/``predict_all`` own the stream axis (for
     :func:`~wtracker_tpu_torch.sim.engine.make_batched_cycle_step`), so each
-    cycle's crops of all streams form one flat (S·n, cam_h, cam_w) detector
-    batch, split into ``config.detect_chunks`` sequential sub-batches.  The
-    folded stem applies as in the single-stream loop; the crop+letterbox
-    kernel and ROI streaming do not (as in the JAX package).
+    cycle's crops of all streams form one flat (S·n) detector batch, split
+    into ``config.detect_chunks`` sequential sub-batches.  The folded stem
+    applies as in the single-stream loop, and so does the crop+letterbox
+    kernel (``config.use_fused_preproc``, on by default on a card when the
+    stem is not folded; the JAX package's stream loop always takes the plain
+    crop; a custom ``detect_fn`` turns it off); ROI streaming does not.
     """
     parts = _LoopParts(params, config, None, detector_model, predictor, detect_fn, device)
     dev = parts.dev
@@ -561,9 +577,17 @@ def video_stream_controller(
     IM, MV = params.imaging_n, params.moving_n
     S, _, H, W = chunk_shape
     stream_base = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
+    use_fused = _use_fused_preproc(params, config, parts, detect_fn, None)
+    scale, _, _, pad_top, pad_left = letterbox_params(parts.view_hw, config.imgsz)
 
     def detect(views):
         return parts.detect(detector_model, views, config.imgsz, config.conf)
+
+    def detect_fused(flat, fidx, tls):
+        x = crop_letterbox_views(
+            flat, fidx.to(torch.int32), tls, params.cam_w, config.imgsz[0], out_dtype=detector_model.compute_dtype
+        )
+        return detect_top1_preprocessed(detector_model, x, (scale, pad_top, pad_left), config.imgsz, config.conf)
 
     consts = {"frames": torch.empty((S, 0, H, W), dtype=torch.uint8, device=dev), "frame0": 0}
 
@@ -578,8 +602,13 @@ def video_stream_controller(
         tls = torch.stack(
             [cam_tls[:, 0].clamp(0, W - params.cam_w), cam_tls[:, 1].clamp(0, H - params.cam_h)], dim=1
         ).to(torch.int32)
-        views = crop_views(frames.reshape(S * c, H, W), tls, parts.view_hw, frame_idx=fidx)
-        return _shift_boxes(_sub_batches(detect, config.detect_chunks, views), tls)
+        flat = frames.reshape(S * c, H, W)
+        if use_fused:
+            boxes = _sub_batches(lambda f, t: detect_fused(flat, f, t), config.detect_chunks, fidx, tls)
+        else:
+            views = crop_views(flat, tls, parts.view_hw, frame_idx=fidx)
+            boxes = _sub_batches(detect, config.detect_chunks, views)
+        return _shift_boxes(boxes, tls)
 
     def init():
         return {
@@ -628,20 +657,23 @@ def run_video_live_sharded(
         frame_sources: S callables ``(start_frame, count) -> (count, H, W)
             uint8``, one per recording (all of one geometry and length).
         init_positions: (S, 2) initial platform centres.
-        mesh: must be ``None``: the streams run on ``device``.  Sharding them
-            over a device mesh is not ported yet.
+        mesh: ``None`` runs the streams on ``device``; a stream mesh
+            (:func:`~wtracker_tpu_torch.parallel.mesh.make_mesh`) shards
+            them, slot ``k`` tracking its contiguous slice of the streams on
+            its device with its own controller (the detector and predictor
+            are copied to each device that does not hold them; a custom
+            ``detect_fn`` closes over one device's weights, so with one it
+            runs on a mesh of one device only).  S must be a multiple of the
+            mesh size.
 
     The host walks chunks as :func:`run_video_live` does (prefetch the next
     chunk of all S streams while the device works on the current one, resume
-    from the returned carry), with an (S, C, H, W) resident chunk.  Logs come
-    back on the host with leading axes ``(n_cycles, S, cycle_n)``.
+    from the returned carry), with an (S, C, H, W) host chunk whose slot
+    slices are uploaded each straight to its slot's device.  Logs come back
+    on the host with leading axes ``(n_cycles, S, cycle_n)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_video_live_sharded over a device mesh is not ported yet (ROADMAP Queue 1 item 8: "
-            "parallel/mesh.py); pass mesh=None to run the streams on one device"
-        )
-    dev = resolve_device(device)
+    from wtracker_tpu_torch.parallel.mesh import make_mesh, replicate_module, run_engine_sharded, stream_sharding
+
     S = len(frame_sources)
     if np.asarray(init_positions).shape != (S, 2):
         raise ValueError(f"init_positions must be ({S}, 2)")
@@ -651,9 +683,25 @@ def run_video_live_sharded(
 
     probe = frame_sources[0](0, 1)
     H, W = probe.shape[1:3]
-    controller = video_stream_controller(
-        params, config, detector_model, predictor, (S, chunk_frames, H, W), detect_fn=detect_fn, device=dev
-    )
+    if mesh is None:
+        mesh = make_mesh(devices=[device])
+    if S % mesh.size:
+        raise ValueError(
+            f"stream count {S} is not a multiple of the mesh size {mesh.size}; "
+            "pad the stream batch (repeat a stream) and drop the extra logs"
+        )
+    if detect_fn is not None and len(mesh.distinct_devices()) > 1:
+        raise ValueError("a custom detect_fn holds one device's weights: give it a mesh of one device")
+    slots = [(d, lo, hi) for d, (lo, hi) in zip(mesh.devices, stream_sharding(mesh).bounds(S))]
+    detectors, predictors, controllers = {}, {}, []
+    for d, lo, hi in slots:
+        det = replicate_module(detector_model, d, detectors)
+        pred = predictor if d == _model_device(predictor.model) else type(predictor)(
+            replicate_module(predictor.model, d, predictors), predictor.io_config
+        )
+        controllers.append(video_stream_controller(
+            params, config, det, pred, (hi - lo, chunk_frames, H, W), detect_fn=detect_fn, device=d
+        ))
     bufs = [_scratch_buffer(("video-sharded", i, S, chunk_frames, H, W), (S, chunk_frames, H, W)) for i in range(2)]
 
     def fetch(start: int, count: int, slot: int) -> np.ndarray:
@@ -678,20 +726,16 @@ def run_video_live_sharded(
         if nxt < n_cycles * L:
             thread = prefetch(nxt, min(chunk_frames, num_frames - nxt), (i + 1) % 2)
 
-        ctl = controller._replace(consts={"frames": torch.from_numpy(frames).to(dev), "frame0": start_cycle * L})
-        logs, carry = _sharded_fallback_run(params, ctl, init_pos, n, start_cycle, carry, dev)
+        ctls = [
+            c._replace(consts={"frames": torch.from_numpy(frames[lo:hi]).to(d), "frame0": start_cycle * L})
+            for c, (d, lo, hi) in zip(controllers, slots)
+        ]
+        logs, carry = run_engine_sharded(
+            params, ctls, init_pos, n, mesh, batched_controller=True, start_cycle=start_cycle, carry=carry,
+            return_carry=True,
+        )
         logs_parts.append(logs)
-        del ctl
+        del ctls
 
     return _host_logs(logs_parts)
 
-
-def _sharded_fallback_run(params, ctl, init_pos, n, start_cycle, carry, device):
-    """Cycles ``[start_cycle, start_cycle + n)`` of the batched video
-    controller on one device, from ``carry`` (a fresh one at ``init_pos``
-    when ``None``): the logs and the final carry.  The single-device form of
-    :func:`run_video_live_sharded`."""
-    if carry is None:
-        carry = init_stream_carry(params, ctl, init_pos, device)
-    carry, logs = _scan(make_batched_cycle_step(params, ctl), ctl.consts, carry, range(start_cycle, start_cycle + n))
-    return logs, carry

@@ -16,6 +16,13 @@ Two modes:
     python -m wtracker_tpu_torch.workflows.sweep --worm-csvs W0.csv W1.csv \\
         --exp-configs configs/exp0_config.json configs/exp1_config.json \\
         --timing-configs configs/exp0_timing.json configs/exp1_timing.json --output OUT [--device cuda]
+
+``--mesh`` shards the streams over every visible card, one host process
+driving them all (``--mesh N``: N slots spread over the cards in turn, so
+``--mesh 2`` on one card runs two shards on it; with ``--device cpu``, N
+CPU slots).  Each run pads its streams to a multiple of the slot count by
+repeating the last experiment and drops the padded logs; the files are
+those of the run without ``--mesh``.
 """
 
 from __future__ import annotations
@@ -37,23 +44,29 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--frame-shape", type=int, nargs=2, help="shared clamp bounds h w (homogeneous mode)")
     ap.add_argument("--exp-configs", nargs="+", help="exp_config.json per experiment (mixed-geometry mode)")
     ap.add_argument("--output", required=True, help="output folder (one subfolder per experiment)")
-    ap.add_argument("--mesh", action="store_true", help="shard streams across devices (not ported)")
+    ap.add_argument(
+        "--mesh", nargs="?", type=int, const=0, metavar="SLOTS",
+        help="shard streams across devices: every visible card, or SLOTS slots spread over them",
+    )
     ap.add_argument("--device", default="cuda", help="torch device of the engine (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP Queue 1 item 8: parallel/mesh.py); the sweep runs on one device"
-        )
-
     import numpy as np
     import pandas as pd
+    import torch
 
+    from wtracker_tpu_torch.parallel.mesh import make_mesh, pad_streams, run_engine_sharded
     from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
     from wtracker_tpu_torch.utils.device import resolve_device
     from wtracker_tpu_torch.utils.path_utils import create_directory, join_paths
 
     dev = resolve_device(args.device)
+    mesh = make_mesh(devices=[dev])
+    if args.mesh is not None:
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        slots = args.mesh or max(cards, 1)
+        mesh = make_mesh(devices=[f"cuda:{i % cards}" for i in range(slots)] if cards else ["cpu"] * slots)
+        print(f"streams sharded over {slots} slots: {', '.join(str(d) for d in mesh.devices)}")
     tables = [pd.read_csv(p)[["wrm_x", "wrm_y", "wrm_w", "wrm_h"]].to_numpy(dtype=float) for p in args.worm_csvs]
 
     if args.exp_configs:
@@ -64,6 +77,7 @@ def main(argv: list[str] | None = None) -> None:
             geometry_from_configs,
             pad_worm_tables,
             run_sweep_hetero,
+            slice_geometry,
         )
 
         if len(args.exp_configs) != len(args.worm_csvs):
@@ -94,10 +108,18 @@ def main(argv: list[str] | None = None) -> None:
         n_cycles = 0
         buckets = bucket_by_cycle_shape(timings)
         for bucket in buckets:
-            params, geometry = geometry_from_configs([timings[i] for i in bucket], [exps[i] for i in bucket])
-            ctl = csv_controller_hetero(pad_worm_tables([tables[i] for i in bucket]), params, geometry, device=dev)
-            init = np.asarray([exps[i].init_position for i in bucket])
-            out = run_sweep_hetero(params, geometry, ctl, init, device=dev)
+            # a mesh run pads the bucket to a slot multiple by repeating its
+            # last experiment (same timing, so the same cycle shape); the
+            # padded streams' frames are not collected
+            run = list(bucket) + [bucket[-1]] * ((-len(bucket)) % mesh.size)
+            params, geometry = geometry_from_configs([timings[i] for i in run], [exps[i] for i in run])
+            csvs = pad_worm_tables([tables[i] for i in run])
+            init = np.asarray([exps[i].init_position for i in run])
+
+            def ctl(d, lo, hi, csvs=csvs, params=params, geometry=geometry):
+                return csv_controller_hetero(csvs[lo:hi], params, slice_geometry(geometry, lo, hi), device=d)
+
+            out = run_sweep_hetero(params, geometry, ctl, init, mesh=mesh, device=dev)
             for j, i in enumerate(bucket):
                 frames[i] = out[j]
             n_cycles = max(n_cycles, params.n_logged_cycles(int(geometry.num_frames.max())))
@@ -110,7 +132,6 @@ def main(argv: list[str] | None = None) -> None:
             EngineParams,
             csv_controller_streams,
             logs_to_frame,
-            run_engine_streams,
         )
 
         if not (args.frame_shape and args.init_position):
@@ -126,9 +147,12 @@ def main(argv: list[str] | None = None) -> None:
             csvs[i, : len(t)] = t
 
         n_cycles = params.n_logged_cycles(n)
-        ctl = csv_controller_streams(csvs, params, device=dev)
         init_pos = np.tile(np.asarray(args.init_position), (len(tables), 1))
-        logs = run_engine_streams(params, ctl, init_pos, n_cycles, batched_controller=True, device=dev)
+        csvs, init_pos, _ = pad_streams(csvs, init_pos, mesh.size)
+        logs = run_engine_sharded(
+            params, lambda d, lo, hi: csv_controller_streams(csvs[lo:hi], params, device=d), init_pos, n_cycles,
+            mesh, batched_controller=True,
+        )
         frames = [
             logs_to_frame(params, CycleLog(positions=logs.positions[:, i], worm_bboxes=logs.worm_bboxes[:, i]))
             for i in range(len(tables))

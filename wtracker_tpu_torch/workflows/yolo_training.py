@@ -12,6 +12,14 @@ weights as the JAX package's ``.npz``::
 
     python -m wtracker_tpu_torch.workflows.yolo_training --images DIR --labels DIR \\
         --output det.npz [--scale s] [--imgsz 384] [--epochs 100] [--batch 72] [--device cuda]
+
+``--dp`` trains data-parallel over every visible card: the command starts
+one process a rank itself (``--dp-ranks N`` ranks, spread over the cards in
+turn; with more ranks than cards, ranks share a card), each on its share of
+every batch, and the result is one device's training on the whole batch.
+The ranks meet through a ``file://`` store in a temporary directory; NCCL
+joins them when each has a card of its own, gloo otherwise (and on the
+CPU).  Rank 0 alone prints, validates and writes.
 """
 
 from __future__ import annotations
@@ -53,38 +61,53 @@ def main(argv: list[str] | None = None) -> None:
         "(weights + optimizer + EMA + epoch/best bookkeeping; exact continuation)",
     )
     ap.add_argument("--tensorboard-dir", help="stream loss / val mAP50 / lr scalars to this tensorboard log dir")
-    ap.add_argument("--dp", action="store_true", help="data-parallel over a device mesh (not ported yet)")
+    ap.add_argument("--dp", action="store_true", help="data-parallel over every visible card, one process a rank")
+    ap.add_argument(
+        "--dp-ranks", type=int, help="ranks of --dp (default: one a visible card; one on the CPU), spread over the cards"
+    )
     ap.add_argument("--export-torch", help="also export the best weights as an ultralytics-layout torch state dict")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device of the training (default: cuda)")
     args = ap.parse_args(argv)
 
     import os
+    import sys
 
     import numpy as np
     import torch
 
     from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
-    from wtracker_tpu_torch.neural.yolo_recipe import (
-        MESH_NOT_PORTED,
-        AugmentConfig,
-        RecipeConfig,
-        YoloTrainingRun,
-        load_yolo_dataset,
-    )
+    from wtracker_tpu_torch.neural.yolo_recipe import AugmentConfig, RecipeConfig, YoloTrainingRun, load_yolo_dataset
+    from wtracker_tpu_torch.parallel import mesh as pm
     from wtracker_tpu_torch.utils.device import resolve_device
 
-    if args.dp:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    mesh, rank = None, 0
+    if args.dp and pm.rank_from_env() is None:  # the launcher: one process a rank, then done
+        cards = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 0
+        if torch.device(args.device).type == "cuda" and not cards:
+            resolve_device(args.device)  # raises: no card
+        ranks = args.dp_ranks or max(cards, 1)
+        devices = [f"cuda:{r % cards}" for r in range(ranks)] if cards else ["cpu"] * ranks
+        print(f"data-parallel over {ranks} ranks on {', '.join(devices)}", flush=True)
+        code = pm.launch_ranks("wtracker_tpu_torch.workflows.yolo_training", sys.argv[1:] if argv is None else argv, devices)
+        if code:
+            raise SystemExit(code)
+        return
     dev = resolve_device(args.device)
-    if args.tensorboard_dir:  # name a missing tensorboard before any training
+    if args.dp:
+        rank, devices, init_method = pm.rank_from_env()
+        mesh = pm.make_mesh(axis="data", devices=devices)
+        dev = pm.init_data_parallel(mesh, rank, init_method)
+    main_rank = rank == 0
+    say = print if main_rank else (lambda *a, **k: None)  # rank 0 alone reports
+    if args.tensorboard_dir and main_rank:  # name a missing tensorboard before any training
         from wtracker_tpu_torch.neural.training import summary_writer
 
         summary_writer(args.tensorboard_dir).close()
 
     # compact grayscale-uint8 storage, expanded per batch on the device
     images, gt, cls, mask = load_yolo_dataset(args.images, args.labels, args.imgsz, max_gt=args.max_gt, gray_uint8=True)
-    print(f"{len(images)} images, {int(mask.sum())} boxes")
+    say(f"{len(images)} images, {int(mask.sum())} boxes")
 
     aug = (
         AugmentConfig(mosaic=0, fliplr=0, flipud=0, translate=0, scale=0, brightness=0, contrast=0)
@@ -117,27 +140,32 @@ def main(argv: list[str] | None = None) -> None:
     model = YoloV8Detector.init_random(nc=int(cls.max()) + 1, scale=args.scale, imgsz=imgsz, seed=args.seed, device=dev).model
     n = len(images)
     n_train = n - max(1, int(round(n * cfg.val_fraction))) if n > 4 else n
-    run = YoloTrainingRun(model, imgsz, cfg, n_train=max(1, n_train))
+    run = YoloTrainingRun(model, imgsz, cfg, n_train=max(1, n_train), mesh=mesh)
 
     ckpt_dir = args.ckpt_dir or os.path.dirname(os.path.abspath(args.output))
     history = run.fit(images, gt, cls, mask, ckpt_dir=ckpt_dir, resume=args.resume, tensorboard_dir=args.tensorboard_dir)
+    if not main_rank:
+        torch.distributed.destroy_process_group()
+        return
 
     best = [h for h in history if np.isfinite(h.val_map50)]
     if best:
         top = max(best, key=lambda h: h.val_map50)
-        print(f"best val mAP50 {top.val_map50:.3f} at epoch {top.epoch}")
+        say(f"best val mAP50 {top.val_map50:.3f} at epoch {top.epoch}")
 
     det = run.detector()
     det.save(args.output)
-    print(f"weights saved to {args.output}")
+    say(f"weights saved to {args.output}")
     if dev.type == "cuda":
-        print(f"peak device memory {torch.cuda.max_memory_allocated(dev)} bytes")
+        say(f"peak device memory {torch.cuda.max_memory_allocated(dev)} bytes")
 
     if args.export_torch:
         from wtracker_tpu_torch.models.yolo_port import save_torch_state_dict
 
         save_torch_state_dict(det, args.export_torch)
-        print(f"torch state dict exported to {args.export_torch}")
+        say(f"torch state dict exported to {args.export_torch}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
