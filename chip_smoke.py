@@ -51,8 +51,8 @@ live loop over many streams, at full width:
     temporary directory, reads them back
     with the port's ``FrameReader`` byte for byte, and runs ``python -m
     wtracker_tpu_torch.workflows.track_video`` on them with the trained
-    checkpoint, whole-frame and with ``--roi 480``: the two ``bboxes.csv``
-    files must be the same text and hold the tracking bar;
+    checkpoint, whole-frame and with ``--roi 480`` at once: the two
+    ``bboxes.csv`` files must be the same text and hold the tracking bar;
 13. runs ``run_video_live_sharded`` over 4 seeded recordings at full width
     (8 cycles in chunks of 4), each stream held against its own
     ``run_video_live`` (float32: positions exact, boxes to 1e-2 px;
@@ -62,11 +62,12 @@ live loop over many streams, at full width:
     the step motor (cycles/s each; polyfit over its first 1,000 cycles),
     polyfit over the first 250 of them through ``python -m
     wtracker_tpu_torch.workflows.simulate`` (the same rows), and every run
-    once more on the CPU: the same ``bboxes.csv`` text (mlp: equal positions
-    in >= 99.9 % of frames, none more than 2 px apart);
+    once more on the CPU over its first 1,000 cycles, beside the command:
+    the same ``bboxes.csv`` rows (mlp: equal positions in >= 99.9 % of
+    frames, none more than 2 px apart);
 15. runs ``python -m wtracker_tpu_torch.workflows.sweep`` over
     configs/exp0-exp4 (mixed geometry, each at its own length), each
-    experiment equal to its single-stream run, then 96 streams of the
+    experiment equal to its single-stream run (made beside the command), then 96 streams of the
     deployment configuration in one batch (stream-cycles/s);
 16. runs the live YOLOv8s@416 + ResMLP loop over 30 streams of exp0-exp4's
     three camera sizes (``yolo_mlp_controller_hetero``, 12 cycles): steps/s,
@@ -91,7 +92,7 @@ live loop over many streams, at full width:
     its plain version at every convolution shape of one of its 360-view
     forwards, as phase 18 does at 12 views;
 22. runs ``track_video`` with the int8 artifact on the BMPs, held to the
-    tracking bar;
+    tracking bar, beside phase 23's commands;
 23. runs ``python -m wtracker_tpu_torch.workflows.simulate --backend host``
     (the hook-based simulator) over phase 14's worm log, uncut but polyfit
     (its first 1,000 cycles), with the csv, optimal, polyfit and mlp
@@ -133,8 +134,9 @@ live loop over many streams, at full width:
     log: the first epoch's per-batch losses on the card against the CPU's,
     in float32 (the first three at rtol 1e-4) and in float64 (the first 40
     at rtol 1e-9; the whole epoch's mean loss in both), beside a CPU run
-    from weights nudged by one ulp; samples/s and s an epoch, then the
-    command itself (2 epochs) whose ``.npz`` loads in ``load_predictor``;
+    from weights nudged by one ulp; samples/s and s an epoch; the command
+    itself (2 epochs, run beside the CPU's epochs) whose ``.npz`` loads in
+    ``load_predictor``;
 31. runs the particle swarm (pop 100) over phase 14's log: ms an epoch,
     the card's first 20 epochs of history equal to the CPU's bit for bit,
     and the ``polyfit_optimizer`` command at its defaults (300 epochs);
@@ -170,10 +172,18 @@ live loop over many streams, at full width:
     bounds; then the same two processes run ``yolo_training --dp
     --dp-ranks 2`` for one epoch, each as a rank that the command's
     launcher starts.  Neither hand kernel launches on these paths (counted
-    in each rank from its start, asserted).
+    in each rank from its start, asserted);
+38. runs the detector's gates (``wtracker_tpu_torch/tools/gates.py``) at the
+    JAX gates' sizes: held-out AP@0.5 >= 0.80 on 24 rendered images, the
+    trained checkpoint's int8 drift (median <= 1 px), the closed loop at S=1
+    x 6 cycles, the int8 drift of random s weights and the s/416 parity
+    against the CPU; every gate passes, K2 launches in the two int8 gates,
+    K1 in none;
+39. runs ``tools/trace_profile.py`` in process on the bf16 synthetic loop at
+    S=8 x 2 cycles: a device busy share in (0, 1] and kernels listed.
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 37 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 39 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -191,6 +201,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -236,13 +247,14 @@ STREAM_CYCLES = 8
 STREAM_CHUNK_CYCLES = 4
 # replay at the deployment configuration: every logged cycle of its 61,200
 # frames (4,079); the simulate command's default polyfit sample times;
-# polyfit (in process on the card and the CPU, and phase 23's host command)
-# is cut to the first 1,000 cycles, the simulate command to the first 250
-# (its text the first rows of the in-process run's); --profile traces a cut
-# of 200 cycles (a polyfit cycle is ~1,500 launches)
+# polyfit (in process on the card and the CPU, and phase 23's host polyfit
+# and mlp commands) is cut to the first 500 cycles, the simulate command to
+# the first 250 (its text the first rows of the in-process run's);
+# --profile traces a cut of 200 cycles (a polyfit cycle is ~1,500 launches)
 REPLAY_POLYFIT_TIMES = (-15, -10, -5, 0, 3)
-REPLAY_POLYFIT_TIMED_CYCLES = 1000
+REPLAY_POLYFIT_TIMED_CYCLES = 500
 REPLAY_CLI_CYCLES = 250
+REPLAY_CPU_CYCLES = 1000  # every controller's rerun on the CPU: its first cycles, cut for time
 PROFILE_REPLAY_CYCLES = 200
 SWEEP_STREAMS = 96
 # the mixed-geometry live loop: 6 streams of each of exp0-exp4 (30 streams,
@@ -464,44 +476,6 @@ def run_loop(params, config, recording, num_frames, detector, predictor, device,
     return logs, time.perf_counter() - t0
 
 
-def profile_run(run, top: int = 12) -> dict:
-    """One more run of a loop under ``torch.profiler`` (``run()`` returns its
-    wall seconds).  The device's busy time is the union of the intervals of
-    its kernels, copies and fills (each counted once; the operators' own
-    device-time totals repeat their kernels' time).  Also lists the
-    operators and the kernels that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        wall_s = run()
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"
-    )
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-
-    def listing(device_type):
-        picked = [e for e in rows if e.device_type == device_type][:top]
-        return [{"name": e.key[:80], "calls": e.count, "device_ms": e.self_device_time_total * 1e-3} for e in picked]
-
-    return {
-        "wall_s": wall_s,
-        "device_events": len(spans),
-        "device_busy_s": busy_us * 1e-6,
-        "device_busy_share": busy_us * 1e-6 / wall_s,
-        "top_ops": listing(DeviceType.CPU),
-        "top_kernels": listing(DeviceType.CUDA),
-    }
-
-
 def log_diffs(a, b) -> tuple[int, float]:
     """Largest position difference (px) and box difference (px) of two runs;
     a box found in one run and missed in the other fails."""
@@ -635,26 +609,6 @@ def bench_setup():
     return timing, params
 
 
-def synthetic_quality(params, logs, trajs: np.ndarray) -> dict:
-    """tests/test_trained_detector.py's bar, on (C, S, L) logs: detection
-    rate, median centre error against the true track, and the share of
-    frames after cycle 3 with the worm inside the camera view."""
-    pos = logs.positions.cpu().numpy().astype(np.float64)  # (C, S, L, 2)
-    wrm = logs.worm_bboxes.cpu().numpy()
-    n_cycles, S, L, _ = pos.shape
-    fidx = (np.arange(n_cycles)[:, None] * L + np.arange(L)[None, :]).reshape(-1)
-    gt = trajs[:, fidx, :].reshape(S, n_cycles, L, 2).transpose(1, 0, 2, 3)
-    ok = np.isfinite(wrm).all(axis=-1)
-    err = np.hypot(*(wrm[..., :2] + wrm[..., 2:] / 2 - gt).transpose(3, 0, 1, 2))[ok]
-    dev = np.hypot(*(gt[3:] - pos[3:]).transpose(3, 0, 1, 2))
-    return {
-        "detection_rate": float(ok.mean()),
-        "median_center_err_px": float(np.median(err)) if ok.any() else float("nan"),
-        "in_camera_share_after_cycle_3": float((dev < params.cam_w / 2).mean()),
-        "median_worm_deviation_px": float(np.median(dev)),
-    }
-
-
 def synthetic_loop(model, model32, predictor):
     """The JAX package's flagship path at its bench configuration:
     ``make_stream_batch_fused`` + ``run_engine_streams(delayed_log=True)``,
@@ -667,6 +621,7 @@ def synthetic_loop(model, model32, predictor):
     from wtracker_tpu_torch.sim.engine import run_engine_streams
     from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, _resolve_detect, make_stream_batch_fused
     from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+    from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
     _, params = bench_setup()
     S = SYNTH_STREAMS
@@ -695,7 +650,7 @@ def synthetic_loop(model, model32, predictor):
         raise AssertionError(f"the synthetic loop launched crop_letterbox {launches} times")
     if logs.positions.shape != (SYNTH_CYCLES, S, params.cycle_n, 2) or logs.worm_bboxes.shape != (SYNTH_CYCLES, S, params.cycle_n, 4):
         raise AssertionError(f"synthetic log shapes {tuple(logs.positions.shape)} {tuple(logs.worm_bboxes.shape)}")
-    quality = synthetic_quality(params, logs, trajs)
+    quality = closed_loop_quality(params, logs, trajs)
     log(f"synthetic loop S={S}: {quality}, runs {warm_s:.3f} (warm-up) {secs}")
     if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
         raise AssertionError(f"the synthetic loop lost the worm: {quality}")
@@ -895,19 +850,16 @@ def track_video_cli(params, recording, cam: int, detector: Path, timing_config: 
     ``--roi 480``.  Both ``bboxes.csv`` files must be the same text and hold
     the tracking bar."""
 
+    from wtracker_tpu_torch.tools.recording import write_frames
     from wtracker_tpu_torch.utils.frame_reader import FrameReader
-    from wtracker_tpu_torch.utils.image_codec import imwrite
 
     n = CLI_FRAMES
     frames = recording.data[:n]
-    out = {"frames": n, "bytes_on_disk": 0}
+    out = {"frames": n}
     (tmp / "frames").mkdir()
     t0 = time.perf_counter()
-    for i, frame in enumerate(frames):
-        if not imwrite(str(tmp / "frames" / f"frame_{i:06d}.bmp"), frame):
-            raise AssertionError(f"cannot write frame {i} as a BMP in {tmp}")
+    out["bytes_on_disk"] = write_frames(str(tmp / "frames"), frames)
     out["write_s"] = time.perf_counter() - t0
-    out["bytes_on_disk"] = sum(p.stat().st_size for p in (tmp / "frames").iterdir())
 
     reader = FrameReader.create_from_directory(str(tmp / "frames"))
     if len(reader) != n or reader.frame_size != recording.hw:
@@ -934,17 +886,15 @@ def track_video_cli(params, recording, cam: int, detector: Path, timing_config: 
     exp.update(num_frames=n, init_position=[int(round(v)) for v in recording.traj[0]])
     (tmp / "exp.json").write_text(json.dumps(exp))
     csv = {}
-    for name, extra in (("whole_frames", []), ("roi", ["--roi", str(win[0])])):
-        cmd = [
-            sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(tmp / "frames"),
-            "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"),
-            "--detector", str(detector), "--output", str(tmp / name), "--device", "cuda", *extra,
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600
-        )
-        out[f"{name}_wall_s"] = time.perf_counter() - t0
+    # the two commands run at once (each one's wall is taken beside the other's)
+    jobs = {name: [
+        "wtracker_tpu_torch.workflows.track_video", "--frames", tmp / "frames", "--timing-config", timing_config,
+        "--exp-config", tmp / "exp.json", "--detector", detector, "--output", tmp / name, "--device", "cuda", *extra,
+    ] for name, extra in (("whole_frames", []), ("roi", ["--roi", win[0]]))}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        ran = dict(zip(jobs, pool.map(run_module, jobs.values())))
+    for name, (wall, proc) in ran.items():
+        out[f"{name}_wall_s"] = wall
         if proc.returncode != 0:
             raise AssertionError(f"track_video {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
         out[f"{name}_stdout"] = proc.stdout.strip().splitlines()
@@ -1084,9 +1034,9 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     warm-up; polyfit's timed run over its first REPLAY_POLYFIT_TIMED_CYCLES
     cycles), polyfit over the first REPLAY_CLI_CYCLES of them through
     ``python -m wtracker_tpu_torch.workflows.simulate`` with the experiment
-    cut to them (wall time; the timed run's first rows), and the same runs
-    on the CPU (polyfit
-    over the same cycles): csv, optimal, polyfit and step give the same
+    cut to them (wall time; the timed run's first rows), and, beside the
+    command, the same runs on the CPU over their first REPLAY_CPU_CYCLES
+    cycles: csv, optimal, polyfit and step give the card's first rows of
     ``bboxes.csv`` text, mlp equal positions in >= 99.9 % of frames and
     none 2 px apart.
     Returns the phase's numbers and, for ``--profile``, a function per
@@ -1158,13 +1108,31 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         cut = {**json.loads(exp_path.read_text()), "num_frames": cycles * params.cycle_n + 1}
         (tmp / name).write_text(json.dumps(cut))
     cmd = [
-        sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--timing-config", str(timing_path),
-        "--exp-config", str(tmp / "exp_cli.json"), "--worm-csv", str(tmp / "worm.csv"), "--output",
-        str(tmp / "simulate"), "--controller", "polyfit", "--device", device,
+        "wtracker_tpu_torch.workflows.simulate", "--timing-config", timing_path, "--exp-config", tmp / "exp_cli.json",
+        "--worm-csv", tmp / "worm.csv", "--output", tmp / "simulate", "--controller", "polyfit", "--device", device,
     ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=900)
-    out["cli_polyfit_wall_s"] = time.perf_counter() - t0
+    # the command runs beside the same runs on the CPU, over the first
+    # REPLAY_CPU_CYCLES cycles (the card's texts' first rows)
+    with ThreadPoolExecutor(1) as pool:
+        simulate = pool.submit(run_module, cmd)
+        cpu = {}
+        for name in names:
+            cycles = min(REPLAY_CPU_CYCLES, REPLAY_POLYFIT_TIMED_CYCLES if name == "polyfit" else n)
+            params, logs, wall = run(name, "cpu", cycles)
+            cpu[name] = {"cycles": cycles, "cycles_per_s": cycles / wall}
+            if name == "mlp":
+                card = logs_by[name].positions[:cycles].cpu().numpy()
+                diff = np.abs(logs.positions.numpy() - card).max(axis=-1).reshape(-1)
+                cpu[name].update(frames_equal_share=float((diff == 0).mean()), max_abs_pos_diff_px=int(diff.max()))
+                if not (cpu[name]["frames_equal_share"] >= 0.999 and diff.max() <= 2):
+                    raise AssertionError(f"mlp on the card and on the CPU drift apart: {cpu[name]}")
+            else:
+                lines = te.logs_to_frame(params, logs).to_csv(index=False).splitlines()
+                if lines != texts[name].splitlines()[: len(lines)]:
+                    raise AssertionError(f"{name}: the card and the CPU wrote different bboxes.csv text")
+                cpu[name]["identical_text"] = True
+        out["cpu"] = cpu
+        out["cli_polyfit_wall_s"], proc = simulate.result()
     if proc.returncode != 0:
         raise AssertionError(f"simulate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     cli_lines = (tmp / "simulate" / "bboxes.csv").read_text().splitlines()
@@ -1173,23 +1141,6 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         raise AssertionError("the simulate command's bboxes.csv is not the in-process polyfit run's first rows")
     out["cli_polyfit_cycles"] = REPLAY_CLI_CYCLES
     out["cli_stdout"] = proc.stdout.strip().splitlines()
-
-    # the same runs on the CPU (polyfit over the card's cycles)
-    cpu = {}
-    for name in names:
-        cycles = REPLAY_POLYFIT_TIMED_CYCLES if name == "polyfit" else n
-        params, logs, wall = run(name, "cpu", cycles)
-        cpu[name] = {"cycles_per_s": cycles / wall}
-        if name == "mlp":
-            diff = np.abs(logs.positions.numpy() - logs_by[name].positions.cpu().numpy()).max(axis=-1).reshape(-1)
-            cpu[name].update(frames_equal_share=float((diff == 0).mean()), max_abs_pos_diff_px=int(diff.max()))
-            if not (cpu[name]["frames_equal_share"] >= 0.999 and diff.max() <= 2):
-                raise AssertionError(f"mlp on the card and on the CPU drift apart: {cpu[name]}")
-        elif te.logs_to_frame(params, logs).to_csv(index=False) != texts[name]:
-            raise AssertionError(f"{name}: the card and the CPU wrote different bboxes.csv text")
-        else:
-            cpu[name]["identical_text"] = True
-    out["cpu"] = cpu
     profiled = {f"replay_{k}": (lambda k=k: run(k, device, PROFILE_REPLAY_CYCLES)[2]) for k in ("polyfit", "csv")}
     return out, profiled
 
@@ -1217,35 +1168,41 @@ def sweep(tmp: Path, device: str = "cuda") -> dict:
         for i, e in enumerate(exps)
     ]
     cmd = [
-        sys.executable, "-m", "wtracker_tpu_torch.workflows.sweep", "--worm-csvs",
-        *[str(tmp / f"sweep_worm{i}.csv") for i in range(5)], "--exp-configs", *[str(e) for e, _ in cfgs],
-        "--timing-configs", *[str(t) for _, t in cfgs], "--output", str(tmp / "sweep"), "--device", device,
+        "wtracker_tpu_torch.workflows.sweep", "--worm-csvs", *[tmp / f"sweep_worm{i}.csv" for i in range(5)],
+        "--exp-configs", *[e for e, _ in cfgs], "--timing-configs", *[t for _, t in cfgs], "--output", tmp / "sweep",
+        "--device", device,
     ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=900)
-    out["cli_mixed_wall_s"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"sweep exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    out["cli_stdout"] = proc.stdout.strip().splitlines()
-    solo_s, cycles_each = [], []
-    for i, (exp, timing, table) in enumerate(zip(exps, timings, tables)):
-        params = te.EngineParams.from_timing(timing, te.headless_frame_shape(timing, exp.orig_resolution))
-        n = params.n_logged_cycles(exp.num_frames)
-        t0 = time.perf_counter()
-        logs = te.run_engine(params, te.csv_controller(table, params, device=device), exp.init_position, n, device=device)
-        cuda_sync(device)
-        solo_s.append(time.perf_counter() - t0)
-        cycles_each.append(n)
-        if (tmp / "sweep" / f"exp{i}" / "bboxes.csv").read_text() != te.logs_to_frame(params, logs).to_csv(index=False):
-            raise AssertionError(f"the sweep's exp{i} differs from its single-stream run")
-    out.update(mixed_cycles=cycles_each, mixed_equal_to_solo=True, solo_run_s=solo_s)
-
-    # S streams of phase 14's configuration in one batch
+    # S streams of phase 14's configuration in one batch, below
     exp = ExperimentConfig.load_json(str(ROOT / "configs" / "exp_config.json"))
     timing = TimingConfig.load_json(str(ROOT / "configs" / "timing_config.json"))
     params = te.EngineParams.from_timing(timing, te.headless_frame_shape(timing, exp.orig_resolution))
     n, streams = params.n_logged_cycles(exp.num_frames), SWEEP_STREAMS
     csvs = np.stack([worm_boxes(exp.num_frames, tuple(exp.orig_resolution), SEED + 100 + s) for s in range(streams)])
+
+    # the single-stream runs (the command's and two of the batch's streams) go beside the command
+    with ThreadPoolExecutor(1) as pool:
+        swept = pool.submit(run_module, cmd)
+        solos = {s: te.run_engine(params, te.csv_controller(csvs[s], params, device=device), exp.init_position, n,
+                                  device=device) for s in (0, streams - 1)}
+        solo_s, cycles_each, texts = [], [], []
+        for e, t, table in zip(exps, timings, tables):
+            p = te.EngineParams.from_timing(t, te.headless_frame_shape(t, e.orig_resolution))
+            cycles = p.n_logged_cycles(e.num_frames)
+            t0 = time.perf_counter()
+            logs = te.run_engine(p, te.csv_controller(table, p, device=device), e.init_position, cycles, device=device)
+            cuda_sync(device)
+            solo_s.append(time.perf_counter() - t0)
+            cycles_each.append(cycles)
+            texts.append(te.logs_to_frame(p, logs).to_csv(index=False))
+        out["cli_mixed_wall_s"], proc = swept.result()
+    if proc.returncode != 0:
+        raise AssertionError(f"sweep exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    out["cli_stdout"] = proc.stdout.strip().splitlines()
+    for i, text in enumerate(texts):
+        if (tmp / "sweep" / f"exp{i}" / "bboxes.csv").read_text() != text:
+            raise AssertionError(f"the sweep's exp{i} differs from its single-stream run")
+    out.update(mixed_cycles=cycles_each, mixed_equal_to_solo=True, solo_run_s=solo_s)
+
     init = np.tile(exp.init_position, (streams, 1))
     ctl = te.csv_controller_streams(csvs, params, device=device)
     te.run_engine_streams(params, ctl, init, 20, batched_controller=True, device=device)  # warm-up
@@ -1253,8 +1210,7 @@ def sweep(tmp: Path, device: str = "cuda") -> dict:
     logs = te.run_engine_streams(params, ctl, init, n, batched_controller=True, device=device)
     cuda_sync(device)
     wall = time.perf_counter() - t0
-    for s in (0, streams - 1):
-        solo = te.run_engine(params, te.csv_controller(csvs[s], params, device=device), exp.init_position, n, device=device)
+    for s, solo in solos.items():
         same_boxes = torch.equal(solo.worm_bboxes.nan_to_num(-1.0), logs.worm_bboxes[:, s].nan_to_num(-1.0))
         if not (torch.equal(solo.positions, logs.positions[:, s]) and same_boxes):
             raise AssertionError(f"stream {s} of the batch differs from its single-stream run")
@@ -1282,6 +1238,7 @@ def hetero_live(models: dict, predictor, device: str = "cuda", per_geometry: int
     from wtracker_tpu_torch.sim.engine_hetero import StreamGeometry, geometry_from_configs, yolo_mlp_controller_hetero
     from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
     from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+    from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
     exps, timings, _ = exp0_4()
     params, g5 = geometry_from_configs(timings, exps)
@@ -1316,7 +1273,7 @@ def hetero_live(models: dict, predictor, device: str = "cuda", per_geometry: int
     per_stream = []
     for s in range(S):
         one = type(logs)(logs.positions[:, s : s + 1], logs.worm_bboxes[:, s : s + 1])
-        q = synthetic_quality(params, one, trajs[s : s + 1])
+        q = closed_loop_quality(params, one, trajs[s : s + 1])
         if not (q["detection_rate"] >= 0.95 and q["median_center_err_px"] <= 4.0):
             raise AssertionError(f"stream {s} (camera {tuple(geometry.cam_size[s])}) lost the worm: {q}")
         per_stream.append(q)
@@ -1675,6 +1632,7 @@ def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, cal
     from wtracker_tpu_torch.sim.engine import run_engine_streams
     from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_stream_batch_fused
     from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+    from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
     _, params = bench_setup()
     S = SYNTH_STREAMS
@@ -1712,7 +1670,7 @@ def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, cal
     k1, k2 = crop_letterbox_views.launches, conv_s8.launches
     if k1 != 0 or k2 != 62 * forwards * INT8_SYNTH_TIMED_RUNS:
         raise AssertionError(f"the int8 synthetic loop launched K1 {k1} and K2 {k2} times in {INT8_SYNTH_TIMED_RUNS} runs")
-    quality = synthetic_quality(params, logs, trajs)
+    quality = closed_loop_quality(params, logs, trajs)
     if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
         raise AssertionError(f"the int8 synthetic loop lost the worm: {quality}")
     if not quality["in_camera_share_after_cycle_3"] >= 0.95:
@@ -1740,14 +1698,10 @@ def int8_track_video_cli(params, recording, cam: int, tmp: Path, artifact: Path,
     """Phase 22: ``python -m wtracker_tpu_torch.workflows.track_video`` with
     the int8 artifact on phase 12's BMPs: a 17-column ``bboxes.csv`` of every
     logged cycle, held to the tracking bar."""
-    cmd = [
-        sys.executable, "-m", "wtracker_tpu_torch.workflows.track_video", "--frames", str(tmp / "frames"),
-        "--timing-config", str(timing_config), "--exp-config", str(tmp / "exp.json"), "--detector", str(artifact),
-        "--output", str(tmp / "int8"), "--device", "cuda",
-    ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
+    wall, proc = run_module([
+        "wtracker_tpu_torch.workflows.track_video", "--frames", tmp / "frames", "--timing-config", timing_config,
+        "--exp-config", tmp / "exp.json", "--detector", artifact, "--output", tmp / "int8", "--device", "cuda",
+    ], timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"track_video with the int8 artifact exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     logs = logs_from_csv(tmp / "int8" / "bboxes.csv", params.cycle_n)
@@ -1764,6 +1718,7 @@ def int8_track_video_cli(params, recording, cam: int, tmp: Path, artifact: Path,
 # ---------------------------------------------------------------------------
 
 HOST_CONTROLLERS = ("csv", "optimal", "polyfit", "mlp")
+HOST_CUT = ("polyfit", "mlp")  # phase 23 runs these over phase 14's polyfit cycles
 HOST_YOLO_RUNS = 3  # phase 24: timed runs over the recording after one warm-up run
 # the polyfit_optimizer command's default sample times, for WeightEvaluator
 EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
@@ -1771,23 +1726,22 @@ EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
 
 def host_replay(tmp: Path) -> dict:
     """Phase 23: ``python -m wtracker_tpu_torch.workflows.simulate --backend
-    host`` at phase 14's configuration on its worm log, uncut but polyfit
-    (phase 14's first 1,000 cycles), with the csv, optimal, polyfit (the
+    host`` at phase 14's configuration on its worm log, csv and optimal
+    uncut, polyfit and mlp over phase 14's first REPLAY_POLYFIT_TIMED_CYCLES
+    cycles, with the csv, optimal, polyfit (the
     command's default, degree 2 at [-15, -10, -5, 0, 3]) and mlp (phase 14's
     predictor, on the card) controllers, the four commands at once (their
     start-ups overlap; each loop's cycles/s is taken beside the others').
     Each ``bboxes.csv`` (``\\r\\n`` line ends, the csv module's) must be
-    phase 14's engine text row for row; for mlp the rows that differ are
+    phase 14's engine text (its first rows) row for row; for mlp the rows that differ are
     counted and held to phase 14's card-against-CPU bar."""
-    from concurrent.futures import ThreadPoolExecutor
-
     exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
 
     def command(name: str):
         cmd = [
             sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--backend", "host",
             "--timing-config", str(timing_path), "--worm-csv", str(tmp / "worm.csv"),
-            "--exp-config", str(tmp / "exp_cut.json" if name == "polyfit" else exp_path),
+            "--exp-config", str(tmp / "exp_cut.json" if name in HOST_CUT else exp_path),
             "--output", str(tmp / f"host_{name}"), "--controller", name, "--device", "cuda",
             *(["--predictor", str(tmp / "predictor.npz")] if name == "mlp" else []),
         ]
@@ -1810,8 +1764,11 @@ def host_replay(tmp: Path) -> dict:
         raw = (tmp / f"host_{name}" / "bboxes.csv").read_bytes()
         host = raw.decode().replace("\r\n", "\n").splitlines()
         engine = (tmp / f"engine_{name}.csv").read_text().splitlines()
-        if len(host) != len(engine) or host[0] != engine[0]:
-            raise AssertionError(f"host {name}: {len(host)} lines against the engine's {len(engine)}")
+        # polyfit and mlp run over the cut experiment: polyfit's engine text
+        want = len((tmp / "engine_polyfit.csv").read_text().splitlines()) if name in HOST_CUT else len(engine)
+        engine = engine[:want]
+        if len(host) != want or host[0] != engine[0]:
+            raise AssertionError(f"host {name}: {len(host)} lines against the engine's {want}")
         differing = [i for i, (a, b) in enumerate(zip(host, engine)) if a != b]
         row = {
             "wall_s": wall, "loop_s": loop_s, "cycles": cycles, "cycles_per_s_loop": cycles / loop_s,
@@ -1992,6 +1949,15 @@ finally:
 """
 
 
+def run_module(args: list, timeout: int = 900) -> tuple[float, subprocess.CompletedProcess]:
+    """``python -m ARGS`` from the checkout's root: its wall seconds and the
+    finished process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                          capture_output=True, text=True, timeout=timeout)
+    return time.perf_counter() - t0, proc
+
+
 def run_cli(name: str, args: list, timeout: int = 600, env: dict | None = None) -> tuple[float, str, dict]:
     """``python -m wtracker_tpu_torch.workflows.<name> ARGS`` in a child
     process: wall seconds, stdout, and the K1/K2 launches counted in that
@@ -2011,8 +1977,6 @@ def run_cli(name: str, args: list, timeout: int = 600, env: dict | None = None) 
 def run_clis(jobs: list[tuple[str, list]]) -> list[tuple[float, str, dict]]:
     """``run_cli`` over several commands at once (their start-ups overlap;
     each one's wall seconds are taken beside the others'), in order."""
-    from concurrent.futures import ThreadPoolExecutor
-
     with ThreadPoolExecutor(len(jobs)) as pool:
         return list(pool.map(lambda job: run_cli(*job), jobs))
 
@@ -2204,9 +2168,16 @@ def initialize_experiment_cli(recording, bmp: Path, device: str = "cuda") -> dic
     return out
 
 
-def create_yolo_images_cli(recording, bmp: Path, device: str = "cuda") -> dict:
+def create_yolo_images_args(bmp: Path, device: str = "cuda") -> list:
+    """Phase 28's command line (seed 0), run beside phase 27's commands."""
+    return ["--frames", bmp / "frames", "--output", bmp / "samples", "--count", SAMPLE_COUNT, "--size", SAMPLE_SIZE,
+            SAMPLE_SIZE, "--seed", 0, "--device", device]
+
+
+def create_yolo_images_cli(recording, bmp: Path, ran: tuple, device: str = "cuda") -> dict:
     """Phase 28: ``create_yolo_images --count SAMPLE_COUNT --size SAMPLE_SIZE
-    SAMPLE_SIZE`` on phase 12's BMPs; every PNG, decoded by the port's codec,
+    SAMPLE_SIZE`` on phase 12's BMPs (``ran``: ``run_cli``'s result of
+    :func:`create_yolo_images_args`); every PNG, decoded by the port's codec,
     is the recording at the window the seed gives (frames, boxes and jitter
     recomputed in this process)."""
     from wtracker_tpu_torch.dataset import BGExtractor, BoxCalculator, SampleExtractor
@@ -2215,9 +2186,7 @@ def create_yolo_images_cli(recording, bmp: Path, device: str = "cuda") -> dict:
 
     zero_hand_kernel_launches()
     out_dir, seed = bmp / "samples", 0
-    wall, _, launches = run_cli("create_yolo_images", [
-        "--frames", bmp / "frames", "--output", out_dir, "--count", SAMPLE_COUNT, "--size", SAMPLE_SIZE, SAMPLE_SIZE,
-        "--seed", seed, "--device", device])
+    wall, _, launches = ran
     reader = FrameReader.create_from_directory(str(bmp / "frames"))
     calc = BoxCalculator(reader, BGExtractor(reader).calc_background(500, device=device), device=device)
     picks = np.random.default_rng(seed).choice(len(reader), size=SAMPLE_COUNT, replace=False)
@@ -2407,9 +2376,10 @@ def predictor_training_phase(replay_tmp: Path, device: str = "cuda") -> dict:
     the first PRED_EQUAL_BATCHES at rtol 1e-4, in float64 the first
     PRED_F64_BATCHES at PRED_F64_RTOL, and each epoch's mean loss at
     PRED_MEAN_RTOL; where the runs part is reported beside the nudge's.
-    Then PRED_TIMED_EPOCHS timed epochs (train and test) on the card; then
-    the command itself, PRED_EPOCHS epochs, whose ``.npz`` loads in
-    ``load_predictor`` and predicts finite centres."""
+    Then PRED_TIMED_EPOCHS timed epochs (train and test) on the card.  The
+    command itself, PRED_EPOCHS epochs, runs beside the CPU's epochs (whose
+    seconds are taken beside it); its ``.npz`` loads in ``load_predictor``
+    and predicts finite centres."""
     from wtracker_tpu_torch.models.resmlp import load_predictor
     from wtracker_tpu_torch.neural.config import DatasetConfig
     from wtracker_tpu_torch.neural.dataset import NumpyDataset
@@ -2421,12 +2391,20 @@ def predictor_training_phase(replay_tmp: Path, device: str = "cuda") -> dict:
     train, test = ds.split(0.8, seed=42)
     out = {"samples": len(ds), "train_samples": len(train), "dataset_s": time.perf_counter() - t0}
 
+    # the command runs beside the CPU's epochs; the card's come after it
+    npz = replay_tmp / "predictor_trained.npz"
+    args = ["--logs", log_path, "--output", npz, "--epochs", PRED_EPOCHS, "--device", device]
     runs = {}
+    with ThreadPoolExecutor(1) as pool:
+        command = pool.submit(run_cli, "predictor_training", args)
+        for dtype in (torch.float32, torch.float64):
+            runs[dtype, "cpu"] = first_epoch_losses(train, "cpu", dtype)
+        nudged = first_epoch_losses(train, "cpu", torch.float64, nudge=2.0**-52)[0]
+        wall, stdout, launches = command.result()
     for dtype in (torch.float32, torch.float64):
-        for dev in (device, "cpu"):
-            runs[dtype, dev] = first_epoch_losses(train, dev, dtype)
-            out[f"first_epoch_s_{torch.device(dev).type}_{str(dtype)[6:]}"] = runs[dtype, dev][2]
-    nudged = first_epoch_losses(train, "cpu", torch.float64, nudge=2.0**-52)[0]
+        runs[dtype, device] = first_epoch_losses(train, device, dtype)
+    for (dtype, dev), run in runs.items():
+        out[f"first_epoch_s_{torch.device(dev).type}_{str(dtype)[6:]}"] = run[2]
     f32 = loss_gap(runs[torch.float32, device][0], runs[torch.float32, "cpu"][0], 1e-4)
     f64 = loss_gap(runs[torch.float64, device][0], runs[torch.float64, "cpu"][0], PRED_F64_RTOL)
     nudge = loss_gap(nudged, runs[torch.float64, "cpu"][0], PRED_F64_RTOL)
@@ -2457,9 +2435,6 @@ def predictor_training_phase(replay_tmp: Path, device: str = "cuda") -> dict:
     out["samples_per_s"] = n_batches * PRED_BATCH / float(np.median(epoch_s))
     out["epochs_per_s"] = 1.0 / float(np.median(epoch_s))
 
-    npz = replay_tmp / "predictor_trained.npz"
-    wall, stdout, launches = run_cli("predictor_training", [
-        "--logs", log_path, "--output", npz, "--epochs", PRED_EPOCHS, "--device", device])
     pred = load_predictor(str(npz), device=device)
     y = pred(torch.from_numpy(ds.X[:256]).to(device)).cpu().numpy()
     if y.shape != (256, 2 * len(PRED_PRED_FRAMES)) or not np.isfinite(y).all():
@@ -2469,12 +2444,19 @@ def predictor_training_phase(replay_tmp: Path, device: str = "cuda") -> dict:
     return out
 
 
-def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, device: str = "cuda") -> dict:
+def polyfit_optimizer_args(replay_tmp: Path, timing_path: Path, device: str = "cuda") -> list:
+    """Phase 31's command line, run beside phase 30's commands and CPU epochs."""
+    return ["--timing-config", timing_path, "--logs", replay_tmp / "worm.csv", "--output",
+            replay_tmp / "polyfit_tuned.json", "--pop", PSO_POP, "--epochs", PSO_EPOCHS, "--device", device]
+
+
+def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, ran: tuple, device: str = "cuda") -> dict:
     """Phase 31: the particle swarm over phase 14's log: its first
     PSO_CPU_EPOCHS epochs at pop PSO_POP in process on the card (ms an
     epoch, after a 2-epoch warm-up) and on the CPU (the same history bit for
-    bit); then the ``polyfit_optimizer`` command at its defaults (pop
-    PSO_POP, PSO_EPOCHS epochs), whose tuned error is at most the first
+    bit); and the ``polyfit_optimizer`` command at its defaults (pop
+    PSO_POP, PSO_EPOCHS epochs; ``ran``: ``run_cli``'s result of
+    :func:`polyfit_optimizer_args`), whose tuned error is at most the first
     epochs' best."""
     from wtracker_tpu_torch.neural.optimize import optimize_polyfit_weights
     from wtracker_tpu_torch.sim.config import TimingConfig
@@ -2497,11 +2479,8 @@ def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, device: str = "
     if not np.array_equal(runs[device].history, runs["cpu"].history):
         raise AssertionError(f"the card's swarm history leaves the CPU's: {runs[device].history} {runs['cpu'].history}")
 
-    out_json = replay_tmp / "polyfit_tuned.json"
-    cmd_wall, stdout, launches = run_cli("polyfit_optimizer", [
-        "--timing-config", timing_path, "--logs", log_path, "--output", out_json, "--pop", PSO_POP,
-        "--epochs", PSO_EPOCHS, "--device", device])
-    tuned = PolyfitConfig.load_json(str(out_json))
+    cmd_wall, stdout, launches = ran
+    tuned = PolyfitConfig.load_json(str(replay_tmp / "polyfit_tuned.json"))
     mae = [float(v) for v in re.search(r"MAE uniform (\S+) -> tuned (\S+)", stdout).groups()]
     if not (mae[1] <= runs[device].best_value + 5e-5 and mae[1] < mae[0] and len(tuned.weights) == len(PSO_SAMPLE_TIMES)):
         raise AssertionError(f"the command's MAE {mae} is not at most the first {PSO_CPU_EPOCHS} epochs' "
@@ -2570,6 +2549,7 @@ def yolo_training_phase(tmp: Path, profile: bool, device: str = "cuda") -> tuple
         RecipeConfig, YoloTrainingRun, average_precision_50, expand_gray, load_yolo_dataset,
     )
     from wtracker_tpu_torch.neural.yolo_training import YoloTrainer
+    from wtracker_tpu_torch.tools.trace_profile import profile_run
 
     zero_hand_kernel_launches()
     t0 = time.perf_counter()
@@ -2876,6 +2856,7 @@ def sharded_int8(q, qw, predictor) -> dict:
     from wtracker_tpu_torch.sim.engine import run_engine_streams
     from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_stream_batch_fused
     from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+    from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
     _, params = bench_setup()
     S, cycles = INT8_MESH_STREAMS, INT8_MESH_CYCLES
@@ -2911,7 +2892,7 @@ def sharded_int8(q, qw, predictor) -> dict:
         if not (torch.equal(logs.positions[:, part], alone.positions)
                 and torch.equal(logs.worm_bboxes[:, part].nan_to_num(-1.0), alone.worm_bboxes.nan_to_num(-1.0))):
             raise AssertionError(f"slot {k} of the sharded int8 loop differs from its streams run alone")
-    quality = synthetic_quality(params, logs, trajs)
+    quality = closed_loop_quality(params, logs, trajs)
     if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
         raise AssertionError(f"the sharded int8 loop lost the worm: {quality}")
     return {
@@ -3195,6 +3176,46 @@ def dp_steps(tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the detector's gates and the trace tool (phases 38-39)
+# ---------------------------------------------------------------------------
+
+TRACE_STREAMS, TRACE_CYCLES = 8, 2  # phase 39's profiled synthetic loop
+
+
+def detector_gates() -> dict:
+    """Phase 38: ``tools/run_gates.py``'s gates on the card at the JAX gates'
+    sizes: held-out AP@0.5 of the trained checkpoint on 24 rendered images,
+    its int8 drift on 16 views after 32 calibration views, the closed loop
+    at S=1 x 6 cycles, the int8 drift of random s weights and the s/416
+    parity against the CPU in float32.  Every gate must pass, the two int8
+    gates launch K2 (the gates raise on the card otherwise) and no gate
+    launches K1."""
+    from wtracker_tpu_torch.tools import run_gates
+
+    zero_hand_kernel_launches()
+    out = run_gates.run_all(run_gates.parse_args([]))
+    failed = {k: r["failed"] for k, r in out.items() if r["status"] != "pass"}
+    if len(out) != 5 or failed:
+        raise AssertionError(f"detector gates failed: {failed}: {out}")
+    launches = hand_kernel_launches()
+    if launches["crop_letterbox"] or not all(out[k]["launches"]["conv_s8"] for k in ("trained_int8_drift", "int8_drift_s416")):
+        raise AssertionError(f"the gates launched K1 or an int8 gate ran without K2: {launches}")
+    return {"gates": out, "launches": launches}
+
+
+def trace_tool() -> dict:
+    """Phase 39: ``tools/trace_profile.py`` in this process on the bf16
+    synthetic loop at S=TRACE_STREAMS x TRACE_CYCLES cycles: a busy share in
+    (0, 1] and kernels listed."""
+    from wtracker_tpu_torch.tools.trace_profile import trace
+
+    out = trace("bf16", streams=TRACE_STREAMS, cycles=TRACE_CYCLES, top=10)
+    if not (0 < out["device_busy_share"] <= 1 and out["top_kernels"]):
+        raise AssertionError(f"trace_profile saw no device work: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -3454,13 +3475,14 @@ def main() -> int:
         f"of {k2_360['silu_q_checked']}")
     k2["n360"] = k2_360
 
-    # -- 22. track_video with the int8 artifact ------------------------------------
-    int8_cli = int8_track_video_cli(params, recording, cam, bmp, artifact, timing_path)
-    log(f"track_video int8: {int8_cli['wall_s']:.1f} s")
-
+    # -- 22. track_video with the int8 artifact, beside phase 23's commands ----------
     # -- 23. the host simulator backend: simulate --backend host -------------------
     t0 = time.perf_counter()
-    host = host_replay(replay_tmp)
+    with ThreadPoolExecutor(1) as pool:
+        int8_run = pool.submit(int8_track_video_cli, params, recording, cam, bmp, artifact, timing_path)
+        host = host_replay(replay_tmp)
+        int8_cli = int8_run.result()
+    log(f"track_video int8: {int8_cli['wall_s']:.1f} s")
 
     # -- 24. the live host loop with YOLO at full width -----------------------------
     host_yolo = host_yolo_loop(params, recording, bmp, timing_path)
@@ -3481,13 +3503,15 @@ def main() -> int:
         f"{dataset['frames_per_s']:.1f} frames/s ({dataset['floods_per_chunk']:.1f} floods a chunk), one chunk's "
         f"stages {dataset['chunk_split']}")
 
-    # -- 27. initialize_experiment, classical and yolo ---------------------------------
-    init_cli = initialize_experiment_cli(recording, bmp)
-    log(f"initialize_experiment: classical {init_cli['classical_wall_s']:.1f} s, "
-        f"yolo@{YOLO_INIT_IMGSZ} {init_cli[f'yolo{YOLO_INIT_IMGSZ}']}")
+    # -- 27. initialize_experiment, classical and yolo (phase 28's command beside) ------
+    with ThreadPoolExecutor(1) as pool:
+        sampled = pool.submit(run_cli, "create_yolo_images", create_yolo_images_args(bmp))
+        init_cli = initialize_experiment_cli(recording, bmp)
+        log(f"initialize_experiment: classical {init_cli['classical_wall_s']:.1f} s, "
+            f"yolo@{YOLO_INIT_IMGSZ} {init_cli[f'yolo{YOLO_INIT_IMGSZ}']}")
 
-    # -- 28. create_yolo_images ---------------------------------------------------------
-    samples = create_yolo_images_cli(recording, bmp)
+        # -- 28. create_yolo_images ---------------------------------------------------------
+        samples = create_yolo_images_cli(recording, bmp, sampled.result())
     log(f"create_yolo_images: {samples['wall_s']:.1f} s")
 
     # -- 29. evaluation: analysis, the batched precise error, visualize -----------------
@@ -3502,14 +3526,16 @@ def main() -> int:
     # -- 30. predictor_training over phase 14's log ------------------------------------
     profile = "--profile" in sys.argv
     t0 = time.perf_counter()
-    pred_train = predictor_training_phase(replay_tmp)
-    log(f"predictor_training: {pred_train['samples_per_s']:.0f} samples/s, {np.median(pred_train['epoch_s']):.2f} s an "
-        f"epoch, first-epoch losses card vs CPU: float32 {pred_train['first_epoch_float32']}, float64 "
-        f"{pred_train['first_epoch_float64']}, float64 CPU nudged by an ulp {pred_train['first_epoch_float64_cpu_nudged']}, "
-        f"command {pred_train['command_wall_s']:.1f} s")
+    with ThreadPoolExecutor(1) as pool:  # phase 31's command beside phase 30's
+        tuned = pool.submit(run_cli, "polyfit_optimizer", polyfit_optimizer_args(replay_tmp, timing_path))
+        pred_train = predictor_training_phase(replay_tmp)
+        log(f"predictor_training: {pred_train['samples_per_s']:.0f} samples/s, {np.median(pred_train['epoch_s']):.2f} s "
+            f"an epoch, first-epoch losses card vs CPU: float32 {pred_train['first_epoch_float32']}, float64 "
+            f"{pred_train['first_epoch_float64']}, float64 CPU nudged by an ulp "
+            f"{pred_train['first_epoch_float64_cpu_nudged']}, command {pred_train['command_wall_s']:.1f} s")
 
-    # -- 31. polyfit_optimizer over phase 14's log ---------------------------------------
-    pso = polyfit_optimizer_phase(replay_tmp, timing_path)
+        # -- 31. polyfit_optimizer over phase 14's log ---------------------------------------
+        pso = polyfit_optimizer_phase(replay_tmp, timing_path, tuned.result())
     log(f"polyfit_optimizer: {pso['ms_per_epoch']:.2f} ms an epoch (CPU {pso['cpu_ms_per_epoch']:.1f}), "
         f"command {pso['command_wall_s']:.1f} s, MAE {pso['mae_uniform_tuned']}")
     replay_dir.cleanup()
@@ -3545,7 +3571,23 @@ def main() -> int:
     log(f"sharded int8 loop: {sharded8['steps_per_s']:.0f} steps/s, K2 {sharded8['conv_s8_launches']}")
     scale_out_s += time.perf_counter() - t0 + dp_s
 
-    profiles = {name: profile_run(run) for name, run in to_profile.items()} if profile else {}
+    # -- 38. the detector's gates ---------------------------------------------------
+    t0 = time.perf_counter()
+    gated = detector_gates()
+    log(f"gates: {({k: (r['status'], r['seconds']) for k, r in gated['gates'].items()})}, launches {gated['launches']}")
+
+    # -- 39. the trace tool on the synthetic loop -------------------------------------
+    traced = trace_tool()
+    tools_s = time.perf_counter() - t0
+    log(f"trace_profile: busy share {traced['device_busy_share']:.3f}, {traced['busy_ms_per_cycle']:.2f} ms a cycle; "
+        f"phases 38-39 {tools_s:.1f} s")
+
+    if profile:
+        from wtracker_tpu_torch.tools.trace_profile import profile_run
+
+        profiles = {name: profile_run(run) for name, run in to_profile.items()}
+    else:
+        profiles = {}
 
     # -- results ---------------------------------------------------------------
     t12, t3 = times[params.imaging_n], times[params.moving_n]
@@ -3591,6 +3633,7 @@ def main() -> int:
                     sharded["folded"]["crop_letterbox_launches"], sharded8["crop_letterbox_launches"], 0
                 ],
                 "launches_data_parallel": [dp["launches"]["crop_letterbox"], dp["command"]["launches"]["crop_letterbox"]],
+                "launches_gates": gated["launches"]["crop_letterbox"],
             },
             {
                 # one int8 forward at N=12 views: the sum over its 63 convolutions
@@ -3623,6 +3666,7 @@ def main() -> int:
                 "launches_phases_30_32": [p["conv_s8"] for p in training_launches],
                 "launches_sharded_int8": sharded8["conv_s8_launches"],
                 "launches_data_parallel": [dp["launches"]["conv_s8"], dp["command"]["launches"]["conv_s8"]],
+                "launches_gates": {k: gated["gates"][k]["launches"]["conv_s8"] for k in ("trained_int8_drift", "int8_drift_s416")},
                 "design": k2_design(),
                 "sass": k2_sass,
                 "classes": k2["classes"],
@@ -3688,6 +3732,8 @@ def main() -> int:
     print(json.dumps({"sharded_int8": {**sharded8, "card": card}}))
     print(json.dumps({"sweep_mesh": {**swept_mesh, "card": card}}))
     print(json.dumps({"data_parallel": {**dp, "phases_34_37_s": scale_out_s, "card": card}}))
+    print(json.dumps({"detector_gates": {**gated, "card": card}}))
+    print(json.dumps({"trace_profile": {**traced, "phases_38_39_s": tools_s, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

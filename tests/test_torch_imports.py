@@ -58,7 +58,11 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.neural.training", "wtracker_tpu_torch.neural.optimize",
         "wtracker_tpu_torch.neural.yolo_training", "wtracker_tpu_torch.neural.yolo_recipe",
         "wtracker_tpu_torch.workflows.predictor_training", "wtracker_tpu_torch.workflows.polyfit_optimizer",
-        "wtracker_tpu_torch.workflows.yolo_training",
+        "wtracker_tpu_torch.workflows.yolo_training", "wtracker_tpu_torch.tools",
+        "wtracker_tpu_torch.tools.make_synthetic_dataset", "wtracker_tpu_torch.tools.gates",
+        "wtracker_tpu_torch.tools.run_gates", "wtracker_tpu_torch.tools.trace_profile",
+        "wtracker_tpu_torch.tools.trace_diff", "wtracker_tpu_torch.tools.recording",
+        "wtracker_tpu_torch.tools.workflow_chain",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()

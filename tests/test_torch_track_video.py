@@ -3,16 +3,18 @@
 Reference: what ``workflows/track_video.py`` computes, run in-process (the
 JAX command cannot import its package as a script): ``FrameReader`` over a
 directory of BMPs, ``YoloV8Detector.load(...).fuse()``, ``load_predictor``,
-its ``LiveLoopConfig``, ``run_video_live`` (whole frames, and ROI streaming)
-and ``logs_to_frame``.  The frames are the recording of
-``tests/test_torch_engine_video.py`` as 8-bit BMPs; the detector is a
-YOLOv8 "n" at 64 px saved by the JAX package's ``YoloV8Detector.save``,
-whose box branch gives every anchor the same exact distances, so each box is
-an exact function of the winning anchor and both packages print the same
-digits; ``bboxes.csv`` must equal the JAX text byte for byte.  The same
-holds with an int8 artifact of that detector (the folded-stem int8 graph in
-both packages; the JAX loop runs op by op, as its jit moves int8 logits by
-an ulp), and without
+its ``LiveLoopConfig``, ``run_video_live`` and ``logs_to_frame``.  JAX's
+whole-frame text, computed once, is the reference of both the port's
+whole-frame and ROI runs: JAX's ROI loop writes the whole-frame log (held
+against the port's ROI loop in ``tests/test_torch_engine_video_roi.py``).
+The frames are the recording of ``tests/test_torch_engine_video.py`` as
+8-bit BMPs; the detector is a YOLOv8 "n" at 64 px saved by the JAX
+package's ``YoloV8Detector.save``, whose box branch gives every anchor the
+same exact distances, so each box is an exact function of the winning
+anchor and both packages print the same digits; ``bboxes.csv`` must equal
+the JAX text byte for byte.  The same holds with an int8 artifact of that
+detector (the folded-stem int8 graph in both packages; the JAX loop runs op
+by op, as its jit moves int8 logits by an ulp), and without
 ``--predictor``, where both commands draw the default predictor from seed 0.
 """
 
@@ -91,7 +93,7 @@ def files(video, models, tmp_path_factory):
     )}
 
 
-def _jax_csv(files, roi: int | None, int8: bool = False, predictor: bool = True) -> str:
+def _jax_csv(files, int8: bool = False, predictor: bool = True) -> str:
     """What the JAX package's track_video command writes, computed in-process
     (``workflows/track_video.py``: an int8 artifact goes through
     ``make_detect_fns`` at the camera geometry; without ``--predictor`` the
@@ -125,22 +127,22 @@ def _jax_csv(files, roi: int | None, int8: bool = False, predictor: bool = True)
     # top-1 anchors: JAX's own jitted and eager int8 forwards differ.  The
     # int8 reference runs op by op, each op rounding as the port's does.
     with jax.disable_jit(int8):
-        logs = _jax_run(params, cfg, reader, det_model, det_variables, predictor, exp, roi, hooks)
+        # whole frames in one chunk: chunked, the JAX loop decodes into a
+        # prefetch buffer that ``jnp.asarray`` aliases on the CPU while the
+        # previous chunk may still run (see test_torch_engine_video_streams.py);
+        # chunking does not change the logs, and the port's command is chunked
+        logs = jax_run_video_live(
+            params, cfg, lambda s, n, out=None: reader.read_batch(range(s, min(s + n, len(reader))), out=out),
+            len(reader), det_model, det_variables, predictor, exp.init_position, cycles_per_chunk=F, **hooks,
+        )
     return jax_logs_to_frame(params, logs).to_csv(index=False)
 
 
-def _jax_run(params, cfg, reader, det_model, det_variables, predictor, exp, roi, hooks):
-    # whole frames in one chunk: chunked, the JAX loop decodes into a
-    # prefetch buffer that ``jnp.asarray`` aliases on the CPU while the
-    # previous chunk may still run (see test_torch_engine_video_streams.py);
-    # chunking does not change the logs, and the port's command is chunked
-    return jax_run_video_live(
-        params, cfg, lambda s, n, out=None: reader.read_batch(range(s, min(s + n, len(reader))), out=out),
-        len(reader), det_model, det_variables, predictor, exp.init_position, cycles_per_chunk=CHUNK if roi else F,
-        roi_window=roi, **hooks,
-        window_source=(lambda s, n, tls, out=None: reader.read_window_batch(range(s, s + n), tls, (roi, roi), out=out))
-        if roi else None,
-    )
+@pytest.fixture(scope="module")
+def jax_whole_frames(files):
+    """JAX's text with the detector and predictor files: the reference of the
+    whole-frame and the ROI runs."""
+    return _jax_csv(files)
 
 
 def _argv(files, out: str, *extra: str, detector: str = "detector", predictor: bool = True) -> list[str]:
@@ -157,7 +159,7 @@ def _argv(files, out: str, *extra: str, detector: str = "detector", predictor: b
     [(None, False, True), (ROI, False, True), (None, True, True), (None, False, False)],
     ids=["whole-frames", "roi", "int8", "default-predictor"],
 )
-def test_track_video_writes_the_jax_csv(files, roi, int8, predictor, capsys):
+def test_track_video_writes_the_jax_csv(files, jax_whole_frames, roi, int8, predictor, capsys):
     out = os.path.join(files["root"], f"out-{roi}-{int8}-{predictor}")
     track_video.main(
         _argv(files, out, *(["--roi", str(roi)] if roi else []), detector="int8" if int8 else "detector",
@@ -171,7 +173,7 @@ def test_track_video_writes_the_jax_csv(files, roi, int8, predictor, capsys):
     assert (df[["wrm_w", "wrm_h"]] > 0).all().all()  # conf 0: a box in every frame
     assert f"wrote {out}/bboxes.csv ({len(df)} rows)" in printed
     assert ("ROI streaming: 4 chunks" in printed) == bool(roi)
-    assert got == _jax_csv(files, roi, int8, predictor)
+    assert got == (jax_whole_frames if predictor and not int8 else _jax_csv(files, int8, predictor))
 
 
 def test_track_video_refuses_unported_checkpoints(files, tmp_path):

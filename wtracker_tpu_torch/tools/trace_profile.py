@@ -1,0 +1,225 @@
+"""Device-trace profiler of the synthetic closed loop (bf16 or int8).
+
+Port of the JAX package's ``tools/trace_profile.py`` onto ``torch.profiler``:
+it builds the flagship loop (``make_stream_batch_fused`` at the bench
+geometry: S streams, 360 px camera, the trained YOLOv8s@416 BN-fused with
+the folded stem, the seeded ResMLP), runs one window to warm up and one
+under the profiler, and reports
+
+- the device's busy share of the window's wall time and its busy ms per
+  cycle (the union of the intervals of kernels, copies and fills), and
+- the top operators and kernels by device time,
+
+for the ``bf16`` loop or the ``int8`` serving path (folded-stem int8
+detector, the int8 convolution kernel).  ``--trace-dir`` also exports the
+Chrome trace (open it in Perfetto, or diff two with ``trace_diff``).  On the
+CPU (``--device cpu``) the trace has no device events: operators are listed
+by CPU time.
+
+Usage::
+
+    python -m wtracker_tpu_torch.tools.trace_profile [bf16|int8] [--streams 96] [--cycles 12] [--top 25]
+        [--trace-dir DIR] [--detector models/yolov8s_worm416.npz] [--imgsz 416] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from wtracker_tpu_torch.tools import CHECKPOINT
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")  # device events of an exported trace
+
+
+def pick_chunks(n_views: int, target_views: int) -> int:
+    """The divisor of ``n_views`` whose sub-batch lands nearest
+    ``target_views`` (the JAX bench's measured knees: 360 views bf16, 240
+    int8)."""
+    return min((d for d in range(1, n_views + 1) if n_views % d == 0), key=lambda d: abs(n_views / d - target_views))
+
+
+def build_loop(variant: str = "bf16", streams: int = 96, cycles: int = 12, detector=CHECKPOINT, imgsz: int = 416,
+               device="cuda"):
+    """The flagship loop; returns ``run() -> wall seconds`` (one window of
+    ``cycles`` cycles, synchronised) and the engine parameters."""
+    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+    from wtracker_tpu_torch.neural.config import IOConfig
+    from wtracker_tpu_torch.sim.engine import run_engine_streams
+    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_stream_batch_fused
+    from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+    from wtracker_tpu_torch.tools.gates import ARENA, deployment_params, drift_views
+    from wtracker_tpu_torch.utils.device import resolve_device
+
+    if variant not in ("bf16", "int8"):
+        raise ValueError(f"variant must be 'bf16' or 'int8', not {variant!r}")
+    dev = resolve_device(device)
+    params = deployment_params()
+    cam, size = params.cam_w, (imgsz, imgsz)
+    n_frames = max(400, (cycles + 2) * params.cycle_n)
+    trajs = np.stack([make_trajectory(n_frames, ARENA, seed=i) for i in range(streams)])
+    init = np.tile([700, 700], (streams, 1))
+    predictor = make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), device=dev)
+    fused = YoloV8Detector.load(str(detector), imgsz=imgsz, device=dev).fuse()
+    n_views = streams * params.cycle_n
+    cfg = LiveLoopConfig(imgsz=size, conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=54.0,
+                         detect_chunks=pick_chunks(n_views, 360 if variant == "bf16" else 240))
+    if variant == "bf16":
+        ctl = make_stream_batch_fused(params, cfg, SyntheticScene(), trajs, fused.to(torch.bfloat16).model, predictor,
+                                      device=dev)
+    else:
+        from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns, quantize_detector
+
+        # calibrated on 32 views of stream 0's track (seed 0), as the JAX bench does
+        q = quantize_detector(fused.model, drift_views(0, 32, cam, dev), size)
+        qw = q.device_weights(dev)
+        detect, _ = make_detect_fns(q, src_hw=(params.cam_h, cam), imgsz=size, qw=qw)
+        ctl = make_stream_batch_fused(params, cfg, SyntheticScene(), trajs, Int8Detector(q, qw), predictor,
+                                      detect_fn=detect, device=dev)
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        logs = run_engine_streams(params, ctl, init, cycles, delayed_log=True, device=dev)
+        logs.positions.sum().item()  # waits for the window's last step
+        return time.perf_counter() - t0
+
+    return run, params
+
+
+def summarize(prof, wall_s: float, top: int = 12) -> dict:
+    """A profiled run's summary: the device's busy time, the union of the
+    intervals of its kernels, copies and fills (each counted once: the
+    operators' own device-time totals repeat their kernels' time), its share
+    of ``wall_s``, and the operators and kernels that take the most device
+    time.  A trace without device events lists operators by CPU time."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"
+    )
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    rows = list(prof.key_averages())
+    on_device = any(e.self_device_time_total > 0 for e in rows)
+
+    def listing(device_type):
+        key = (lambda e: e.self_device_time_total) if on_device else (lambda e: e.self_cpu_time_total)
+        picked = sorted((e for e in rows if e.device_type == device_type and key(e) > 0), key=lambda e: -key(e))[:top]
+        return [
+            {"name": e.key[:80], "calls": e.count, "device_ms": e.self_device_time_total * 1e-3,
+             "cpu_ms": e.self_cpu_time_total * 1e-3}
+            for e in picked
+        ]
+
+    return {
+        "wall_s": wall_s,
+        "device_events": len(spans),
+        "device_busy_s": busy_us * 1e-6,
+        "device_busy_share": busy_us * 1e-6 / wall_s,
+        "top_ops": listing(DeviceType.CPU),
+        "top_kernels": listing(DeviceType.CUDA),
+    }
+
+
+def profile_run(run, top: int = 12, trace_dir: str | None = None) -> dict:
+    """One more run of a loop (``run()`` returns its wall seconds) under
+    ``torch.profiler``, CPU and, where a card is visible, CUDA activities;
+    :func:`summarize`\\ d, and exported as a Chrome trace into ``trace_dir``
+    when given (``"trace"`` in the result)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=activities, acc_events=True) as prof:
+        wall_s = run()
+    out = summarize(prof, wall_s, top)
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        out["trace"] = os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(out["trace"])
+    return out
+
+
+def load_trace(path: str) -> dict:
+    """Read an exported Chrome trace (a file, or the newest ``*.json`` under a
+    directory): ``{"device_ms": summed device event time, "kernels": {name:
+    ms}, "ops": {name: ms}}``, kernels being the device events (kernels,
+    copies, fills) and ops the CPU operators (inclusive times)."""
+    if os.path.isdir(path):
+        found = sorted(glob.glob(os.path.join(path, "**", "*.json"), recursive=True), key=os.path.getmtime)
+        if not found:
+            raise FileNotFoundError(f"no torch.profiler trace (*.json) under {path}")
+        path = found[-1]
+    elif not os.path.isfile(path):
+        raise FileNotFoundError(f"no torch.profiler trace at {path}")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels: dict[str, float] = {}
+    ops: dict[str, float] = {}
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat = ev.get("cat")
+        table = kernels if cat in DEVICE_CATEGORIES else ops if cat == "cpu_op" else None
+        if table is not None:
+            table[ev["name"]] = table.get(ev["name"], 0.0) + float(ev.get("dur", 0.0)) * 1e-3
+    return {"device_ms": sum(kernels.values()), "kernels": kernels, "ops": ops}
+
+
+def trace(variant: str = "bf16", streams: int = 96, cycles: int = 12, top: int = 25, trace_dir: str | None = None,
+          detector=CHECKPOINT, imgsz: int = 416, device="cuda") -> dict:
+    """Builds the loop, runs a warm-up window, then one under the profiler:
+    the :func:`summarize` result with the busy ms per cycle and the device
+    ceiling in steps/s (streams x cycles x frames a cycle over busy time)."""
+    run, params = build_loop(variant, streams, cycles, detector, imgsz, device)
+    warm_s = run()
+    out = profile_run(run, top, trace_dir)
+    busy_ms = out["device_busy_s"] * 1e3
+    steps = streams * cycles * params.cycle_n
+    return {
+        "variant": variant, "streams": streams, "cycles": cycles, "device": str(device), "warmup_s": warm_s,
+        "busy_ms_per_cycle": busy_ms / cycles,
+        "device_ceiling_steps_per_s": steps / out["device_busy_s"] if busy_ms else None,
+        **out,
+    }
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("variant", nargs="?", default="bf16", choices=["bf16", "int8"])
+    ap.add_argument("--streams", type=int, default=96)
+    ap.add_argument("--cycles", type=int, default=12)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--trace-dir", help="export the Chrome trace into this directory")
+    ap.add_argument("--detector", default=str(CHECKPOINT), help="detector weights (.npz)")
+    ap.add_argument("--imgsz", type=int, default=416)
+    ap.add_argument("--device", default="cuda", help="torch device of the loop (default: cuda)")
+    args = ap.parse_args(argv)
+
+    out = trace(args.variant, args.streams, args.cycles, args.top, args.trace_dir, args.detector, args.imgsz, args.device)
+    print(f"{args.variant}, S={args.streams}, {args.cycles} cycles: wall {out['wall_s'] * 1e3:.1f} ms, device busy "
+          f"{out['device_busy_s'] * 1e3:.1f} ms ({out['device_busy_share']:.3f} of the wall), "
+          f"{out['busy_ms_per_cycle']:.2f} ms a cycle")
+    column = "device_ms" if out["device_events"] else "cpu_ms"
+    for title, rows in (("operators", out["top_ops"]), ("kernels", out["top_kernels"])):
+        total = sum(r[column] for r in rows) or 1.0
+        print(f"\ntop {len(rows)} {title} by {column}:")
+        for r in rows:
+            print(f"  {r[column]:9.3f} ms  {r[column] / total * 100:5.1f}%  x{r['calls']:<6d} {r['name']}")
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()
