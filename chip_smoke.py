@@ -33,13 +33,16 @@ live loop over many streams, at full width:
    synthetic loop;
 8. runs the video loop at the default ``fold_stem=None``, which folds the
    stem for the BN-fused detector and so launches the kernel 0 times;
-9. runs the synthetic flagship loop at the JAX package's bench
-   configuration (``bench.py``: S=96 streams, 360 px camera, 4 detect
-   sub-batches a cycle), cut to 12 cycles: one warm-up and three timed
-   runs, held to the trained-tracking bar; and in float32 at S=4 the folded
-   and standard stems give the same tracks;
-10. times the standalone 40 ms decision (``make_decision_step``) at S=1 and
-    S=4, 200 decisions each, host to synchronise and by CUDA events;
+9. runs the synthetic flagship loop as the bench builds it
+   (``tools/bench.py::build_flagship``, the port of the JAX package's
+   ``bench.py``: S=96 streams, 360 px camera, 4 detect sub-batches a
+   cycle), cut to 12 cycles: one warm-up and three timed runs, held to the
+   trained-tracking bar; and in float32 at S=4 the folded and standard
+   stems give the same tracks;
+10. times the standalone 40 ms decision (``make_decision_step``, the
+    bench's ``measure_decision_latency``) at S=1 and S=4, 200 decisions
+    each, host until the move is on the host and by one CUDA event pair a
+    decision;
 11. runs ROI streaming (``roi_window``) over the same recording at 480 and
     364 px (4 px of slack: chunks replay), through the kernel in bfloat16
     and float32 and at the default ``fold_stem=None``: each run bit-identical
@@ -180,10 +183,16 @@ live loop over many streams, at full width:
     against the CPU; every gate passes, K2 launches in the two int8 gates,
     K1 in none;
 39. runs ``tools/trace_profile.py`` in process on the bf16 synthetic loop at
-    S=8 x 2 cycles: a device busy share in (0, 1] and kernels listed.
+    S=8 x 2 cycles: a device busy share in (0, 1] and kernels listed;
+40. runs the bench's measurement (``tools/bench.py::_measure``) in process
+    at S=8 x 2 cycles, one timed window, 20 decisions a latency and 8 at the
+    250 ms cadence, bf16 and int8 (K1 0 launches, K2 62 a forward of every
+    int8 window and decision, two CUDA events recorded a timed decision),
+    then ``tools/bench_video.py::run`` over a 240-frame exp0 recording,
+    whole frames and ROI 512 px, in chunks of 4 cycles (K1 0 launches).
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 39 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 40 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -233,7 +242,6 @@ SYNTH_STREAMS = 96
 SYNTH_CHUNKS = 4  # 96 x 15 / 4 = 360 views a detect sub-batch, as bench.py picks
 SYNTH_CYCLES = 12
 SYNTH_TIMED_RUNS = 3
-DECISION_WARMUP = 10
 DECISION_REPS = 200
 # ROI streaming: windows of 480 px (60 px of slack around the camera) and of
 # 364 px (4 px: the speculation misses and chunks replay; a 364-byte row is
@@ -591,54 +599,49 @@ def check_folded_detect(model, model32, cpu_model, recording, cam: int, imgsz: i
 # ---------------------------------------------------------------------------
 
 
-def bench_setup():
-    """bench.py's geometry: 60 fps, 1400x1600 px arena, 90 px/mm, 4 mm
-    camera (360 px), 0.32 mm micro, timing 200/40/50 ms (12 + 3 frames a
-    cycle), headless frame bounds; returns (timing, params)."""
-    from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
-    from wtracker_tpu_torch.sim.engine import EngineParams, headless_frame_shape
+def bench_params():
+    """The bench's geometry (``tools/gates.py::deployment_params``, which
+    ``tools/bench.py::build_flagship`` builds on): 60 fps, 1400x1600 px
+    arena, 90 px/mm, 4 mm camera (360 px), timing 200/40/50 ms (12 + 3
+    frames a cycle), headless frame bounds."""
+    from wtracker_tpu_torch.tools.gates import deployment_params
 
-    exp = ExperimentConfig("bench", 60_000, 60, (1400, 1600), 90, (700, 700))
-    timing = TimingConfig(
-        experiment_config=exp, imaging_time_ms=200.0, pred_time_ms=40.0, moving_time_ms=50.0,
-        camera_size_mm=(4.0, 4.0), micro_size_mm=(0.32, 0.32),
-    )
-    params = EngineParams.from_timing(timing, headless_frame_shape(timing, exp.orig_resolution))
+    params = deployment_params()
     if not (params.cam_w == params.cam_h == 360 and params.cycle_n == 15):
         raise AssertionError(f"bench geometry changed: {params}")
-    return timing, params
+    return params
 
 
-def synthetic_loop(model, model32, predictor):
-    """The JAX package's flagship path at its bench configuration:
-    ``make_stream_batch_fused`` + ``run_engine_streams(delayed_log=True)``,
-    S=96 streams, YOLOv8s@416 bf16 with the folded stem (the default for
-    the BN-fused detector), 12 cycles.  Returns the phase's numbers and a
-    function that runs the loop once more and returns its wall seconds."""
+def synthetic_loop(model32):
+    """The flagship path at the bench's configuration, built by
+    ``tools/bench.py::build_flagship``: ``make_stream_batch_fused`` +
+    ``run_engine_streams(delayed_log=True)``, S=96 streams, YOLOv8s@416
+    bf16 with the folded stem (the default for the BN-fused detector), the
+    seeded ResMLP, 12 cycles.  Returns the phase's numbers, a function that
+    runs the loop once more and returns its wall seconds, and the bench's
+    context (phase 10 times its decision)."""
     from dataclasses import replace
 
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.sim.engine import run_engine_streams
-    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, _resolve_detect, make_stream_batch_fused
-    from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
+    from wtracker_tpu_torch.sim.engine_live import _resolve_detect, make_stream_batch_fused
+    from wtracker_tpu_torch.tools.bench import build_flagship
     from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
-    _, params = bench_setup()
     S = SYNTH_STREAMS
-    # bench.py draws 60,000-frame tracks; the first frames of these are the same
-    trajs = np.stack([make_trajectory(400, (1400, 1600), seed=i) for i in range(S)])
-    init = np.tile([700, 700], (S, 1))
-    cfg = LiveLoopConfig(
-        imgsz=(416, 416), conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=54.0, detect_chunks=SYNTH_CHUNKS
-    )
-    if not getattr(_resolve_detect(None, cfg, model, (params.cam_h, params.cam_w)), "folds_preproc", False):
+    ctx = build_flagship(S=S, n_cycles=SYNTH_CYCLES)
+    params, cfg, trajs = ctx.params, ctx.cfg, ctx.trajs
+    if params != bench_params():
+        raise AssertionError(f"the bench's geometry {params} is not the deployment geometry")
+    if cfg.detect_chunks != SYNTH_CHUNKS:
+        raise AssertionError(f"the bench picked {cfg.detect_chunks} detect sub-batches, not {SYNTH_CHUNKS}")
+    if not getattr(_resolve_detect(None, cfg, ctx.det_model, (params.cam_h, params.cam_w)), "folds_preproc", False):
         raise AssertionError("the bench configuration did not select the folded stem")
-    scene = SyntheticScene()
-    ctl = make_stream_batch_fused(params, cfg, scene, trajs, model, predictor, device="cuda")
+    ctl = ctx.make_ctl("bf16")
 
     def run(ctl=ctl, n_streams=S, n_cycles=SYNTH_CYCLES):
         t0 = time.perf_counter()
-        logs = run_engine_streams(params, ctl, init[:n_streams], n_cycles, delayed_log=True, device="cuda")
+        logs = run_engine_streams(params, ctl, ctx.init_pos[:n_streams], n_cycles, delayed_log=True, device="cuda")
         torch.cuda.synchronize()
         return logs, time.perf_counter() - t0
 
@@ -661,7 +664,7 @@ def synthetic_loop(model, model32, predictor):
     logs32 = {}
     for fold in (True, False):
         c = replace(cfg, fold_stem=fold, detect_chunks=1)
-        ctl32 = make_stream_batch_fused(params, c, scene, trajs[:4], model32, predictor, device="cuda")
+        ctl32 = make_stream_batch_fused(params, c, ctx.scene, trajs[:4], model32, ctx.predictor, device="cuda")
         logs32[fold] = run(ctl32, 4, 4)[0]
     pos32, box32 = log_diffs(logs32[True], logs32[False])
     if not (pos32 == 0 and box32 <= 1e-2):
@@ -671,8 +674,8 @@ def synthetic_loop(model, model32, predictor):
     out = {
         "streams": S,
         "cycles": SYNTH_CYCLES,
-        "detect_chunks": SYNTH_CHUNKS,
-        "views_per_sub_batch": S * params.cycle_n // SYNTH_CHUNKS,
+        "detect_chunks": cfg.detect_chunks,
+        "views_per_sub_batch": S * params.cycle_n // cfg.detect_chunks,
         "steps_per_s": S * SYNTH_CYCLES * params.cycle_n / wall,
         "cycles_per_s": SYNTH_CYCLES / wall,
         "warmup_s": warm_s,
@@ -682,68 +685,32 @@ def synthetic_loop(model, model32, predictor):
         "f32_fold_vs_standard_box_max_abs_diff": box32,
         **quality,
     }
-    return out, lambda: run()[1]
+    return out, lambda: run()[1], ctx
 
 
-def decision_latency(model, predictor, S: int) -> dict:
-    """``make_decision_step`` at S streams on inputs built as bench.py builds
-    them (k = 5 rendered views a stream around the worm): 10 warm-ups, then
-    200 decisions, each timed on the host from the call until its move is
-    on the host, and by CUDA events around the call (the device span)."""
-    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_decision_step
-    from wtracker_tpu_torch.sim.synthetic import SyntheticScene
+def decision_latency(ctx, S: int) -> dict:
+    """``tools/bench.py::measure_decision_latency`` of the bf16 decision
+    (``make_decision_step``) at S streams, on the bench's inputs (k = 5
+    rendered views a stream around the worm): 10 warm-ups, then 200
+    decisions, each timed on the host from the call until its move is on
+    the host, and by the span between CUDA events the host records around
+    the call).  Every move must be the same, and
+    within reach."""
+    from wtracker_tpu_torch.tools.bench import BUDGET_MS, measure_decision_latency
 
-    timing, params = bench_setup()
-    view_hw = (params.cam_h, params.cam_w)
-    cfg = LiveLoopConfig(imgsz=(416, 416), conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=54.0)
-    decide = make_decision_step(cfg, model, predictor, view_hw)
-
-    k = len(predictor.io_config.input_frames)
-    rng = np.random.default_rng(0)
-    cam_tl = rng.uniform(100, 900, (S, 2)).round().astype(np.float32)
-    worm = cam_tl[:, None] + [params.cam_w / 2, params.cam_h / 2] + rng.uniform(-8, 8, (S, k, 2))
-    cam_t = torch.from_numpy(cam_tl).cuda()
-    views = SyntheticScene().render_views(
-        torch.from_numpy(worm.reshape(S * k, 2).astype(np.float32)).cuda(),
-        cam_t.repeat_interleave(k, dim=0), view_hw, torch.arange(S * k, device="cuda"),
-    ).reshape(S, k, *view_hw)
-
-    for _ in range(DECISION_WARMUP):
-        decide(views, cam_t)
-    torch.cuda.synchronize()
-    host_ms, events, moves = [], [], []
-    for _ in range(DECISION_REPS):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e0.record()
-        move = decide(views, cam_t)
-        e1.record()
-        moves.append(move.cpu())  # waits for the move
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        events.append((e0, e1))
-    torch.cuda.synchronize()
-    device_ms = [a.elapsed_time(b) for a, b in events]
+    moves = []
+    out = measure_decision_latency(ctx, "bf16", S, DECISION_REPS, moves=moves)
+    if len(moves) != DECISION_REPS or "device" not in out:
+        raise AssertionError(f"decision latency at S={S}: {len(moves)} moves, {out}")
     move = moves[-1].numpy()
     # every decision the same; the move is the clipped MLP step plus the
     # newest detection's offset from the camera centre (<= 8 px + error)
     if move.shape != (S, 2) or move.dtype != np.int32 or any(not np.array_equal(m.numpy(), move) for m in moves):
         raise AssertionError(f"decision moves: {[m.tolist() for m in moves[:3]]}")
-    if not np.abs(move).max() <= cfg.max_dist_per_pred + 16:
+    if not np.abs(move).max() <= ctx.cfg.max_dist_per_pred + 16:
         raise AssertionError(f"decision move {move.tolist()} is out of reach")
-
-    def tails(a):
-        a = np.asarray(a)
-        return {"p50": float(np.percentile(a, 50)), "p95": float(np.percentile(a, 95)), "max": float(a.max())}
-
-    return {
-        "streams": S,
-        "views": S * k,
-        "budget_ms": timing.pred_time_ms,
-        "host_ms": tails(host_ms),
-        "device_span_ms": tails(device_ms),
-        "move": move.tolist(),
-    }
+    k = len(ctx.predictor.io_config.input_frames)
+    return {"streams": S, "views": S * k, "budget_ms": BUDGET_MS, **out, "move": move.tolist()}
 
 
 # ---------------------------------------------------------------------------
@@ -1634,7 +1601,7 @@ def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, cal
     from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
     from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
-    _, params = bench_setup()
+    params = bench_params()
     S = SYNTH_STREAMS
     trajs = np.stack([make_trajectory(400, (1400, 1600), seed=i) for i in range(S)])
     init = np.tile([700, 700], (S, 1))
@@ -2858,7 +2825,7 @@ def sharded_int8(q, qw, predictor) -> dict:
     from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
     from wtracker_tpu_torch.tools.gates import tracking_quality as closed_loop_quality
 
-    _, params = bench_setup()
+    params = bench_params()
     S, cycles = INT8_MESH_STREAMS, INT8_MESH_CYCLES
     trajs = np.stack([make_trajectory(400, (1400, 1600), seed=200 + i) for i in range(S)])
     init = np.tile([700, 700], (S, 1))
@@ -3216,6 +3183,97 @@ def trace_tool() -> dict:
     return out
 
 
+# phase 40: the bench's measurement in process at S=8 x 2 cycles, and the
+# video bench over a 240-frame exp0 recording in chunks of 4 cycles
+BENCH_ENV = {"BENCH_STREAMS": "8", "BENCH_CYCLES": "2", "BENCH_REPEATS": "1", "BENCH_INT8": "1",
+             "BENCH_LATENCY": "1", "BENCH_VIDEO": "0", "BENCH_WEIGHTS": "trained"}
+BENCH_LATENCY_N, BENCH_CADENCE_N = 20, 8
+BENCH_VIDEO_FRAMES, BENCH_VIDEO_CHUNK_CYCLES, BENCH_VIDEO_ROI = 240, 4, 512
+
+
+def bench_tools() -> dict:
+    """Phase 40: ``tools/bench.py``'s measurement (``_measure``, its JSON
+    line) in this process at S=8 x 2 cycles, one timed window, 20 decisions
+    a latency and 8 at the 250 ms cadence, bf16 and int8: K1 never launches,
+    K2 launches 62 times a forward of every int8 window and decision (and
+    nowhere else), and the four latencies record exactly two CUDA events
+    a timed decision (counted as they are recorded; nothing else in the
+    measurement records one).  Then ``tools/bench_video.py::run`` over a 240-frame recording of the exp0
+    geometry (written by ``tools/recording.py``), whole frames and ROI 512 px,
+    in chunks of 4 cycles: 0 K1 launches (the folded stem)."""
+    from wtracker_tpu_torch.tools import bench, bench_video, recording
+
+    class CountedEvent(torch.cuda.Event):
+        recorded = 0
+
+        def record(self, stream=None):
+            CountedEvent.recorded += 1
+            return super().record(stream)
+
+    saved = {k: os.environ.get(k) for k in BENCH_ENV}
+    os.environ.update(BENCH_ENV)
+    event_cls, torch.cuda.Event = torch.cuda.Event, CountedEvent
+    zero_hand_kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):  # the bench's line is this phase's, printed at the end
+            line = bench._measure(latency_n=BENCH_LATENCY_N, cadence_n=BENCH_CADENCE_N)
+    finally:
+        torch.cuda.Event = event_cls
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    measure_s = time.perf_counter() - t0
+    launches = hand_kernel_launches()
+    # int8 forwards: the warm-up and the timed window, each (cycles + 1)
+    # steps of chunks_int8 sub-batches (delayed logging steps once more);
+    # a decision per warm-up and timed call at S=1 and S=4, and the
+    # cadence's warm-up and calls
+    S, cycles = int(BENCH_ENV["BENCH_STREAMS"]), int(BENCH_ENV["BENCH_CYCLES"])
+    chunks8 = line["chunks"]["int8"]
+    forwards = ((1 + int(BENCH_ENV["BENCH_REPEATS"])) * (cycles + 1) * chunks8
+                + 2 * (bench.DECISION_WARMUP + BENCH_LATENCY_N) + 1 + BENCH_CADENCE_N)
+    if launches["crop_letterbox"] != 0 or launches["conv_s8"] != 62 * forwards:
+        raise AssertionError(f"the bench launched {launches}, expected K1 0 and K2 62 x {forwards}")
+    lat = line["latency_ms"]
+    for key in ("bf16_s1", "bf16_s4", "int8_s1", "int8_s4"):
+        if lat[key]["n"] != BENCH_LATENCY_N or "device" not in lat[key]:
+            raise AssertionError(f"bench latency {key}: {lat[key]}")
+    if CountedEvent.recorded != 2 * 4 * BENCH_LATENCY_N:
+        raise AssertionError(f"the bench recorded {CountedEvent.recorded} CUDA events for 4 x {BENCH_LATENCY_N} decisions")
+    if not (line["value"] > 0 and line["int8"]["value"] > 0 and line["card"] and "vs_baseline" not in line):
+        raise AssertionError(f"bench line: {line}")
+    if line["chunks"]["views_per_chunk_bf16"] * line["chunks"]["bf16"] != S * 15:
+        raise AssertionError(f"bench chunks: {line['chunks']}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_video_") as tmp:
+        frames = os.path.join(tmp, "frames")
+        made = recording.generate(frames, BENCH_VIDEO_FRAMES, seed=0)
+        zero_hand_kernel_launches()
+        t1 = time.perf_counter()
+        video = {
+            "whole": bench_video.run(frames, "bf16", chunk_cycles=BENCH_VIDEO_CHUNK_CYCLES),
+            "roi": bench_video.run(frames, "bf16", chunk_cycles=BENCH_VIDEO_CHUNK_CYCLES, roi=BENCH_VIDEO_ROI),
+        }
+        video_s = time.perf_counter() - t1
+    video_launches = hand_kernel_launches()
+    cycles_video = (BENCH_VIDEO_FRAMES - 1) // 15
+    for name, r in video.items():
+        if not (r["frames"] == BENCH_VIDEO_FRAMES and r["cycles"] == cycles_video and 0 <= r["decode_share"] <= 1
+                and r["value"] > 0):
+            raise AssertionError(f"video bench {name}: {r}")
+    if video["roi"]["roi"]["window_px"] != BENCH_VIDEO_ROI or video_launches != {"crop_letterbox": 0, "conv_s8": 0}:
+        raise AssertionError(f"video bench ROI {video['roi']}, launches {video_launches}")
+    return {
+        "bench": line, "launches": launches, "expected_conv_s8_forwards": forwards,
+        "cuda_events_recorded": CountedEvent.recorded, "measure_s": measure_s,
+        "video": video, "video_launches": video_launches, "recording": {k: made[k] for k in ("frames", "bytes", "seconds")},
+        "video_s": video_s,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card is visible; this script measures the port on the card only")
@@ -3386,14 +3444,15 @@ def main() -> int:
 
     # -- 9. the synthetic flagship loop --------------------------------------
     model32 = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cuda").fuse().model
-    synthetic, to_profile["synthetic"] = synthetic_loop(model, model32, predictor)
+    synthetic, to_profile["synthetic"], flagship = synthetic_loop(model32)
     del model32
     torch.cuda.empty_cache()
 
     # -- 10. the 40 ms decision ----------------------------------------------
-    decisions = [decision_latency(model, predictor, s) for s in (1, 4)]
+    decisions = [decision_latency(flagship, s) for s in (1, 4)]
+    del flagship
     for d in decisions:
-        log(f"decision S={d['streams']}: host {d['host_ms']} device {d['device_span_ms']} (budget {d['budget_ms']} ms)")
+        log(f"decision S={d['streams']}: host {d['e2e']} device {d['device']} (budget {d['budget_ms']} ms)")
 
     # -- 11. ROI streaming ---------------------------------------------------
     model32 = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cuda").fuse().model
@@ -3582,6 +3641,14 @@ def main() -> int:
     log(f"trace_profile: busy share {traced['device_busy_share']:.3f}, {traced['busy_ms_per_cycle']:.2f} ms a cycle; "
         f"phases 38-39 {tools_s:.1f} s")
 
+    # -- 40. the bench and the video bench ----------------------------------------
+    t0 = time.perf_counter()
+    benched = bench_tools()
+    bench_s = time.perf_counter() - t0
+    log(f"bench: bf16 {benched['bench']['value']} steps/s, int8 {benched['bench']['int8']['value']}, "
+        f"launches {benched['launches']}; video {benched['video']['whole']['value']} steps/s, ROI "
+        f"{benched['video']['roi']['value']}; phase 40 {bench_s:.1f} s")
+
     if profile:
         from wtracker_tpu_torch.tools.trace_profile import profile_run
 
@@ -3634,6 +3701,7 @@ def main() -> int:
                 ],
                 "launches_data_parallel": [dp["launches"]["crop_letterbox"], dp["command"]["launches"]["crop_letterbox"]],
                 "launches_gates": gated["launches"]["crop_letterbox"],
+                "launches_bench_video": [benched["launches"]["crop_letterbox"], benched["video_launches"]["crop_letterbox"]],
             },
             {
                 # one int8 forward at N=12 views: the sum over its 63 convolutions
@@ -3667,6 +3735,7 @@ def main() -> int:
                 "launches_sharded_int8": sharded8["conv_s8_launches"],
                 "launches_data_parallel": [dp["launches"]["conv_s8"], dp["command"]["launches"]["conv_s8"]],
                 "launches_gates": {k: gated["gates"][k]["launches"]["conv_s8"] for k in ("trained_int8_drift", "int8_drift_s416")},
+                "launches_bench": benched["launches"]["conv_s8"],
                 "design": k2_design(),
                 "sass": k2_sass,
                 "classes": k2["classes"],
@@ -3734,6 +3803,7 @@ def main() -> int:
     print(json.dumps({"data_parallel": {**dp, "phases_34_37_s": scale_out_s, "card": card}}))
     print(json.dumps({"detector_gates": {**gated, "card": card}}))
     print(json.dumps({"trace_profile": {**traced, "phases_38_39_s": tools_s, "card": card}}))
+    print(json.dumps({"bench_tools": {**benched, "phase_40_s": bench_s, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))

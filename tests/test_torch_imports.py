@@ -62,7 +62,8 @@ def test_package_has_the_slice_modules():
         "wtracker_tpu_torch.tools.make_synthetic_dataset", "wtracker_tpu_torch.tools.gates",
         "wtracker_tpu_torch.tools.run_gates", "wtracker_tpu_torch.tools.trace_profile",
         "wtracker_tpu_torch.tools.trace_diff", "wtracker_tpu_torch.tools.recording",
-        "wtracker_tpu_torch.tools.workflow_chain",
+        "wtracker_tpu_torch.tools.workflow_chain", "wtracker_tpu_torch.tools.bench",
+        "wtracker_tpu_torch.tools.bench_video",
     }
     assert want <= set(MODULES)
     assert (PKG / "csrc" / "crop_letterbox.cu").is_file()

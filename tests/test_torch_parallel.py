@@ -16,7 +16,13 @@ CPU.  The cases of ``tests/test_parallel.py``:
   per-slot factories: positions exact and boxes within 1e-3 px of JAX's
   sharded run (the stream tests' bars), the per-stream live loop equal to
   the port's one-device run;
-* the mixed-geometry sweep on a mesh: JAX's ``bboxes.csv`` text.
+* the mixed-geometry sweep on a mesh: JAX's ``bboxes.csv`` text;
+* the live mixed-geometry loop (``yolo_mlp_controller_hetero``, the fixture's
+  nano detector at 64 px) on two slots, a stream (and a camera size) a slot,
+  2 cycles, as ``__graft_entry__.py``'s dry run shards it, the controller
+  sliced per slot and from a per-slot factory: positions exact and boxes
+  within 1e-3 px of JAX's sharded run, and equal to the port's one-device
+  run.
 """
 
 import numpy as np
@@ -319,3 +325,34 @@ def test_per_stream_consts_stay_whole_on_a_mesh(setup):
     init = np.asarray(exp.init_position) + np.arange(S)[:, None] * np.array([4, -3])
     got = tm.run_engine_sharded(params_t, ctl, init, 6, _cpu_mesh(S))
     _assert_logs_equal(got, te.run_engine_streams(params_t, ctl, init, 6, device="cpu"))
+
+
+def test_live_hetero_loop_sharded_matches_jax(live):
+    (_, jmodel, jvars, jpred), (_, tmodel, tpred), _ = live
+    exps_j = [JaxExperimentConfig(**e) for e in EXPS]
+    exps_t = [ExperimentConfig(**e) for e in EXPS]
+    params_j, geom_j = jh.geometry_from_configs([JaxTimingConfig(experiment_config=e, **TIMING) for e in exps_j], exps_j)
+    params_t, geom_t = th.geometry_from_configs([TimingConfig(experiment_config=e, **TIMING) for e in exps_t], exps_t)
+    assert len(EXPS) == 2 and len({tuple(c) for c in np.asarray(geom_t.cam_size)}) == 2  # one camera size a slot
+    trajs = np.stack([make_trajectory(200, tuple(geom_t.bounds[i][::-1]), seed=40 + i) for i in range(2)])
+    init = np.asarray([e.init_position for e in exps_t])
+    ctl_j = jh.yolo_mlp_controller_hetero(params_j, geom_j, jl.LiveLoopConfig(**LOOP_KW), JaxScene(), trajs, jmodel,
+                                          jvars, jpred)
+    want = jm.run_engine_sharded(params_j, ctl_j, init, 2, jm.make_mesh(2), batched_controller=True)
+    cfg = tl.LiveLoopConfig(**LOOP_KW)
+    plain = th.yolo_mlp_controller_hetero(params_t, geom_t, cfg, SyntheticScene(), trajs, tmodel, tpred, device="cpu")
+
+    def factory(dev, lo, hi):
+        return th.yolo_mlp_controller_hetero(params_t, th.slice_geometry(geom_t, lo, hi), cfg, SyntheticScene(),
+                                             trajs[lo:hi], tmodel, tpred, device=dev)
+
+    one = te.run_engine_streams(params_t, plain, init, 2, batched_controller=True, device="cpu")
+    for ctl in (plain, factory):
+        got = tm.run_engine_sharded(params_t, ctl, init, 2, _cpu_mesh(2), batched_controller=True)
+        assert tuple(got.positions.shape) == (2, 2, params_t.cycle_n, 2)
+        np.testing.assert_array_equal(got.positions.numpy(), np.asarray(want.positions))
+        b_got, b_want = got.worm_bboxes.numpy(), np.asarray(want.worm_bboxes)
+        np.testing.assert_array_equal(np.isnan(b_got), np.isnan(b_want))
+        assert np.isfinite(b_got).any()
+        np.testing.assert_allclose(b_got, b_want, atol=1e-3)
+        _assert_logs_equal(got, one)

@@ -151,6 +151,19 @@ def _stream_consts(geometry: StreamGeometry, dev: torch.device) -> dict:
     }
 
 
+def _view_geometry(geom_id, cam_wh, n: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Geometry ids (S, n) and int32 (w, h) content extents (S, n, 2) of S
+    streams × n views, stream-major (a mesh slot slices the leading axis)."""
+    ids = torch.tensor(np.repeat(np.asarray(geom_id)[:, None], n, axis=1), device=dev)
+    return ids, torch.tensor(np.repeat(np.asarray(cam_wh)[:, None], n, axis=1), dtype=torch.int32, device=dev)
+
+
+def _flat_views(views: tuple[torch.Tensor, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-view geometry of :func:`_view_geometry`, one row a view."""
+    ids, wh = views
+    return ids.reshape(-1), wh.reshape(-1, 2)
+
+
 def csv_controller_hetero(
     csv_data: np.ndarray, params: EngineParams, geometry: StreamGeometry, device: str | torch.device = "cuda"
 ) -> CycleController:
@@ -208,7 +221,11 @@ def yolo_mlp_controller_hetero(
       detector sees one (B, imgsz, imgsz, 3) batch and runs its standard
       forward (no folded stem, no crop+letterbox kernel);
     * the decision and logging math uses per-stream camera sizes, and the
-      platform clamps to per-stream arena bounds.
+      platform clamps to per-stream arena bounds;
+    * every per-stream tensor is in ``consts`` or the state, so
+      ``run_engine_sharded(..., batched_controller=True)`` runs the
+      controller on a mesh whose slots share its device, each slot on its
+      slice of the streams.
 
     Args:
         config: a :class:`~wtracker_tpu_torch.sim.engine_live.LiveLoopConfig`
@@ -246,21 +263,20 @@ def yolo_mlp_controller_hetero(
     scales = torch.tensor([g[0] for g in geoms], dtype=torch.float32, device=dev)
     pads = torch.tensor([[g[2], g[1]] for g in geoms], dtype=torch.float32, device=dev)  # (G, 2) as (left, top)
 
+    # every per-stream tensor is in consts (or the state), so that a mesh
+    # slot running this controller on its share of the streams slices them
     consts = {
         "cam_mid": torch.tensor(cam_wh, dtype=torch.float32, device=dev) / 2,  # (S, 2)
+        # geometry ids and (w, h) content extents of each stream's views,
+        # shaped (S, n) and (S, n, 2) for the IM imaging and MV moving views
+        "views_im": _view_geometry(geom_id, cam_wh, IM, dev),
+        "views_mv": _view_geometry(geom_id, cam_wh, MV, dev),
         **_stream_consts(geometry, dev),
     }
     gt0 = torch.tensor(np.asarray(gt_trajs), dtype=torch.float32, device=dev)
     input_frames = torch.tensor(predictor.io_config.input_frames, dtype=torch.int64, device=dev)
     arange_im = torch.arange(IM, device=dev)
     arange_mv = torch.arange(MV, device=dev)
-
-    def per_view(n: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Geometry ids and (w, h) content extents of S streams × n frames."""
-        ids = torch.tensor(np.repeat(geom_id, n), device=dev)
-        return ids, torch.tensor(np.repeat(cam_wh, n, axis=0), dtype=torch.int32, device=dev)
-
-    views_im, views_mv = per_view(IM), per_view(MV)
 
     def render_detect(worm_xy, cam_tls, fidx, gids, content_whs):
         views = scene.render_views(worm_xy, cam_tls.to(torch.float32), canvas_hw, fidx, content_whs=content_whs)
@@ -273,9 +289,9 @@ def yolo_mlp_controller_hetero(
         return _shift_boxes(out, cam_tls)
 
     def detect_flat(idx, cam_tls, gt, views):
-        n = idx.shape[0]
-        worm_xy = gt[:, idx.clamp(0, gt.shape[1] - 1), :].reshape(S * n, 2)
-        return _sub_batches(render_detect, config.detect_chunks, worm_xy, cam_tls, idx.repeat(S), *views)
+        n_streams, n = gt.shape[0], idx.shape[0]
+        worm_xy = gt[:, idx.clamp(0, gt.shape[1] - 1), :].reshape(n_streams * n, 2)
+        return _sub_batches(render_detect, config.detect_chunks, worm_xy, cam_tls, idx.repeat(n_streams), *views)
 
     def init():
         return {
@@ -287,7 +303,8 @@ def yolo_mlp_controller_hetero(
     def decide(consts, state, ctx: DecideCtx):
         idx = ctx.cycle * L + arange_im
         cam_tl = ctx.position - consts["cam_half"]  # (S, 2)
-        boxes = detect_flat(idx, cam_tl.repeat_interleave(IM, dim=0), state["gt"], views_im).reshape(S, IM, 4)
+        boxes = detect_flat(idx, cam_tl.repeat_interleave(IM, dim=0), state["gt"], _flat_views(consts["views_im"]))
+        boxes = boxes.reshape(-1, IM, 4)
         ring = _ring_set(state["ring"], idx % R, boxes)
 
         kickoff = ctx.cycle * L + IM - params.pred_n
@@ -301,12 +318,14 @@ def yolo_mlp_controller_hetero(
 
     def predict_all(consts, state, cycle_idx, positions):
         imaging = state["stash"].to(torch.float64)
+        n_streams = imaging.shape[0]
         if not config.log_mode:
-            moving = torch.full((S, MV, 4), torch.nan, dtype=torch.float64, device=dev)
+            moving = torch.full((n_streams, MV, 4), torch.nan, dtype=torch.float64, device=dev)
         else:
             idx = cycle_idx * L + IM + arange_mv
-            cam_tls = (positions[:, IM:, :] - consts["cam_half"][:, None, :]).reshape(S * MV, 2)
-            moving = detect_flat(idx, cam_tls, state["gt"], views_mv).reshape(S, MV, 4).to(torch.float64)
+            cam_tls = (positions[:, IM:, :] - consts["cam_half"][:, None, :]).reshape(n_streams * MV, 2)
+            moving = detect_flat(idx, cam_tls, state["gt"], _flat_views(consts["views_mv"]))
+            moving = moving.reshape(n_streams, MV, 4).to(torch.float64)
         return torch.cat([imaging, moving], dim=1)
 
     return CycleController(init=init, decide=decide, predict_all=predict_all, consts=consts)

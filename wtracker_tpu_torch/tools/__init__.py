@@ -9,7 +9,10 @@
 - :mod:`.trace_diff`: where the device time moved between two traces;
 - :mod:`.recording`: renders an exp0-geometry recording as BMP frames;
 - :mod:`.workflow_chain`: times initialize → track → analyse → visualize
-  through the commands and writes ``WORKFLOW_CHAIN_TORCH.json``.
+  through the commands and writes ``WORKFLOW_CHAIN_TORCH.json``;
+- :mod:`.bench`: the headline bench, one JSON line (synthetic closed loop
+  steps/s, int8, decision latency and cadence; card only);
+- :mod:`.bench_video`: the real-video loop from a BMP recording on disk.
 """
 
 from __future__ import annotations

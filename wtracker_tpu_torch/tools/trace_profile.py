@@ -1,9 +1,10 @@
 """Device-trace profiler of the synthetic closed loop (bf16 or int8).
 
 Port of the JAX package's ``tools/trace_profile.py`` onto ``torch.profiler``:
-it builds the flagship loop (``make_stream_batch_fused`` at the bench
-geometry: S streams, 360 px camera, the trained YOLOv8s@416 BN-fused with
-the folded stem, the seeded ResMLP), runs one window to warm up and one
+it builds the flagship loop with the bench's builder
+(:func:`wtracker_tpu_torch.tools.bench.build_flagship`: S streams, 360 px
+camera, the trained YOLOv8s@416 BN-fused with the folded stem, the
+reference's ResMLP or a seeded one), runs one window to warm up and one
 under the profiler, and reports
 
 - the device's busy share of the window's wall time and its busy ms per
@@ -30,67 +31,11 @@ import json
 import os
 import time
 
-import numpy as np
 import torch
 
 from wtracker_tpu_torch.tools import CHECKPOINT
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")  # device events of an exported trace
-
-
-def pick_chunks(n_views: int, target_views: int) -> int:
-    """The divisor of ``n_views`` whose sub-batch lands nearest
-    ``target_views`` (the JAX bench's measured knees: 360 views bf16, 240
-    int8)."""
-    return min((d for d in range(1, n_views + 1) if n_views % d == 0), key=lambda d: abs(n_views / d - target_views))
-
-
-def build_loop(variant: str = "bf16", streams: int = 96, cycles: int = 12, detector=CHECKPOINT, imgsz: int = 416,
-               device="cuda"):
-    """The flagship loop; returns ``run() -> wall seconds`` (one window of
-    ``cycles`` cycles, synchronised) and the engine parameters."""
-    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor
-    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
-    from wtracker_tpu_torch.neural.config import IOConfig
-    from wtracker_tpu_torch.sim.engine import run_engine_streams
-    from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig, make_stream_batch_fused
-    from wtracker_tpu_torch.sim.synthetic import SyntheticScene, make_trajectory
-    from wtracker_tpu_torch.tools.gates import ARENA, deployment_params, drift_views
-    from wtracker_tpu_torch.utils.device import resolve_device
-
-    if variant not in ("bf16", "int8"):
-        raise ValueError(f"variant must be 'bf16' or 'int8', not {variant!r}")
-    dev = resolve_device(device)
-    params = deployment_params()
-    cam, size = params.cam_w, (imgsz, imgsz)
-    n_frames = max(400, (cycles + 2) * params.cycle_n)
-    trajs = np.stack([make_trajectory(n_frames, ARENA, seed=i) for i in range(streams)])
-    init = np.tile([700, 700], (streams, 1))
-    predictor = make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), device=dev)
-    fused = YoloV8Detector.load(str(detector), imgsz=imgsz, device=dev).fuse()
-    n_views = streams * params.cycle_n
-    cfg = LiveLoopConfig(imgsz=size, conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=54.0,
-                         detect_chunks=pick_chunks(n_views, 360 if variant == "bf16" else 240))
-    if variant == "bf16":
-        ctl = make_stream_batch_fused(params, cfg, SyntheticScene(), trajs, fused.to(torch.bfloat16).model, predictor,
-                                      device=dev)
-    else:
-        from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns, quantize_detector
-
-        # calibrated on 32 views of stream 0's track (seed 0), as the JAX bench does
-        q = quantize_detector(fused.model, drift_views(0, 32, cam, dev), size)
-        qw = q.device_weights(dev)
-        detect, _ = make_detect_fns(q, src_hw=(params.cam_h, cam), imgsz=size, qw=qw)
-        ctl = make_stream_batch_fused(params, cfg, SyntheticScene(), trajs, Int8Detector(q, qw), predictor,
-                                      detect_fn=detect, device=dev)
-
-    def run() -> float:
-        t0 = time.perf_counter()
-        logs = run_engine_streams(params, ctl, init, cycles, delayed_log=True, device=dev)
-        logs.positions.sum().item()  # waits for the window's last step
-        return time.perf_counter() - t0
-
-    return run, params
 
 
 def summarize(prof, wall_s: float, top: int = 12) -> dict:
@@ -182,11 +127,20 @@ def trace(variant: str = "bf16", streams: int = 96, cycles: int = 12, top: int =
     """Builds the loop, runs a warm-up window, then one under the profiler:
     the :func:`summarize` result with the busy ms per cycle and the device
     ceiling in steps/s (streams x cycles x frames a cycle over busy time)."""
-    run, params = build_loop(variant, streams, cycles, detector, imgsz, device)
+    from wtracker_tpu_torch.tools.bench import build_flagship
+
+    ctx = build_flagship(S=streams, n_cycles=cycles, detector=detector, imgsz=imgsz, device=device)
+    ctl = ctx.make_ctl(variant)
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        ctx.run(ctl).positions.sum().item()  # waits for the window's last step
+        return time.perf_counter() - t0
+
     warm_s = run()
     out = profile_run(run, top, trace_dir)
     busy_ms = out["device_busy_s"] * 1e3
-    steps = streams * cycles * params.cycle_n
+    steps = ctx.steps
     return {
         "variant": variant, "streams": streams, "cycles": cycles, "device": str(device), "warmup_s": warm_s,
         "busy_ms_per_cycle": busy_ms / cycles,
