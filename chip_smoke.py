@@ -5,8 +5,10 @@ Drives the port's main paths, the real-video tracking loop and the synthetic
 live loop over many streams, at full width:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every hand-written kernel from ``wtracker_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together), prints the compiler's
+2. builds every hand-written kernel from ``wtracker_tpu_torch/csrc`` (K1,
+   K2 and the float64 polyfit K3; one ``nvcc`` per source, all started
+   together; K3's, first needed in phase 14, finishes beside phases 3-13),
+   prints the compiler's
    register report, and counts the int8 convolution's tensor-core
    instructions in its library (``cuobjdump -sass``: wgmma, no ``__dp4a``);
 3. holds each kernel against its plain PyTorch version on the card, at the
@@ -40,9 +42,9 @@ live loop over many streams, at full width:
    trained-tracking bar; and in float32 at S=4 the folded and standard
    stems give the same tracks;
 10. times the standalone 40 ms decision (``make_decision_step``, the
-    bench's ``measure_decision_latency``) at S=1 and S=4, 200 decisions
-    each, host until the move is on the host and by one CUDA event pair a
-    decision;
+    bench's ``measure_decision_latency``) at S=1 and S=4, 30 decisions
+    each, host until the move is on the host, then each of 30 more
+    decisions' card busy time from a ``torch.profiler`` trace;
 11. runs ROI streaming (``roi_window``) over the same recording at 480 and
     364 px (4 px of slack: chunks replay), through the kernel in bfloat16
     and float32 and at the default ``fold_stem=None``: each run bit-identical
@@ -62,12 +64,12 @@ live loop over many streams, at full width:
     bfloat16: within 2 px), and its stream-cycles/s;
 14. replays a seeded 61,200-frame worm log at the deployment configuration
     (4,079 cycles) through the csv, optimal, polyfit and mlp controllers and
-    the step motor (cycles/s each; polyfit over its first 1,000 cycles),
-    polyfit over the first 250 of them through ``python -m
-    wtracker_tpu_torch.workflows.simulate`` (the same rows), and every run
-    once more on the CPU over its first 1,000 cycles, beside the command:
-    the same ``bboxes.csv`` rows (mlp: equal positions in >= 99.9 % of
-    frames, none more than 2 px apart);
+    the step motor (cycles/s each, every cycle; polyfit launches K3 once a
+    cycle, the others never), polyfit over the first 250 of them through
+    ``python -m wtracker_tpu_torch.workflows.simulate`` (the same rows), and
+    every run once more on the CPU over every cycle beside the command
+    (polyfit in a child process): the same ``bboxes.csv`` text (mlp: equal
+    positions in >= 99.9 % of frames, none more than 2 px apart);
 15. runs ``python -m wtracker_tpu_torch.workflows.sweep`` over
     configs/exp0-exp4 (mixed geometry, each at its own length), each
     experiment equal to its single-stream run (made beside the command), then 96 streams of the
@@ -97,8 +99,8 @@ live loop over many streams, at full width:
 22. runs ``track_video`` with the int8 artifact on the BMPs, held to the
     tracking bar, beside phase 23's commands;
 23. runs ``python -m wtracker_tpu_torch.workflows.simulate --backend host``
-    (the hook-based simulator) over phase 14's worm log, uncut but polyfit
-    (its first 1,000 cycles), with the csv, optimal, polyfit and mlp
+    (the hook-based simulator) over phase 14's whole worm log, with the
+    csv, optimal, polyfit and mlp
     controllers (four commands at once): each ``bboxes.csv`` is phase
     14's engine text row for row (mlp: differing rows counted, held to
     phase 14's bar), with wall time and the loop's cycles/s;
@@ -110,7 +112,7 @@ live loop over many streams, at full width:
     loads it back (state dict and 12-view logits identical to the ``.npz``
     load's), runs ``track_video --detector X.pt`` on phase 12's BMPs (phase
     12's CSV byte for byte), and times one ``WeightEvaluator.eval`` on the
-    card over phase 14's log (the CPU's value exactly);
+    card over phase 14's log (the CPU's value exactly; K3 once a call);
 26. computes the background of a seeded 1,024-frame recording at full size
     as the per-pixel median of 1,000 probes (``BGExtractor`` on the card:
     numpy's median on three bands of rows, the static background at >=
@@ -141,8 +143,9 @@ live loop over many streams, at full width:
     itself (2 epochs, run beside the CPU's epochs) whose ``.npz`` loads in
     ``load_predictor``;
 31. runs the particle swarm (pop 100) over phase 14's log: ms an epoch,
-    the card's first 20 epochs of history equal to the CPU's bit for bit,
-    and the ``polyfit_optimizer`` command at its defaults (300 epochs);
+    the card's first 20 epochs of history equal to the CPU's bit for bit
+    (K3 once an epoch on the card), and the ``polyfit_optimizer`` command at
+    its defaults (300 epochs);
 32. runs ``yolo_training`` at full width (YOLOv8s, 384 px, batch 72, the
     full recipe with augmentation on) over 432 rendered worm images written
     as PNGs with exact YOLO labels (72 held out: 5 steps an epoch), 3
@@ -153,8 +156,8 @@ live loop over many streams, at full width:
     memory; one step from the same weights on the card and on the CPU
     (augmentation off), in float32 and float64, agrees, gradients
     included; one recipe step runs under ``torch.profiler``;
-33. phases 30-32 launch neither hand kernel (each command counted in its
-    own process);
+33. phases 30-32 launch neither K1 nor K2, and K3 only in phase 31's swarm
+    (each command counted in its own process);
 34. runs ``run_video_live_sharded`` over phase 13's recordings on a mesh of
     two slots on the card (``parallel/mesh.py``; each slot's slice of a
     chunk uploaded to its own device), through K1 (``fold_stem=False``: 2
@@ -186,13 +189,26 @@ live loop over many streams, at full width:
     S=8 x 2 cycles: a device busy share in (0, 1] and kernels listed;
 40. runs the bench's measurement (``tools/bench.py::_measure``) in process
     at S=8 x 2 cycles, one timed window, 20 decisions a latency and 8 at the
-    250 ms cadence, bf16 and int8 (K1 0 launches, K2 62 a forward of every
-    int8 window and decision, two CUDA events recorded a timed decision),
-    then ``tools/bench_video.py::run`` over a 240-frame exp0 recording,
-    whole frames and ROI 512 px, in chunks of 4 cycles (K1 0 launches).
+    250 ms cadence, bf16 and int8 (K1 and K3 0 launches, K2 62 a forward of
+    every int8 window and decision; each latency's 20 traced calls with a
+    card busy time in (0, the call's host time]), then
+    ``tools/bench_video.py::run`` over a 240-frame exp0 recording, whole
+    frames and ROI 512 px, in chunks of 4 cycles (no hand kernel);
+41. (run right after phase 14) holds K3 against its plain version on the
+    card, 0 differing bits, on the polyfit replay's first 20 fits and on
+    seeded fits of degree 1-5 (y one column or two, one weighting or 100,
+    zero weights, all masked, rank-deficient), and times K3, the plain
+    version, ``torch.linalg.eigh`` of the same normal matrices and an empty
+    kernel at the replay's shape and the swarm's, beside the bound;
+42. (in a child process, beside phases 27-29) kills and resumes the
+    detector recipe on the card at the CPU test's size (YOLOv8n, 64 px, 3
+    epochs): two uninterrupted runs with the card's default kernels (their
+    spread: not bit-equal), then with torch's deterministic algorithms two
+    uninterrupted runs and the resumed one, all three bit-equal (weights,
+    EMA weights, loss, mAP50, checkpoints).
 
 Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 40 (with ``--profile``, one more of ``torch.profiler`` runs of
+of steps 7 to 42 (with ``--profile``, one more of ``torch.profiler`` runs of
 the loops, made after every timed phase), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
@@ -225,6 +241,7 @@ CHECKPOINT = ROOT / "models" / "yolov8s_worm416.npz"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
+PEAK_F64_OPS_PER_S = 34e12  # float64 outside the tensor cores (K3's rounding needs the plain units)
 # crop_letterbox work per output pixel: three 2-tap lerps (sub, mul, add each)
 # and the 1/255 scale
 OPS_PER_OUTPUT_PIXEL = 10
@@ -242,7 +259,7 @@ SYNTH_STREAMS = 96
 SYNTH_CHUNKS = 4  # 96 x 15 / 4 = 360 views a detect sub-batch, as bench.py picks
 SYNTH_CYCLES = 12
 SYNTH_TIMED_RUNS = 3
-DECISION_REPS = 200
+DECISION_REPS = 30  # each traced decision costs ~0.1 s of torch.profiler's host work
 # ROI streaming: windows of 480 px (60 px of slack around the camera) and of
 # 364 px (4 px: the speculation misses and chunks replay; a 364-byte row is
 # not a multiple of 16 bytes)
@@ -254,15 +271,12 @@ STREAMS = 4
 STREAM_CYCLES = 8
 STREAM_CHUNK_CYCLES = 4
 # replay at the deployment configuration: every logged cycle of its 61,200
-# frames (4,079); the simulate command's default polyfit sample times;
-# polyfit (in process on the card and the CPU, and phase 23's host polyfit
-# and mlp commands) is cut to the first 500 cycles, the simulate command to
-# the first 250 (its text the first rows of the in-process run's);
-# --profile traces a cut of 200 cycles (a polyfit cycle is ~1,500 launches)
+# frames (4,079), on the card, for polyfit on the CPU too and in phase 23's
+# host commands; the simulate command's default polyfit sample times; the
+# simulate command cut to the first 250 cycles (its text the first rows of
+# the in-process run's); --profile traces a cut of 200 cycles
 REPLAY_POLYFIT_TIMES = (-15, -10, -5, 0, 3)
-REPLAY_POLYFIT_TIMED_CYCLES = 500
 REPLAY_CLI_CYCLES = 250
-REPLAY_CPU_CYCLES = 1000  # every controller's rerun on the CPU: its first cycles, cut for time
 PROFILE_REPLAY_CYCLES = 200
 SWEEP_STREAMS = 96
 # the mixed-geometry live loop: 6 streams of each of exp0-exp4 (30 streams,
@@ -295,6 +309,14 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # kernels: build, check against the plain version, time
 # ---------------------------------------------------------------------------
+
+
+def log_nvcc(reports: dict) -> None:
+    """Each built kernel's register, spill and error lines of ``-Xptxas -v``."""
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
+                log(f"nvcc {name}: {line.strip()}")
 
 
 def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> float:
@@ -691,11 +713,11 @@ def synthetic_loop(model32):
 def decision_latency(ctx, S: int) -> dict:
     """``tools/bench.py::measure_decision_latency`` of the bf16 decision
     (``make_decision_step``) at S streams, on the bench's inputs (k = 5
-    rendered views a stream around the worm): 10 warm-ups, then 200
-    decisions, each timed on the host from the call until its move is on
-    the host, and by the span between CUDA events the host records around
-    the call).  Every move must be the same, and
-    within reach."""
+    rendered views a stream around the worm): 10 warm-ups, then
+    DECISION_REPS decisions, each timed on the host from the call until its
+    move is on the host, then as many more traced, each one's card busy
+    time.  Every move
+    must be the same, and within reach."""
     from wtracker_tpu_torch.tools.bench import BUDGET_MS, measure_decision_latency
 
     moves = []
@@ -993,38 +1015,27 @@ def cuda_sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
-    """Phase 14: ``run_engine`` with the csv, optimal, polyfit (degree 2 at
-    [-15, -10, -5, 0, 3]) and mlp (the seeded predictor) controllers and the
-    csv controller on the step motor, at the deployment configuration over a
-    seeded 61,200-frame worm log: cycles/s a controller (after a 20-cycle
-    warm-up; polyfit's timed run over its first REPLAY_POLYFIT_TIMED_CYCLES
-    cycles), polyfit over the first REPLAY_CLI_CYCLES of them through
-    ``python -m wtracker_tpu_torch.workflows.simulate`` with the experiment
-    cut to them (wall time; the timed run's first rows), and, beside the
-    command, the same runs on the CPU over their first REPLAY_CPU_CYCLES
-    cycles: csv, optimal, polyfit and step give the card's first rows of
-    ``bboxes.csv`` text, mlp equal positions in >= 99.9 % of frames and
-    none 2 px apart.
-    Returns the phase's numbers and, for ``--profile``, a function per
-    profiled controller that runs PROFILE_REPLAY_CYCLES cycles."""
-    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor, save_predictor
-    from wtracker_tpu_torch.neural.config import IOConfig
-    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+REPLAY_NAMES = ("csv", "optimal", "polyfit", "mlp", "csv_step")
+
+
+def replay_setup(tmp: Path, table: np.ndarray | None = None):
+    """Phase 14's configuration: its configs, the worm log (``table``, or
+    ``tmp/worm.csv`` read back as the commands read it), the headless
+    frame shape, the logged cycles and a controller builder ``build(name,
+    device, predictor)`` for :data:`REPLAY_NAMES`."""
+    import pandas as pd
+
     from wtracker_tpu_torch.sim import engine as te
     from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
 
     exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
     exp, timing = ExperimentConfig.load_json(str(exp_path)), TimingConfig.load_json(str(timing_path))
-    table = worm_csv(tmp / "worm.csv", exp.num_frames, tuple(exp.orig_resolution), SEED)
+    if table is None:
+        table = pd.read_csv(tmp / "worm.csv")[WORM_COLS].to_numpy(dtype=float)
     frame_hw = te.headless_frame_shape(timing, exp.orig_resolution)
     n = te.EngineParams.from_timing(timing, frame_hw).n_logged_cycles(exp.num_frames)
-    predictors = {
-        dev: make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), seed=SEED, device=dev) for dev in {device, "cpu"}
-    }
-    save_predictor(predictors["cpu"], str(tmp / "predictor.npz"))  # phase 23's mlp
 
-    def build(name: str, dev: str):
+    def build(name: str, dev: str, predictor=None):
         params = te.EngineParams.from_timing(timing, frame_hw, motor="step" if name == "csv_step" else "sine")
         if name in ("csv", "csv_step"):
             return params, te.csv_controller(table, params, device=dev)
@@ -1033,26 +1044,89 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         if name == "polyfit":
             times = np.array(REPLAY_POLYFIT_TIMES)
             return params, te.polyfit_controller(table, params, times, np.ones(len(times)), 2, device=dev)
-        pred = predictors[dev]
-        bound = te.mlp_max_dist_per_pred(timing, pred.io_config)
-        return params, te.mlp_controller(table, params, pred, bound, device=dev)
+        bound = te.mlp_max_dist_per_pred(timing, predictor.io_config)
+        return params, te.mlp_controller(table, params, predictor, bound, device=dev)
+
+    return exp, table, n, build
+
+
+def cpu_polyfit_replay(tmp: str) -> int:
+    """Phase 14's polyfit replay over every cycle on the CPU, in a child
+    process (``chip_smoke.py --cpu-polyfit TMP``) beside the phase's other
+    CPU reruns: writes ``cpu_polyfit.csv`` and prints its cycles and
+    seconds."""
+    from wtracker_tpu_torch.sim import engine as te
+
+    torch.set_num_threads(1)  # one fit is a few hundred tiny ops: threads only contend
+    tmp = Path(tmp)
+    exp, _, n, build = replay_setup(tmp)
+    params, ctl = build("polyfit", "cpu")
+    t0 = time.perf_counter()
+    logs = te.run_engine(params, ctl, exp.init_position, n, device="cpu")
+    seconds = time.perf_counter() - t0
+    (tmp / "cpu_polyfit.csv").write_text(te.logs_to_frame(params, logs).to_csv(index=False))
+    print(json.dumps({"cycles": n, "seconds": seconds}))
+    return 0
+
+
+def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict, list]:
+    """Phase 14: ``run_engine`` with the csv, optimal, polyfit (degree 2 at
+    [-15, -10, -5, 0, 3]) and mlp (the seeded predictor) controllers and the
+    csv controller on the step motor, at the deployment configuration over a
+    seeded 61,200-frame worm log: cycles/s a controller over every cycle
+    (after a 20-cycle warm-up), K3 launched once a polyfit cycle and never
+    by the others; polyfit over the first REPLAY_CLI_CYCLES cycles through
+    ``python -m wtracker_tpu_torch.workflows.simulate`` with the experiment
+    cut to them (wall time; the timed run's first rows), and, beside the
+    command, the same runs on the CPU over every cycle: polyfit in a child
+    process (:func:`cpu_polyfit_replay`, started after the card's runs, so
+    that no timed card run shares the host with it), the others in this
+    one.  csv, optimal, polyfit and step give the card's ``bboxes.csv``
+    text, mlp equal positions in >= 99.9 % of frames and none 2 px apart.
+    Returns the phase's numbers, for ``--profile`` a function per profiled
+    controller that runs PROFILE_REPLAY_CYCLES cycles, and the (x, y, w) of
+    the polyfit warm-up's fits on the card (phase 41 holds K3 to them)."""
+    from wtracker_tpu_torch.models.resmlp import make_rmlp_predictor, save_predictor
+    from wtracker_tpu_torch.neural.config import IOConfig
+    from wtracker_tpu_torch.sim import engine as te
+
+    exp = json.loads((ROOT / "configs" / "exp_config.json").read_text())
+    table = worm_csv(tmp / "worm.csv", exp["num_frames"], tuple(exp["orig_resolution"]), SEED)
+    exp_cfg, _, n, build = replay_setup(tmp, table)
+    predictors = {
+        dev: make_rmlp_predictor(IOConfig([0, -3, -6, -9, -12], [3]), seed=SEED, device=dev) for dev in {device, "cpu"}
+    }
+    save_predictor(predictors["cpu"], str(tmp / "predictor.npz"))  # phase 23's mlp
 
     def run(name: str, dev: str, n_cycles: int = n):
-        params, ctl = build(name, dev)
+        params, ctl = build(name, dev, predictors[dev])
         t0 = time.perf_counter()
-        logs = te.run_engine(params, ctl, exp.init_position, n_cycles, device=dev)
+        logs = te.run_engine(params, ctl, exp_cfg.init_position, n_cycles, device=dev)
         cuda_sync(dev)
         return params, logs, time.perf_counter() - t0
 
-    names = ("csv", "optimal", "polyfit", "mlp", "csv_step")
-    out = {"cycles": n, "frames": exp.num_frames, "controllers": {}}
-    crop_letterbox_views.launches = 0
+    fits, _fit = [], te.polyfit
+
+    def recorded(x, y, deg, w=None):  # the polyfit warm-up's fits, kept for phase 41
+        fits.append((x.clone(), y.clone(), w.clone()))
+        return _fit(x, y, deg, w)
+
+    out = {"cycles": n, "frames": exp_cfg.num_frames, "controllers": {}}
     texts, logs_by = {}, {}
-    for name in names:
-        run(name, device, 20)  # warm-up
-        cycles = REPLAY_POLYFIT_TIMED_CYCLES if name == "polyfit" else n
-        params, logs, wall = run(name, device, cycles)
-        if logs.positions.shape != (cycles, params.cycle_n, 2):
+    for name in REPLAY_NAMES:
+        if name == "polyfit":
+            te.polyfit = recorded
+        try:
+            run(name, device, 20)  # warm-up
+        finally:
+            te.polyfit = _fit
+        zero_hand_kernel_launches()
+        params, logs, wall = run(name, device)
+        on_card = name == "polyfit" and device == "cuda"
+        launches = check_no_hand_kernel(f"the {name} replay", expect=("polyfit",) if on_card else ())
+        if on_card and launches["polyfit"] != n:
+            raise AssertionError(f"the polyfit replay launched K3 {launches['polyfit']} times in {n} cycles")
+        if logs.positions.shape != (n, params.cycle_n, 2):
             raise AssertionError(f"{name}: log shape {tuple(logs.positions.shape)}")
         share = worm_in_view_share(params, logs, table)
         if not share >= 0.95:
@@ -1060,46 +1134,63 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
         texts[name], logs_by[name] = te.logs_to_frame(params, logs).to_csv(index=False), logs
         (tmp / f"engine_{name}.csv").write_text(texts[name])  # phase 23 holds the host backend to it
         out["controllers"][name] = {
-            "cycles": cycles, "cycles_per_s": cycles / wall, "ms_per_cycle": wall / cycles * 1e3, "run_s": wall,
-            "worm_in_view_share": share,
+            "cycles": n, "cycles_per_s": n / wall, "ms_per_cycle": wall / n * 1e3, "run_s": wall,
+            "worm_in_view_share": share, "launches": launches,
         }
-        log(f"replay {name}: {cycles / wall:.1f} cycles/s over {cycles} cycles")
-    if crop_letterbox_views.launches != 0:
-        raise AssertionError(f"the replay controllers launched K1 {crop_letterbox_views.launches} times")
-    out["crop_letterbox_launches"] = crop_letterbox_views.launches
+        log(f"replay {name}: {n / wall:.1f} cycles/s over {n} cycles")
+    out["crop_letterbox_launches"] = 0  # asserted for every controller above
+    if len(fits) != 20:
+        raise AssertionError(f"the polyfit warm-up made {len(fits)} fits in 20 cycles")
 
     # the command, as a user runs it (the default polyfit config), over the
     # timed run's first REPLAY_CLI_CYCLES cycles: the experiment config cut
-    # to them (phase 23's polyfit runs over the timed run's cycles)
-    for name, cycles in (("exp_cut.json", REPLAY_POLYFIT_TIMED_CYCLES), ("exp_cli.json", REPLAY_CLI_CYCLES)):
-        cut = {**json.loads(exp_path.read_text()), "num_frames": cycles * params.cycle_n + 1}
-        (tmp / name).write_text(json.dumps(cut))
+    # to them
+    exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
+    cut = {**json.loads(exp_path.read_text()), "num_frames": REPLAY_CLI_CYCLES * params.cycle_n + 1}
+    (tmp / "exp_cli.json").write_text(json.dumps(cut))
     cmd = [
         "wtracker_tpu_torch.workflows.simulate", "--timing-config", timing_path, "--exp-config", tmp / "exp_cli.json",
         "--worm-csv", tmp / "worm.csv", "--output", tmp / "simulate", "--controller", "polyfit", "--device", device,
     ]
-    # the command runs beside the same runs on the CPU, over the first
-    # REPLAY_CPU_CYCLES cycles (the card's texts' first rows)
-    with ThreadPoolExecutor(1) as pool:
-        simulate = pool.submit(run_module, cmd)
-        cpu = {}
-        for name in names:
-            cycles = min(REPLAY_CPU_CYCLES, REPLAY_POLYFIT_TIMED_CYCLES if name == "polyfit" else n)
-            params, logs, wall = run(name, "cpu", cycles)
-            cpu[name] = {"cycles": cycles, "cycles_per_s": cycles / wall}
-            if name == "mlp":
-                card = logs_by[name].positions[:cycles].cpu().numpy()
-                diff = np.abs(logs.positions.numpy() - card).max(axis=-1).reshape(-1)
-                cpu[name].update(frames_equal_share=float((diff == 0).mean()), max_abs_pos_diff_px=int(diff.max()))
-                if not (cpu[name]["frames_equal_share"] >= 0.999 and diff.max() <= 2):
-                    raise AssertionError(f"mlp on the card and on the CPU drift apart: {cpu[name]}")
-            else:
-                lines = te.logs_to_frame(params, logs).to_csv(index=False).splitlines()
-                if lines != texts[name].splitlines()[: len(lines)]:
-                    raise AssertionError(f"{name}: the card and the CPU wrote different bboxes.csv text")
-                cpu[name]["identical_text"] = True
-        out["cpu"] = cpu
-        out["cli_polyfit_wall_s"], proc = simulate.result()
+    # the command runs beside the CPU reruns: polyfit over every cycle in
+    # its child process, the others here
+    cpu_polyfit = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-polyfit", str(tmp)], cwd=ROOT,
+                                   env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            simulate = pool.submit(run_module, cmd)
+            cpu = {}
+            for name in REPLAY_NAMES:
+                if name == "polyfit":
+                    continue
+                params, logs, wall = run(name, "cpu")
+                cpu[name] = {"cycles": n, "cycles_per_s": n / wall}
+                if name == "mlp":
+                    card = logs_by[name].positions.cpu().numpy()
+                    diff = np.abs(logs.positions.numpy() - card).max(axis=-1).reshape(-1)
+                    cpu[name].update(frames_equal_share=float((diff == 0).mean()), max_abs_pos_diff_px=int(diff.max()))
+                    if not (cpu[name]["frames_equal_share"] >= 0.999 and diff.max() <= 2):
+                        raise AssertionError(f"mlp on the card and on the CPU drift apart: {cpu[name]}")
+                else:
+                    if te.logs_to_frame(params, logs).to_csv(index=False) != texts[name]:
+                        raise AssertionError(f"{name}: the card and the CPU wrote different bboxes.csv text")
+                    cpu[name]["identical_text"] = True
+            t0 = time.perf_counter()
+            stdout, stderr = cpu_polyfit.communicate(timeout=900)
+            if cpu_polyfit.returncode != 0:
+                raise AssertionError(f"the CPU polyfit replay exited {cpu_polyfit.returncode}:\n{stderr[-4000:]}")
+            ran = json.loads(stdout.strip().splitlines()[-1])
+            if (tmp / "cpu_polyfit.csv").read_text() != texts["polyfit"]:
+                raise AssertionError("polyfit: the card and the CPU wrote different bboxes.csv text over the whole log")
+            cpu["polyfit"] = {"cycles": ran["cycles"], "cycles_per_s": ran["cycles"] / ran["seconds"],
+                              "identical_text": True, "child_process": True, "waited_s": time.perf_counter() - t0}
+            out["cpu"] = cpu
+            out["cli_polyfit_wall_s"], proc = simulate.result()
+    finally:
+        if cpu_polyfit.poll() is None:
+            cpu_polyfit.kill()
+            cpu_polyfit.wait()
     if proc.returncode != 0:
         raise AssertionError(f"simulate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     cli_lines = (tmp / "simulate" / "bboxes.csv").read_text().splitlines()
@@ -1109,7 +1200,113 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict]:
     out["cli_polyfit_cycles"] = REPLAY_CLI_CYCLES
     out["cli_stdout"] = proc.stdout.strip().splitlines()
     profiled = {f"replay_{k}": (lambda k=k: run(k, device, PROFILE_REPLAY_CYCLES)[2]) for k in ("polyfit", "csv")}
-    return out, profiled
+    return out, profiled, fits
+
+
+# ---------------------------------------------------------------------------
+# K3, the float64 polyfit (phase 41)
+# ---------------------------------------------------------------------------
+
+
+def polyfit_work(p: int, n: int, k: int, m: int, sweeps: int = 12) -> tuple[int, int]:
+    """Float64 operations and bytes of one K3 launch: P weightings of N
+    samples, k = deg + 1 terms, M columns.  Each rounded product, sum,
+    quotient or root counts 1; a rotation is 15 scalar operations and 6 a
+    row or column entry (rows, columns and eigenvectors: 18k); each input
+    read once, the (P, k, M) output written once."""
+    per_fit = (n * (k - 1) + n * k  # Vandermonde, weights
+               + 2 * n * k + k + n * k  # column sums of squares, roots, scaling
+               + 2 * n * k * k  # normal matrix
+               + sweeps * k * (k - 1) // 2 * (15 + 18 * k)
+               + 3 * k + 1)  # clamp, cutoff, reciprocals
+    per_col = n + 2 * n * k + 4 * k * k + 2 * k  # right-hand side, atb, projection, solve, scale, unscale
+    return p * (per_fit + m * per_col), 8 * (n + n * m + p * n + p * k * m)
+
+
+def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator) -> list:
+    """Seeded (name, x, y, deg, w) cases on the card: deg 1-5, y (N,) and
+    (N, M), w (N,) and (100, N), zero weights, an all-masked fit (weights
+    and samples zeroed, as the engine zeroes a cycle without detections)
+    and a rank-deficient one, at the engine's and the swarm's times."""
+    cases = []
+    for deg in (1, 2, 3, 4, 5):
+        x = x5 if deg <= 2 else x8
+        n = x.shape[0]
+        t = x.cpu().numpy()
+        y = torch.from_numpy(180 + 2.5 * t[:, None] + 0.1 * t[:, None] ** 2 + rng.normal(0, 3, (n, 2))).cuda()
+        w = torch.from_numpy(rng.uniform(0.2, 2.0, n)).cuda()
+        wp = torch.from_numpy(rng.uniform(0.0, 1.0, (PSO_POP, n))).cuda()
+        zeroed, masked, deficient = w.clone(), torch.zeros_like(w), w.clone()
+        zeroed[[1, 3]] = 0.0
+        deficient[2:] = 0.0
+        cases += [
+            (f"deg{deg}_y2d", x, y, deg, w), (f"deg{deg}_y1d", x, y[:, 0].contiguous(), deg, w),
+            (f"deg{deg}_p100", x, y, deg, wp), (f"deg{deg}_zero_weights", x, y, deg, zeroed),
+            (f"deg{deg}_all_masked", x, torch.zeros_like(y), deg, masked), (f"deg{deg}_rank_deficient", x, y, deg, deficient),
+        ]
+    return cases
+
+
+def check_polyfit_kernel(fits: list, tmp: Path) -> dict:
+    """Phase 41: K3 against its plain version on the card, 0 differing bits
+    (signed zeros included) on the polyfit replay's first 20 fits (phase
+    14's warm-up) and on :func:`_polyfit_cases`; then medians of 50 calls
+    (L2 flushed) of K3, the plain version, one batched ``torch.linalg.eigh``
+    of the same normal matrices (timed only; the port never calls it) and
+    an empty kernel, at the replay's shape (one weighting of N=5 samples,
+    deg 2, M=2) and the swarm's (WeightEvaluator over phase 14's log, P=100
+    weightings of N=8, deg 2, M its columns), beside each shape's bound."""
+    from wtracker_tpu_torch.ops.polyfit import polyfit, polyfit_reference, polyvander
+    from wtracker_tpu_torch.sim.config import TimingConfig
+    from wtracker_tpu_torch.sim.controllers.polyfit import WeightEvaluator
+
+    x5 = torch.tensor(sorted(REPLAY_POLYFIT_TIMES), dtype=torch.float64, device="cuda")
+    x8 = torch.tensor(EVAL_SAMPLE_TIMES, dtype=torch.float64, device="cuda")
+    rng = np.random.default_rng(SEED)
+    cases = [(f"replay_fit{i}", x, y, 2, w) for i, (x, y, w) in enumerate(fits)] + _polyfit_cases(x5, x8, rng)
+    differing, compared, max_err = 0, 0, 0.0
+    for name, x, y, deg, w in cases:
+        got = polyfit(x, y, deg, w)
+        want = polyfit_reference(x, y, deg, w)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"K3 {name}: shape {tuple(got.shape)} against {tuple(want.shape)}, or not finite")
+        bad = int((got.view(torch.int64) != want.view(torch.int64)).sum())
+        differing, compared = differing + bad, compared + got.numel()
+        max_err = max(max_err, float((got - want).abs().max()))
+        if bad:
+            raise AssertionError(f"K3 {name}: {bad} of {got.numel()} coefficients differ from the plain version "
+                                 f"(largest {float((got - want).abs().max())})")
+
+    timing = TimingConfig.load_json(str(ROOT / "configs" / "timing_config.json"))
+    target = timing.cycle_frame_num + timing.imaging_frame_num // 2
+    ev = WeightEvaluator([str(tmp / "worm.csv")], timing, np.array(EVAL_SAMPLE_TIMES), target, device="cpu")
+    w_pop = torch.from_numpy(rng.uniform(1e-6, 5.0, (PSO_POP, len(EVAL_SAMPLE_TIMES)))).cuda()
+    swarm = tuple(torch.from_numpy(np.asarray(a, np.float64)).cuda() for a in (ev.x_input, ev.y_input))
+    shapes = {"replay": fits[-1], "swarm": (*swarm, w_pop)}
+    times = {}
+    for shape, (x, y, w) in shapes.items():
+        got, want = polyfit(x, y, 2, w), polyfit_reference(x, y, 2, w)
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            raise AssertionError(f"K3 differs from the plain version at the {shape} shape")
+        lhs = polyvander(x, 2) * w[..., :, None]
+        scl = torch.sqrt((lhs * lhs).sum(-2))
+        a = lhs / torch.where(scl == 0, 1.0, scl)[..., None, :]
+        normal = (a.transpose(-1, -2) @ a).reshape(-1, 3, 3)
+        p = normal.shape[0]
+        ops, moved = polyfit_work(p, x.shape[0], 3, y.shape[1])
+        t_ops, t_bytes = ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S
+        times[shape] = {
+            "p": p, "n": x.shape[0], "deg": 2, "m": y.shape[1],
+            "ms": time_ms(lambda: polyfit(x, y, 2, w)),
+            "plain_ms": time_ms(lambda: polyfit_reference(x, y, 2, w)),
+            "library_ms": time_ms(lambda: torch.linalg.eigh(normal)),
+            "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
+            "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "operations": ops, "bytes": moved,
+        }
+    return {"cases": len(cases), "coefficients_compared": compared, "differing_bits": differing, "max_abs_err": max_err,
+            "replay_fits_checked": len(fits), "times": times}
 
 
 def sweep(tmp: Path, device: str = "cuda") -> dict:
@@ -1685,7 +1882,6 @@ def int8_track_video_cli(params, recording, cam: int, tmp: Path, artifact: Path,
 # ---------------------------------------------------------------------------
 
 HOST_CONTROLLERS = ("csv", "optimal", "polyfit", "mlp")
-HOST_CUT = ("polyfit", "mlp")  # phase 23 runs these over phase 14's polyfit cycles
 HOST_YOLO_RUNS = 3  # phase 24: timed runs over the recording after one warm-up run
 # the polyfit_optimizer command's default sample times, for WeightEvaluator
 EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
@@ -1693,22 +1889,20 @@ EVAL_SAMPLE_TIMES = (-30, -25, -20, -15, -10, -5, 0, 3)
 
 def host_replay(tmp: Path) -> dict:
     """Phase 23: ``python -m wtracker_tpu_torch.workflows.simulate --backend
-    host`` at phase 14's configuration on its worm log, csv and optimal
-    uncut, polyfit and mlp over phase 14's first REPLAY_POLYFIT_TIMED_CYCLES
-    cycles, with the csv, optimal, polyfit (the
-    command's default, degree 2 at [-15, -10, -5, 0, 3]) and mlp (phase 14's
-    predictor, on the card) controllers, the four commands at once (their
-    start-ups overlap; each loop's cycles/s is taken beside the others').
-    Each ``bboxes.csv`` (``\\r\\n`` line ends, the csv module's) must be
-    phase 14's engine text (its first rows) row for row; for mlp the rows that differ are
-    counted and held to phase 14's card-against-CPU bar."""
+    host`` at phase 14's configuration on its whole worm log, with the csv,
+    optimal, polyfit (the command's default, degree 2 at [-15, -10, -5, 0,
+    3]) and mlp (phase 14's predictor, on the card) controllers, the four
+    commands at once (their start-ups overlap; each loop's cycles/s is taken
+    beside the others').  Each ``bboxes.csv`` (``\\r\\n`` line ends, the csv
+    module's) must be phase 14's engine text row for row; for mlp the rows
+    that differ are counted and held to phase 14's card-against-CPU bar."""
     exp_path, timing_path = ROOT / "configs" / "exp_config.json", ROOT / "configs" / "timing_config.json"
 
     def command(name: str):
         cmd = [
             sys.executable, "-m", "wtracker_tpu_torch.workflows.simulate", "--backend", "host",
             "--timing-config", str(timing_path), "--worm-csv", str(tmp / "worm.csv"),
-            "--exp-config", str(tmp / "exp_cut.json" if name in HOST_CUT else exp_path),
+            "--exp-config", str(exp_path),
             "--output", str(tmp / f"host_{name}"), "--controller", name, "--device", "cuda",
             *(["--predictor", str(tmp / "predictor.npz")] if name == "mlp" else []),
         ]
@@ -1731,11 +1925,8 @@ def host_replay(tmp: Path) -> dict:
         raw = (tmp / f"host_{name}" / "bboxes.csv").read_bytes()
         host = raw.decode().replace("\r\n", "\n").splitlines()
         engine = (tmp / f"engine_{name}.csv").read_text().splitlines()
-        # polyfit and mlp run over the cut experiment: polyfit's engine text
-        want = len((tmp / "engine_polyfit.csv").read_text().splitlines()) if name in HOST_CUT else len(engine)
-        engine = engine[:want]
-        if len(host) != want or host[0] != engine[0]:
-            raise AssertionError(f"host {name}: {len(host)} lines against the engine's {want}")
+        if len(host) != len(engine) or host[0] != engine[0]:
+            raise AssertionError(f"host {name}: {len(host)} lines against the engine's {len(engine)}")
         differing = [i for i, (a, b) in enumerate(zip(host, engine)) if a != b]
         row = {
             "wall_s": wall, "loop_s": loop_s, "cycles": cycles, "cycles_per_s_loop": cycles / loop_s,
@@ -1763,10 +1954,8 @@ def host_yolo_loop(params, recording, bmp: Path, timing_path: Path) -> dict:
     ``LoggingController(YoloController)`` over phase 12's BMPs read by the
     port's ``FrameReader``, the trained YOLOv8s@416 (``.npz``, float32) on
     the card: the decisions' detection rate, the tracking bar against the
-    rendered track and 0 launches of K1 and K2 on every run, and cycles/s
-    over ``HOST_YOLO_RUNS`` timed runs after a warm-up run."""
-    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
-    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
+    rendered track and 0 launches of every hand kernel on every run, and
+    cycles/s over ``HOST_YOLO_RUNS`` timed runs after a warm-up run."""
     from wtracker_tpu_torch.sim.config import ExperimentConfig, TimingConfig
     from wtracker_tpu_torch.sim.controllers import LogConfig, LoggingController, YoloConfig, YoloController
     from wtracker_tpu_torch.sim.simulator import Simulator
@@ -1791,13 +1980,13 @@ def host_yolo_loop(params, recording, bmp: Path, timing_path: Path) -> dict:
         Counted.decisions = Counted.detected = 0
         reader = FrameReader.create_from_directory(str(bmp / "frames"))
         out_dir = bmp / f"host_yolo_{i}"
-        crop_letterbox_views.launches = conv_s8.launches = 0
+        zero_hand_kernel_launches()
         t0 = time.perf_counter()
         Simulator(timing, exp, LoggingController(ctl, LogConfig(root_folder=str(out_dir), save_err_view=False)),
                   reader=reader).run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+        launches = hand_kernel_launches()
         if any(launches.values()):
             raise AssertionError(f"the host YOLO loop launched a hand kernel: {launches}")
         logs = logs_from_csv(out_dir / "bboxes.csv", params.cycle_n)
@@ -1824,17 +2013,16 @@ def pt_detectors(params, recording, bmp: Path, replay_tmp: Path, timing_path: Pa
     kept) and loaded back: its state dict is the ``.npz`` load's bit for
     bit, a 12-view forward gives identical logits, and ``track_video
     --detector X.pt`` writes phase 12's whole-frame ``bboxes.csv``
-    byte for byte.  Then one ``WeightEvaluator.eval`` over phase 14's log on
-    the card (timed after a warm-up) equals the CPU's value exactly."""
+    byte for byte; no hand kernel launches.  Then one ``WeightEvaluator.eval``
+    over phase 14's log on the card (timed after a warm-up; one K3 launch
+    each) equals the CPU's value exactly."""
     from wtracker_tpu_torch.models.yolo_port import save_torch_state_dict
     from wtracker_tpu_torch.models.yolov8 import YoloV8Detector, preprocess_batch
-    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
-    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.sim.config import TimingConfig
     from wtracker_tpu_torch.sim.controllers import WeightEvaluator
 
     out = {}
-    crop_letterbox_views.launches = conv_s8.launches = 0
+    zero_hand_kernel_launches()
     npz = YoloV8Detector.load(str(CHECKPOINT), imgsz=416, device="cuda")
     pt = bmp / "yolov8s_worm416.pt"
     t0 = time.perf_counter()
@@ -1868,10 +2056,16 @@ def pt_detectors(params, recording, bmp: Path, replay_tmp: Path, timing_path: Pa
         raise AssertionError("track_video with the .pt detector wrote another bboxes.csv than phase 12's")
     out["track_video_identical_to_phase_12"] = True
 
+    out["launches"] = hand_kernel_launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"the .pt phase launched a hand kernel: {out['launches']}")
+
+    # the weight evaluator: one K3 launch a call on the card
     timing = TimingConfig.load_json(str(timing_path))
     times, target = np.array(EVAL_SAMPLE_TIMES), params.cycle_n + params.imaging_n // 2
     evals = {dev: WeightEvaluator([str(replay_tmp / "worm.csv")], timing, times, target, device=dev) for dev in ("cuda", "cpu")}
     weights = np.ones(len(times))
+    zero_hand_kernel_launches()
     evals["cuda"].eval(weights)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1881,9 +2075,9 @@ def pt_detectors(params, recording, bmp: Path, replay_tmp: Path, timing_path: Pa
     if card != cpu:
         raise AssertionError(f"WeightEvaluator.eval on the card {card!r} differs from the CPU's {cpu!r}")
     out.update(weight_eval_columns=int(evals["cpu"].y_input.shape[1]), weight_eval_mae=card, weight_eval_card_equals_cpu=True)
-    out["launches"] = {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
-    if any(out["launches"].values()):
-        raise AssertionError(f"the .pt phase launched a hand kernel: {out['launches']}")
+    out["weight_eval_launches"] = check_no_hand_kernel("WeightEvaluator.eval", expect=("polyfit",))
+    if out["weight_eval_launches"]["polyfit"] != 2:
+        raise AssertionError(f"two WeightEvaluator.eval calls launched K3 {out['weight_eval_launches']['polyfit']} times")
     return out
 
 
@@ -1903,16 +2097,18 @@ VIS_FRAMES = 30
 
 
 # a workflow command run as ``python -m`` runs it, whose last line of output
-# is that process's launch counts of the two hand kernels
+# is that process's launch counts of the three hand kernels
 COUNTED_COMMAND = """
 import json, runpy, sys
 from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+from wtracker_tpu_torch.ops.polyfit import polyfit
 from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
 sys.argv = sys.argv[1:]
 try:
     runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 finally:
-    print(json.dumps({"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}))
+    print(json.dumps({"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches,
+                      "polyfit": polyfit.launches}))
 """
 
 
@@ -1950,23 +2146,22 @@ def run_clis(jobs: list[tuple[str, list]]) -> list[tuple[float, str, dict]]:
 
 def zero_hand_kernel_launches() -> None:
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.polyfit import polyfit
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
 
-    crop_letterbox_views.launches = conv_s8.launches = 0
+    crop_letterbox_views.launches = conv_s8.launches = polyfit.launches = 0
 
 
-def check_no_hand_kernel(phase: str, commands: list[dict] = ()) -> dict:
-    """The launch counts of K1 and K2 in this process since the last zeroing
-    plus those each of ``commands`` (``run_cli``'s counts) reported; raises
-    unless both are 0."""
-    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
-    from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
-
-    launches = {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+def check_no_hand_kernel(phase: str, commands: list[dict] = (), expect: tuple = ()) -> dict:
+    """The launch counts of K1, K2 and K3 in this process since the last
+    zeroing plus those each of ``commands`` (``run_cli``'s counts)
+    reported; raises unless the kernels named in ``expect`` launched and
+    the others did not."""
+    launches = hand_kernel_launches()
     for counts in commands:
         launches = {k: v + counts[k] for k, v in launches.items()}
-    if any(launches.values()):
-        raise AssertionError(f"{phase} launched a hand kernel: {launches}")
+    if any(bool(v) != (k in expect) for k, v in launches.items()):
+        raise AssertionError(f"{phase} launched {launches}, expected only {list(expect)}")
     return {**launches, "commands_counted": len(commands)}
 
 
@@ -2424,8 +2619,11 @@ def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, ran: tuple, dev
     bit); and the ``polyfit_optimizer`` command at its defaults (pop
     PSO_POP, PSO_EPOCHS epochs; ``ran``: ``run_cli``'s result of
     :func:`polyfit_optimizer_args`), whose tuned error is at most the first
-    epochs' best."""
+    epochs' best.  K3 launches once an epoch on the card (and once for the
+    swarm's first scoring), in process and in the command, and never on the
+    CPU."""
     from wtracker_tpu_torch.neural.optimize import optimize_polyfit_weights
+    from wtracker_tpu_torch.ops.polyfit import polyfit
     from wtracker_tpu_torch.sim.config import TimingConfig
     from wtracker_tpu_torch.sim.controllers.polyfit import PolyfitConfig, WeightEvaluator
 
@@ -2438,13 +2636,18 @@ def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, ran: tuple, dev
         for dev in (device, "cpu")
     }
     optimize_polyfit_weights(evaluators[device], pop_size=PSO_POP, epochs=2, seed=0)  # warm-up
-    runs, secs = {}, {}
+    runs, secs, k3 = {}, {}, {}
     for dev in (device, "cpu"):
+        before = polyfit.launches
         t0 = time.perf_counter()
         runs[dev] = optimize_polyfit_weights(evaluators[dev], pop_size=PSO_POP, epochs=PSO_CPU_EPOCHS, seed=0)
         secs[dev] = time.perf_counter() - t0
+        k3[dev] = polyfit.launches - before
     if not np.array_equal(runs[device].history, runs["cpu"].history):
         raise AssertionError(f"the card's swarm history leaves the CPU's: {runs[device].history} {runs['cpu'].history}")
+    # one batched fit of the whole population an epoch, plus the first scoring
+    if k3["cpu"] != 0 or (device == "cuda" and k3[device] != PSO_CPU_EPOCHS + 1):
+        raise AssertionError(f"the swarm launched K3 {k3} times in {PSO_CPU_EPOCHS} epochs")
 
     cmd_wall, stdout, launches = ran
     tuned = PolyfitConfig.load_json(str(replay_tmp / "polyfit_tuned.json"))
@@ -2456,7 +2659,9 @@ def polyfit_optimizer_phase(replay_tmp: Path, timing_path: Path, ran: tuple, dev
         "pop": PSO_POP, "epochs": PSO_EPOCHS, "cycles": int(evaluators[device].y_target.shape[0] // 2),
         "timed_epochs": PSO_CPU_EPOCHS, "ms_per_epoch": secs[device] / PSO_CPU_EPOCHS * 1e3,
         "cpu_ms_per_epoch": secs["cpu"] / PSO_CPU_EPOCHS * 1e3, "mae_uniform_tuned": mae,
-        "command_wall_s": cmd_wall, "launches": check_no_hand_kernel("phase 31", [launches]),
+        "command_wall_s": cmd_wall, "k3_launches_in_process": k3[device],
+        "launches": check_no_hand_kernel("phase 31", [launches], expect=("polyfit",) if device == "cuda" else ()),
+        "command_k3_launches": launches["polyfit"],
     }
 
 
@@ -2969,9 +3174,10 @@ def dp_command_args(tmp: Path) -> list[str]:
 
 def hand_kernel_launches() -> dict:
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+    from wtracker_tpu_torch.ops.polyfit import polyfit
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
 
-    return {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches}
+    return {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches, "polyfit": polyfit.launches}
 
 
 def dp_worker(rank: int, init_method: str, out: str) -> int:
@@ -3144,6 +3350,125 @@ def dp_steps(tmp: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the detector recipe's resume on the card (phase 42)
+# ---------------------------------------------------------------------------
+
+RESUME_IMGSZ, RESUME_IMAGES = 64, 8  # tests/test_torch_yolo_recipe.py's kill-and-resume size
+
+
+def resume_images(rng: np.random.Generator, count: int = RESUME_IMAGES, size: int = RESUME_IMGSZ, boxes: int = 2):
+    """Seeded gray uint8 images of bright rectangles on a dark ground with
+    their exact boxes (xyxy), one box in even images and two in odd ones."""
+    images = rng.uniform(0, 0.2, size=(count, size, size)).astype(np.float32)
+    gt = np.zeros((count, boxes, 4), np.float32)
+    cls = np.zeros((count, boxes), np.int32)
+    mask = np.zeros((count, boxes), bool)
+    for i in range(count):
+        for j in range(boxes if i % 2 else 1):
+            cx, cy = rng.integers(12, size - 12, size=2)
+            w, h = rng.integers(8, 16, size=2)
+            images[i, cy - h // 2: cy + h // 2, cx - w // 2: cx + w // 2] = rng.uniform(0.7, 1.0)
+            gt[i, j] = (cx - w // 2, cy - h // 2, cx + w // 2, cy + h // 2)
+            mask[i, j] = True
+    return (images * 255).astype(np.uint8), gt, cls, mask
+
+
+def resume_runs(device: str = "cuda", resume: bool = True) -> dict:
+    """The detector recipe at the CPU test's size (YOLOv8n at 64 px, 8
+    images of which 2 held out, 3 epochs of batch 4 with augmentation,
+    mosaic closed for the last), as ``yolo_training`` runs it
+    (``YoloTrainingRun.fit``), run twice uninterrupted; with ``resume``
+    also killed after epoch 2 and resumed from its checkpoint with other
+    initial weights.  Returns the second uninterrupted run's and the resumed
+    run's gaps from the first (weights, EMA weights, last loss, mAP50), and
+    whether their checkpoints are the same bytes."""
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector
+    from wtracker_tpu_torch.neural import yolo_recipe as rec
+
+    data = resume_images(np.random.default_rng(3))
+    cfg = rec.RecipeConfig(epochs=3, batch=4, lr0=2e-3, warmup_epochs=1.0, val_fraction=0.25, val_max_det=4,
+                           patience=10, close_mosaic=1, seed=1)
+
+    def run(ckpt: str, seed: int = 5, **kw):
+        model = YoloV8Detector.init_random(nc=1, scale="n", imgsz=RESUME_IMGSZ, seed=seed, device=device).model
+        trainer = rec.YoloTrainingRun(model, (RESUME_IMGSZ, RESUME_IMGSZ), cfg, n_train=6)
+        hist = trainer.fit(*data, ckpt_dir=ckpt, log=lambda s: None, **kw)
+        tensors = {f"model.{k}": v for k, v in trainer.model.state_dict().items()}
+        tensors.update({f"ema.{k}": v for k, v in trainer.ema_model.state_dict().items()})
+        return hist, {"tensors": tensors, "loss": hist[-1].train_loss, "map50": hist[-1].val_map50}
+
+    def gap(a: dict, b: dict) -> dict:
+        """The largest absolute difference of any weight, the relative L2
+        distance of all of them, and the scalars' differences."""
+        floats = [k for k, v in a["tensors"].items() if v.is_floating_point()]
+        diff = torch.cat([(a["tensors"][k].double() - b["tensors"][k].double()).flatten() for k in floats])
+        norm = torch.cat([b["tensors"][k].double().flatten() for k in floats]).norm()
+        exact = all(torch.equal(v, b["tensors"][k]) for k, v in a["tensors"].items())
+        return {"bit_equal": exact and a["loss"] == b["loss"] and a["map50"] == b["map50"],
+                "weights_max_abs": float(diff.abs().max()), "weights_rel_l2": float(diff.norm() / norm),
+                "loss": abs(a["loss"] - b["loss"]), "map50": abs(a["map50"] - b["map50"])}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        (_, a), (_, a2) = (run(f"{tmp}/{name}") for name in ("a", "a2"))
+        out = {"uninterrupted": gap(a2, a), "loss": a["loss"], "map50": a["map50"]}
+        if resume:
+            first, _ = run(f"{tmp}/b", stop_after=2)
+            resumed_hist, resumed = run(f"{tmp}/b", seed=9, resume=True)  # other weights: all must come back
+            if [h.epoch for h in first] != [0, 1] or [h.epoch for h in resumed_hist] != [2]:
+                raise AssertionError(f"epochs {[h.epoch for h in first]} then {[h.epoch for h in resumed_hist]}")
+            out["resumed"] = gap(resumed, a)
+            out["checkpoints_equal"] = all(Path(f"{tmp}/a/{f}").read_bytes() == Path(f"{tmp}/b/{f}").read_bytes()
+                                           for f in ("best.npz", "last.npz"))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def resume_worker(out: str) -> int:
+    """Phase 42's child (``chip_smoke.py --resume-worker OUT``, started with
+    ``CUBLAS_WORKSPACE_CONFIG`` set): :func:`resume_runs` with the card's
+    default kernels, then with torch's deterministic algorithms; their
+    results and the launch counts to ``OUT``."""
+    default = resume_runs(resume=False)
+    torch.use_deterministic_algorithms(True, warn_only=True)  # warn_only: the nearest-upsample backward has none
+    det = resume_runs()
+    Path(out).write_text(json.dumps({"default_kernels": default, "deterministic": det, "launches": hand_kernel_launches()}))
+    return 0
+
+
+def start_resume(tmp: Path) -> subprocess.Popen:
+    """Phase 42 in a child process (:func:`resume_worker`), run beside
+    phases 27-29's commands; :func:`finish_resume` collects it."""
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--resume-worker", str(tmp / "resume.json")],
+                            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_resume(child: subprocess.Popen, tmp: Path, started: float) -> dict:
+    """Phase 42: ``yolo_training --resume`` on the card.  The card's default
+    kernels are not bit-reproducible (cuDNN's weight gradients, atomics):
+    two uninterrupted runs of :func:`resume_runs` part, and their spread is
+    recorded.  With torch's deterministic algorithms the two uninterrupted
+    runs must be bit-equal, and the run killed after epoch 2 and resumed
+    must equal them bit for bit (weights, EMA weights, loss, mAP50,
+    ``best.npz`` and ``last.npz``).  No hand kernel launches."""
+    try:
+        _, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"phase 42's runs exited {child.returncode}:\n{err[-4000:]}")
+    out = json.loads((tmp / "resume.json").read_text())
+    out["launches"] = check_no_hand_kernel("phase 42's runs", [out["launches"]])
+    det = out["deterministic"]
+    if not (det["uninterrupted"]["bit_equal"] and det["resumed"]["bit_equal"] and det["checkpoints_equal"]):
+        raise AssertionError(f"with deterministic algorithms the resumed run is not the uninterrupted one: {det}")
+    return {**out, "wall_s": time.perf_counter() - started}
+
+
+# ---------------------------------------------------------------------------
 # the detector's gates and the trace tool (phases 38-39)
 # ---------------------------------------------------------------------------
 
@@ -3166,8 +3491,9 @@ def detector_gates() -> dict:
     if len(out) != 5 or failed:
         raise AssertionError(f"detector gates failed: {failed}: {out}")
     launches = hand_kernel_launches()
-    if launches["crop_letterbox"] or not all(out[k]["launches"]["conv_s8"] for k in ("trained_int8_drift", "int8_drift_s416")):
-        raise AssertionError(f"the gates launched K1 or an int8 gate ran without K2: {launches}")
+    if (launches["crop_letterbox"] or launches["polyfit"]
+            or not all(out[k]["launches"]["conv_s8"] for k in ("trained_int8_drift", "int8_drift_s416"))):
+        raise AssertionError(f"the gates launched K1 or K3, or an int8 gate ran without K2: {launches}")
     return {"gates": out, "launches": launches}
 
 
@@ -3194,32 +3520,33 @@ BENCH_VIDEO_FRAMES, BENCH_VIDEO_CHUNK_CYCLES, BENCH_VIDEO_ROI = 240, 4, 512
 def bench_tools() -> dict:
     """Phase 40: ``tools/bench.py``'s measurement (``_measure``, its JSON
     line) in this process at S=8 x 2 cycles, one timed window, 20 decisions
-    a latency and 8 at the 250 ms cadence, bf16 and int8: K1 never launches,
-    K2 launches 62 times a forward of every int8 window and decision (and
-    nowhere else), and the four latencies record exactly two CUDA events
-    a timed decision (counted as they are recorded; nothing else in the
-    measurement records one).  Then ``tools/bench_video.py::run`` over a 240-frame recording of the exp0
-    geometry (written by ``tools/recording.py``), whole frames and ROI 512 px,
-    in chunks of 4 cycles: 0 K1 launches (the folded stem)."""
+    a latency and 8 at the 250 ms cadence, bf16 and int8: K1 and K3 never
+    launch, K2 launches 62 times a forward of every int8 window and decision
+    (the traced ones included, and nowhere else), and each of the four
+    latencies reads 20 traced calls, each with a card busy time above 0 and
+    at most its own host time.  Then ``tools/bench_video.py::run`` over a
+    240-frame recording of the exp0 geometry (written by
+    ``tools/recording.py``), whole frames and ROI 512 px, in chunks of 4
+    cycles: no hand kernel launches (the folded stem)."""
     from wtracker_tpu_torch.tools import bench, bench_video, recording
 
-    class CountedEvent(torch.cuda.Event):
-        recorded = 0
+    measure_latency, traced = bench.measure_decision_latency, []
 
-        def record(self, stream=None):
-            CountedEvent.recorded += 1
-            return super().record(stream)
+    def sampled(*args, **kwargs):  # each latency's per-call seconds, for the checks below
+        samples = {}
+        traced.append(samples)
+        return measure_latency(*args, **kwargs, samples=samples)
 
     saved = {k: os.environ.get(k) for k in BENCH_ENV}
     os.environ.update(BENCH_ENV)
-    event_cls, torch.cuda.Event = torch.cuda.Event, CountedEvent
+    bench.measure_decision_latency = sampled
     zero_hand_kernel_launches()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(sys.stderr):  # the bench's line is this phase's, printed at the end
             line = bench._measure(latency_n=BENCH_LATENCY_N, cadence_n=BENCH_CADENCE_N)
     finally:
-        torch.cuda.Event = event_cls
+        bench.measure_decision_latency = measure_latency
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -3229,20 +3556,25 @@ def bench_tools() -> dict:
     launches = hand_kernel_launches()
     # int8 forwards: the warm-up and the timed window, each (cycles + 1)
     # steps of chunks_int8 sub-batches (delayed logging steps once more);
-    # a decision per warm-up and timed call at S=1 and S=4, and the
+    # a decision per warm-up, timed and traced call at S=1 and S=4, and the
     # cadence's warm-up and calls
     S, cycles = int(BENCH_ENV["BENCH_STREAMS"]), int(BENCH_ENV["BENCH_CYCLES"])
     chunks8 = line["chunks"]["int8"]
     forwards = ((1 + int(BENCH_ENV["BENCH_REPEATS"])) * (cycles + 1) * chunks8
-                + 2 * (bench.DECISION_WARMUP + BENCH_LATENCY_N) + 1 + BENCH_CADENCE_N)
-    if launches["crop_letterbox"] != 0 or launches["conv_s8"] != 62 * forwards:
-        raise AssertionError(f"the bench launched {launches}, expected K1 0 and K2 62 x {forwards}")
+                + 2 * (bench.DECISION_WARMUP + 2 * BENCH_LATENCY_N) + 1 + BENCH_CADENCE_N)
+    if launches != {"crop_letterbox": 0, "conv_s8": 62 * forwards, "polyfit": 0}:
+        raise AssertionError(f"the bench launched {launches}, expected K1 0, K2 62 x {forwards} and K3 0")
     lat = line["latency_ms"]
     for key in ("bf16_s1", "bf16_s4", "int8_s1", "int8_s4"):
         if lat[key]["n"] != BENCH_LATENCY_N or "device" not in lat[key]:
             raise AssertionError(f"bench latency {key}: {lat[key]}")
-    if CountedEvent.recorded != 2 * 4 * BENCH_LATENCY_N:
-        raise AssertionError(f"the bench recorded {CountedEvent.recorded} CUDA events for 4 x {BENCH_LATENCY_N} decisions")
+    calls = [len(t["device"]) for t in traced]
+    if calls != [BENCH_LATENCY_N] * 4:
+        raise AssertionError(f"the bench traced {calls} calls for 4 x {BENCH_LATENCY_N} decisions")
+    for t in traced:
+        if not all(0 < dev <= host for dev, host in zip(t["device"], t["traced_e2e"])):
+            raise AssertionError(f"a decision's card busy time is not in (0, its host time]: {t}")
+    busy_share = [float(np.mean(np.divide(t["device"], t["traced_e2e"]))) for t in traced]
     if not (line["value"] > 0 and line["int8"]["value"] > 0 and line["card"] and "vs_baseline" not in line):
         raise AssertionError(f"bench line: {line}")
     if line["chunks"]["views_per_chunk_bf16"] * line["chunks"]["bf16"] != S * 15:
@@ -3264,11 +3596,11 @@ def bench_tools() -> dict:
         if not (r["frames"] == BENCH_VIDEO_FRAMES and r["cycles"] == cycles_video and 0 <= r["decode_share"] <= 1
                 and r["value"] > 0):
             raise AssertionError(f"video bench {name}: {r}")
-    if video["roi"]["roi"]["window_px"] != BENCH_VIDEO_ROI or video_launches != {"crop_letterbox": 0, "conv_s8": 0}:
+    if video["roi"]["roi"]["window_px"] != BENCH_VIDEO_ROI or any(video_launches.values()):
         raise AssertionError(f"video bench ROI {video['roi']}, launches {video_launches}")
     return {
-        "bench": line, "launches": launches, "expected_conv_s8_forwards": forwards,
-        "cuda_events_recorded": CountedEvent.recorded, "measure_s": measure_s,
+        "bench": line, "launches": launches, "expected_conv_s8_forwards": forwards, "traced_calls": calls,
+        "busy_share_of_traced_host_time": busy_share, "measure_s": measure_s,
         "video": video, "video_launches": video_launches, "recording": {k: made[k] for k in ("frames", "bytes", "seconds")},
         "video_s": video_s,
     }
@@ -3297,14 +3629,15 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
     # -- 2. build ---------------------------------------------------------
+    # one nvcc a source, all started together; K3's (the longest) is first
+    # needed in phase 14, so phases 3-13 run while it builds
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    k3_build = ThreadPoolExecutor(1)
+    k3_report = k3_build.submit(lambda: (_build.build_all(("polyfit_f64",)), time.perf_counter() - t0))
+    reports = _build.build_all(("crop_letterbox", "conv_s8"))
     build_s = time.perf_counter() - t0
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
-                log(f"nvcc {name}: {line.strip()}")
-    log(f"built {len(reports)} kernel libraries in {build_s:.1f} s")
+    log_nvcc(reports)
+    log(f"built K1 and K2 in {build_s:.1f} s")
     k2_sass = tensor_core_sass(_build.library_path("conv_s8"))
     log(f"conv_s8 SASS: {k2_sass}")
     if k2_sass["IGMMA"] == 0 or k2_sass["IDP4A"] != 0:
@@ -3483,9 +3816,23 @@ def main() -> int:
     # (its worm log, engine texts and predictor stay for phases 23 and 25)
     replay_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_replay_")
     replay_tmp = Path(replay_dir.name)
-    replayed, profiled = replay(replay_tmp)
+    k3_log, k3_build_s = k3_report.result()
+    k3_build.shutdown()
+    log_nvcc(k3_log)
+    log(f"built K3 in {k3_build_s:.1f} s, beside phases 3-13")
+    k3_before_replay = hand_kernel_launches()["polyfit"]
+    if k3_before_replay:
+        raise AssertionError(f"phases 1-13 launched K3 {k3_before_replay} times")
+    replayed, profiled, fits = replay(replay_tmp)
     to_profile.update(profiled)
     log(f"replay: {({k: round(v['cycles_per_s'], 1) for k, v in replayed['controllers'].items()})} cycles/s")
+
+    # -- 41. K3 against its plain version, and its times -------------------------
+    k3 = check_polyfit_kernel(fits, replay_tmp)
+    del fits
+    log(f"K3: {k3['cases']} cases, {k3['differing_bits']} differing of {k3['coefficients_compared']}; "
+        f"{({k: {m: v[m] for m in ('ms', 'plain_ms', 'library_ms', 'bound_ms')} for k, v in k3['times'].items()})}")
+    zero_hand_kernel_launches()
 
     # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process ------
     swept = sweep(replay_tmp)
@@ -3534,6 +3881,10 @@ def main() -> int:
         f"of {k2_360['silu_q_checked']}")
     k2["n360"] = k2_360
 
+    k3_phases_15_21 = hand_kernel_launches()["polyfit"]  # in this process; the commands count their own
+    if k3_phases_15_21:
+        raise AssertionError(f"phases 15-21 launched K3 {k3_phases_15_21} times")
+
     # -- 22. track_video with the int8 artifact, beside phase 23's commands ----------
     # -- 23. the host simulator backend: simulate --backend host -------------------
     t0 = time.perf_counter()
@@ -3562,6 +3913,10 @@ def main() -> int:
         f"{dataset['frames_per_s']:.1f} frames/s ({dataset['floods_per_chunk']:.1f} floods a chunk), one chunk's "
         f"stages {dataset['chunk_split']}")
 
+    # -- 42. the recipe killed and resumed on the card, beside phases 27-29 ------------
+    resume_started = time.perf_counter()
+    resume_child = start_resume(bmp)
+
     # -- 27. initialize_experiment, classical and yolo (phase 28's command beside) ------
     with ThreadPoolExecutor(1) as pool:
         sampled = pool.submit(run_cli, "create_yolo_images", create_yolo_images_args(bmp))
@@ -3580,6 +3935,8 @@ def main() -> int:
         f"plots {evaluated['plots']}")
     dataset_phases_s = time.perf_counter() - t0
     new_launches = [p["launches"] for p in (dataset, init_cli, samples, evaluated)]
+    resumed = finish_resume(resume_child, bmp, resume_started)
+    log(f"yolo_training resume: {resumed}")
     bmp_dir.cleanup()
 
     # -- 30. predictor_training over phase 14's log ------------------------------------
@@ -3616,7 +3973,7 @@ def main() -> int:
         f"{yolo['peak_memory_bytes'] / 2**30:.1f} GiB, losses {[e['loss'] for e in yolo['epochs']]}, "
         f"step card vs CPU {yolo['step_check']}")
 
-    # -- 33. neither hand kernel on the training paths (asserted in each phase) ------------
+    # -- 33. neither hand kernel on the training paths but K3 in the swarm (asserted) --------
     training_phases_s = time.perf_counter() - t0 - dp_s
     training_launches = [p["launches"] for p in (pred_train, pso, yolo)]
 
@@ -3658,6 +4015,7 @@ def main() -> int:
 
     # -- results ---------------------------------------------------------------
     t12, t3 = times[params.imaging_n], times[params.moving_n]
+    k3r, k3s = k3["times"]["replay"], k3["times"]["swarm"]
     kernels = {
         "kernels": [
             {
@@ -3741,6 +4099,45 @@ def main() -> int:
                 "classes": k2["classes"],
                 "classes_n360": k2_360["classes"],
             },
+            {
+                # one fit of the polyfit replay's decision: one weighting of
+                # N=5 samples, deg 2, M=2 (L2 flushed before each call)
+                "name": "polyfit_f64",
+                "route": "cuda",
+                "source": "wtracker_tpu_torch/csrc/polyfit_f64.cu",
+                "replaces": "wtracker_tpu/ops/polyfit.py:106",
+                "launches": replayed["controllers"]["polyfit"]["launches"]["polyfit"],
+                "max_abs_err": k3["max_abs_err"],
+                "ms": k3r["ms"],
+                "plain_ms": k3r["plain_ms"],
+                "bound_ms": k3r["bound_ms"],
+                "bound_by": k3r["bound_by"],
+                "library_ms": k3r["library_ms"],
+                "library": "torch.linalg.eigh of the same normal matrices (the eigendecomposition alone)",
+                "differing_bits": k3["differing_bits"],
+                "coefficients_compared": k3["coefficients_compared"],
+                "empty_kernel_ms": k3r["empty_kernel_ms"],
+                "launches_per_cycle": replayed["controllers"]["polyfit"]["launches"]["polyfit"] / replayed["cycles"],
+                "ms_swarm": k3s["ms"],
+                "plain_ms_swarm": k3s["plain_ms"],
+                "library_ms_swarm": k3s["library_ms"],
+                "bound_ms_swarm": k3s["bound_ms"],
+                "swarm_shape": {k: k3s[k] for k in ("p", "n", "deg", "m")},
+                "launches_swarm_in_process": pso["k3_launches_in_process"],
+                "launches_swarm_command": pso["command_k3_launches"],
+                "launches_weight_eval": pt["weight_eval_launches"]["polyfit"],
+                "launches_phases_1_13": k3_before_replay,
+                "launches_other_replay_controllers": {
+                    k: v["launches"]["polyfit"] for k, v in replayed["controllers"].items() if k != "polyfit"
+                },
+                "launches_phases_15_21": k3_phases_15_21,
+                "launches_host_yolo_pt": [host_yolo["launches"]["polyfit"], pt["launches"]["polyfit"]],
+                "launches_phases_26_29": [p["polyfit"] for p in new_launches],
+                "launches_phases_30_32": [p["polyfit"] for p in training_launches],
+                "launches_data_parallel": [dp["launches"]["polyfit"], dp["command"]["launches"]["polyfit"]],
+                "launches_gates": gated["launches"]["polyfit"],
+                "launches_bench_video": [benched["launches"]["polyfit"], benched["video_launches"]["polyfit"]],
+            },
         ]
     }
     loop = {
@@ -3756,6 +4153,7 @@ def main() -> int:
             "f32_box_max_abs_diff_kernel_vs_plain": box_f32,
             **quality,
             "build_s": build_s,
+            "k3_build_s": k3_build_s,
             "card": card,
         }
     }
@@ -3804,6 +4202,8 @@ def main() -> int:
     print(json.dumps({"detector_gates": {**gated, "card": card}}))
     print(json.dumps({"trace_profile": {**traced, "phases_38_39_s": tools_s, "card": card}}))
     print(json.dumps({"bench_tools": {**benched, "phase_40_s": bench_s, "card": card}}))
+    print(json.dumps({"polyfit_kernel": {**k3, "card": card}}))
+    print(json.dumps({"yolo_resume": {**resumed, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
     print(json.dumps({"smoke": {"script_s": time.perf_counter() - t_start, "card": card}}))
@@ -3815,4 +4215,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 37, started by the script itself
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--cpu-polyfit"]:  # phase 14's CPU polyfit replay, started by the script itself
+        sys.exit(cpu_polyfit_replay(sys.argv[2]))
+    if sys.argv[1:2] == ["--resume-worker"]:  # phase 42's deterministic runs, started by the script itself
+        sys.exit(resume_worker(sys.argv[2]))
     sys.exit(main())

@@ -11,8 +11,10 @@
 * ``_tails_ms`` and ``measure_decision_cadence`` (on a stand-in decision
   that sleeps) give JAX's numbers.
 * The decision latency on the CPU has host samples and no ``device``
-  field; on a card (``cuda`` marker, skipped here) one CUDA event pair a
-  decision.
+  field; on a card (``cuda`` marker, skipped here) each call's busy time
+  from a ``torch.profiler`` trace, within its host time.  ``call_busy_s``
+  (the trace's attribution: each call's kernels by time, their intervals'
+  union) on synthetic records.
 * ``_measure``'s JSON line (a nano detector at 64 px) has every field of
   JAX's line but ``vs_baseline``, and the card; the video bench over a
   2-cycle recording returns its frames, cycles and decode share, with ROI
@@ -198,23 +200,38 @@ def test_decision_latency_on_the_cpu(nano):
 
 
 @pytest.mark.cuda
-def test_decision_latency_on_the_card(nano, monkeypatch):
+def test_decision_latency_on_the_card(nano):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the device span is timed by CUDA events")
-    made = []
-
-    class CountedEvent(torch.cuda.Event):
-        def __new__(cls, *args, **kwargs):
-            made.append(1)
-            return super().__new__(cls, *args, **kwargs)
-
+        pytest.skip("needs a CUDA card: the device time is read from a trace of the card")
     ctx = bench.build_flagship(1, n_cycles=1, detector=nano, imgsz=64, device="cuda")
-    monkeypatch.setattr(torch.cuda, "Event", CountedEvent)
-    out = bench.measure_decision_latency(ctx, "bf16", 4, n=6)
-    assert len(made) == 2 * 6
+    samples = {}
+    out = bench.measure_decision_latency(ctx, "bf16", 4, n=6, samples=samples)
     assert set(out) == {"n", "device_ms", "e2e_ms", "e2e", "device"} and out["n"] == 6
     d = out["device"]
     assert 0 < d["p50_ms"] <= d["p95_ms"] <= d["max_ms"] and out["device_ms"] > 0
+    assert len(samples["device"]) == len(samples["traced_e2e"]) == 6
+    assert all(0 < dev <= host for dev, host in zip(samples["device"], samples["traced_e2e"]))
+
+
+def test_call_busy_time_is_the_union_of_each_calls_kernels():
+    """Synthetic trace records (ns): each call starts on an idle card, so its
+    kernels are those that start from its range's start until the next
+    call's; overlapping kernels count once, gaps not at all; kernels before
+    the first call are not counted; a call without a kernel raises."""
+    calls = [(100, 200), (3_000, 3_100), (5_000, 5_100)]
+    kernels = [
+        (10, 90),  # before the first call: nobody's
+        (1_000, 1_300), (1_200, 1_500), (1_400, 1_450),  # call 0: overlaps, union 1_000-1_500
+        (1_600, 1_700),  # call 0 again after a gap
+        (3_050, 3_060),  # call 1, starting inside its range
+        (6_000, 6_050), (6_050, 6_070),  # call 2: touching intervals
+    ]
+    busy = bench.call_busy_s(calls, kernels)
+    np.testing.assert_allclose(busy, [600e-9, 10e-9, 70e-9], rtol=0, atol=1e-18)
+    # a kernel that starts at a call's first instant belongs to it
+    assert bench.call_busy_s([(0, 10), (20, 30)], [(0, 5), (20, 21)]) == [5e-9, 1e-9]
+    with pytest.raises(RuntimeError, match="call 1 of 3 launched no kernel"):
+        bench.call_busy_s(calls, [k for k in kernels if k[0] != 3_050])
 
 
 LATENCY_KEYS = {"n", "e2e_ms", "e2e"}

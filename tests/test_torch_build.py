@@ -48,3 +48,19 @@ def test_every_kernel_has_a_signature_and_a_source():
         assert argtypes[-1] is _build._P and restype is _build._I  # the stream last; the CUDA error back
     # conv_s8: x, wp, sw, bias, out, then shape, strides, options, the plan (bn, split), the stream
     assert len(_build.SIGNATURES["conv_s8"][0]) == 21
+
+
+def test_a_sources_own_flags_name_only_its_library(tmp_path, monkeypatch):
+    """``EXTRA_FLAGS`` (K3's ``--fmad=false``) go into that kernel's command
+    line and hash, and into no other kernel's."""
+    _sources(tmp_path, monkeypatch)
+    k, other = _build.library_path("k"), _build.library_path("other")
+    monkeypatch.setattr(_build, "EXTRA_FLAGS", {"k": ["--fmad=false"]})
+    assert _build.flags("k")[-1] == "--fmad=false" and "--fmad=false" not in _build.flags("other")
+    assert _build.library_path("k") != k and _build.library_path("other") == other
+
+
+def test_polyfit_kernel_rounds_every_product_on_its_own():
+    assert "--fmad=false" in _build.flags("polyfit_f64")
+    # x, y, w, out, then batch, n, m, k, the cutoff factor (a double), the stream
+    assert _build.SIGNATURES["polyfit_f64"][0][8] is _build._D and len(_build.SIGNATURES["polyfit_f64"][0]) == 10

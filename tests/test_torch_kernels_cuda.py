@@ -7,6 +7,7 @@ tests/test_torch_kernels_cuda.py``.
 """
 
 import ctypes
+import importlib
 import os
 import subprocess
 import sys
@@ -294,3 +295,84 @@ def test_conv_s8_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="NHWC int8"):
         conv_s8(x.to(torch.uint8), wt, 1, "acc", wp=pack_weights(wt))
     assert conv_s8.launches == before
+
+
+# -- K3: the float64 polyfit ----------------------------------------------------
+
+POLYFIT_TIMES = {5: [-15.0, -10.0, -5.0, 0.0, 3.0], 8: [-30.0, -25.0, -20.0, -15.0, -10.0, -5.0, 0.0, 3.0]}
+
+
+def _polyfit_data(name: str, deg: int, n: int, m: int = 2, p: int = 0):
+    """Seeded (x, y, w) on the card: the engine's and the swarm's sample
+    times, a track with noise, and zeroed, masked or batched weights."""
+    rng = np.random.default_rng([deg, n, m, p, sum(map(ord, name))])
+    x = np.array(POLYFIT_TIMES[n])
+    y = 180 + 2.5 * x[:, None] + 0.1 * x[:, None] ** 2 + rng.normal(0, 3, (n, m))
+    w = rng.uniform(0.0, 1.0, (p, n)) if p else rng.uniform(0.2, 2.0, n)
+    if name == "y_1d":
+        y = y[:, 0]
+    elif name == "zero_weights":
+        w[..., [1, 3]] = 0.0
+    elif name == "all_masked":  # the engine's cycle with no valid sample
+        w[...] = 0.0
+        y[...] = 0.0
+        y[::2] = -0.0
+    elif name == "rank_deficient":
+        w[..., 2:] = 0.0
+    return tuple(torch.from_numpy(a).cuda() for a in (x, y, w))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 8])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("name", ["y_2d", "y_1d", "zero_weights", "all_masked", "rank_deficient"])
+def test_polyfit_kernel_equals_plain_version_bit_for_bit(name, deg, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.polyfit import polyfit, polyfit_reference
+
+    x, y, w = _polyfit_data(name, deg, n)
+    before = polyfit.launches
+    got = polyfit(x, y, deg, w)
+    torch.cuda.synchronize()
+    assert polyfit.launches == before + 1
+    assert _same_bits(got, polyfit_reference(x, y, deg, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, m", [(1, 1), (3, 2), (100, 7993)], ids=["one", "few", "swarm"])
+@pytest.mark.parametrize("name", ["y_2d", "zero_weights", "rank_deficient"])
+def test_polyfit_kernel_batched_weightings_bit_for_bit(name, p, m):
+    """The swarm's batch: P weightings of the same samples, M columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.polyfit import polyfit, polyfit_reference
+
+    x, y, w = _polyfit_data(name, 2, 8, m=m, p=p)
+    got = polyfit(x, y, 2, w)
+    torch.cuda.synchronize()
+    assert got.shape == (p, 3, m) and _same_bits(got, polyfit_reference(x, y, 2, w))
+    assert _same_bits(polyfit(x, y, 2, None), polyfit_reference(x, y, 2, None))
+
+
+@pytest.mark.cuda
+def test_polyfit_on_the_card_never_runs_the_plain_version(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tp = importlib.import_module("wtracker_tpu_torch.ops.polyfit")  # the package's ``polyfit`` name is the function
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tp, "polyfit_reference", refuse)
+    x, y, w = _polyfit_data("y_2d", 2, 5)
+    tp.polyfit(x, y, 2, w)
+    with pytest.raises(ValueError, match="deg 0-7"):
+        tp.polyfit(x, y, 8, w)
+    with pytest.raises(ValueError, match="w must be"):
+        tp.polyfit(x, y, 2, w[:4])
+    torch.cuda.synchronize()

@@ -27,17 +27,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signature of each kernel's entry point: (argtypes, restype).  Pointers and
 # the stream are c_void_p: the default int conversion would cut them to 32 bits.
 SIGNATURES = {
     "crop_letterbox": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "conv_s8": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    "polyfit_f64": ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _P], _I),
 }
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# a source's own flags after the common ones: the float64 polyfit rounds
+# every product and sum on its own, as the eager ops of its plain version do
+EXTRA_FLAGS = {"polyfit_f64": ["--fmad=false"]}
+
+
+def flags(name: str) -> list[str]:
+    """nvcc's flags for kernel ``name``."""
+    return [*NVCC_FLAGS, *EXTRA_FLAGS.get(name, [])]
 
 
 def _nvcc() -> str:
@@ -57,7 +67,7 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -73,7 +83,7 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     logs, failed = {}, []
     for name, (proc, tmp) in procs.items():

@@ -20,9 +20,14 @@ Two rules keep the arithmetic the same on the CPU and on the card:
 
 Zero weights exclude samples: a row with ``w == 0`` contributes nothing to
 the normal equations, so a data-dependent mask (missing detections) needs no
-change of shape and no host sync.  Every step is an eager torch op, one
-kernel launch each on the card; a degree-2 fit is about 1,500 of them, most
-in :func:`jacobi_eigh`.
+change of shape and no host sync.
+
+:func:`polyfit` on the card is one launch of the hand-written kernel
+``csrc/polyfit_f64.cu``, which computes the whole fit with the plain
+version's arithmetic and gives its bits; on the CPU it runs the plain
+version, :func:`polyfit_reference`, whose every step is an eager torch op
+(about 1,500 launches a degree-2 fit on the card, most in
+:func:`jacobi_eigh`).
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ from functools import reduce
 import numpy as np
 import torch
 
-__all__ = ["jacobi_eigh", "lstsq_minnorm", "polyvander", "polyfit", "polyval", "fit_and_eval"]
+__all__ = ["jacobi_eigh", "lstsq_minnorm", "polyvander", "polyfit", "polyfit_reference", "polyval", "fit_and_eval"]
+
+KERNEL_MAX_TERMS = 8  # deg + 1: the kernel's unrolled Jacobi
+KERNEL_MAX_SHARED = 48 << 10  # bytes of the kernel's (N, deg + 1) scaled Vandermonde rows
 
 
 def _sum0(x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +157,57 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     Returns:
         float64 coefficients in increasing order, shape (..., deg + 1) or
         (..., deg + 1, M).
+
+    ``x`` on the card launches the kernel (one launch a call, counted in
+    ``polyfit.launches``; ``y`` and ``w`` go to ``x``'s device); on the CPU
+    this is :func:`polyfit_reference`.  The kernel takes ``deg`` < 8 and N·(deg
+    + 1) ≤ 6,144, and raises otherwise.
     """
+    x = torch.as_tensor(x, dtype=torch.float64)
+    if x.device.type == "cpu":
+        return polyfit_reference(x, y, deg, w)
+    if not x.is_cuda:
+        raise ValueError(f"no kernel for device {x.device}")
+    from wtracker_tpu_torch.ops import _build
+
+    y = torch.as_tensor(y, dtype=torch.float64, device=x.device)
+    if x.ndim != 1 or y.ndim not in (1, 2) or y.shape[0] != x.shape[0] or x.shape[0] == 0:
+        raise ValueError(f"x must be (N,) and y (N,) or (N, M) with N > 0, got {tuple(x.shape)} and {tuple(y.shape)}")
+    n, k = x.shape[0], deg + 1
+    if not (1 <= k <= KERNEL_MAX_TERMS and n * k * 8 <= KERNEL_MAX_SHARED):
+        raise ValueError(f"the polyfit kernel takes deg 0-{KERNEL_MAX_TERMS - 1} and N*(deg+1) <= "
+                         f"{KERNEL_MAX_SHARED // 8}, got deg {deg}, N {n}")
+    if w is None:
+        w = torch.ones(n, dtype=torch.float64, device=x.device)  # x * 1.0 is x: the plain version's unweighted bits
+    w = torch.as_tensor(w, dtype=torch.float64, device=x.device)
+    if w.ndim == 0 or w.shape[-1] != n:
+        raise ValueError(f"w must be (..., {n}), got {tuple(w.shape)}")
+    batch = w.shape[:-1]
+    rhs = y if y.ndim > 1 else y[:, None]
+    m = rhs.shape[1]
+    x, rhs, w = x.contiguous(), rhs.contiguous(), w.reshape(-1, n).contiguous()
+    out = torch.empty((w.shape[0], k, m), dtype=torch.float64, device=x.device)
+    eps = torch.finfo(torch.float64).eps
+    cut_factor = max((n * eps) ** 2, 16 * eps)  # lstsq_minnorm's, with polyfit's rcond
+    if w.shape[0]:
+        with torch.cuda.device(x.device):
+            err = _build.load("polyfit_f64").polyfit_f64(
+                x.data_ptr(), rhs.data_ptr(), w.data_ptr(), out.data_ptr(), w.shape[0], n, m, k, cut_factor,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"polyfit kernel launch failed with CUDA error {err}")
+        polyfit.launches += 1
+    out = out.reshape(*batch, k, m)
+    return out if y.ndim > 1 else out[..., 0]
+
+
+polyfit.launches = 0
+
+
+def polyfit_reference(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of :func:`polyfit` (the same arguments and result),
+    one eager torch op a step on any device."""
     x = torch.as_tensor(x, dtype=torch.float64)
     y = torch.as_tensor(y, dtype=torch.float64, device=x.device)
 

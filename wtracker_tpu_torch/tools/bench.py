@@ -7,9 +7,9 @@ and sine-motor platform control, as stream-batched cycles
 (``sim/engine_live.py::make_stream_batch_fused``), and reports steps
 (frames) a second.  Beside the headline it measures the int8 serving path
 (the int8 convolution kernel), the standalone 40 ms decision (p50/p95/max on
-the host and on the card, CUDA events around each call), a sustained
-250 ms decision cadence, and, opt-in, the real-video path
-(:mod:`wtracker_tpu_torch.tools.bench_video`).
+the host, and of each call's card busy time from a ``torch.profiler``
+trace), a sustained 250 ms decision cadence, and, opt-in, the real-video
+path (:mod:`wtracker_tpu_torch.tools.bench_video`).
 
 Prints exactly one JSON line.  When the card does not answer, or the
 measurement dies twice, the line is the ``value 0.0`` "unavailable" line
@@ -275,50 +275,128 @@ def _tails_ms(samples_s: list[float]) -> dict:
     }
 
 
-def measure_decision_latency(ctx, variant: str, S: int, n: int = 200, moves: list | None = None) -> dict:
+CALL_RANGE = "bench_decision_"  # the profiler range of each traced decision, numbered
+
+
+def call_busy_s(calls: list[tuple[int, int]], kernels: list[tuple[int, int]]) -> list[float]:
+    """Each call's card busy seconds, from a trace.
+
+    ``calls``: the calls' host ranges ``(start_ns, end_ns)``, in order, each
+    call started on an idle card after the previous call's result reached
+    the host; ``kernels``: ``(start_ns, end_ns)`` of each kernel on the
+    card, on the trace's one clock.  So the kernels a call launched are
+    those that start on the card from its range's start until the next
+    call's; kernels before the first call are not counted.  A call's busy
+    time is the union of its kernels' intervals, overlaps counted once and
+    gaps not at all: the counterpart of the one "XLA Modules" event a
+    dispatch of the JAX bench.  Raises unless every call launched at least
+    one kernel."""
+    starts = np.array([s for s, _ in calls], dtype=np.int64)
+    per_call: list[list[tuple[int, int]]] = [[] for _ in calls]
+    for k0, k1 in kernels:
+        i = int(np.searchsorted(starts, k0, side="right")) - 1
+        if i >= 0:
+            per_call[i].append((k0, k1))
+    busy = []
+    for i, spans in enumerate(per_call):
+        if not spans:
+            raise RuntimeError(f"call {i} of {len(calls)} launched no kernel on the card")
+        total, end = 0, None
+        for k0, k1 in sorted(spans):
+            if end is None or k0 > end:
+                total += k1 - k0
+                end = k1
+            elif k1 > end:
+                total += k1 - end
+                end = k1
+        busy.append(total * 1e-9)
+    return busy
+
+
+def _is_kernel(event) -> bool:
+    """Whether a card-side trace event is a kernel: not a copy, a memset or
+    a range's annotation (torch 2.11's events name no activity type)."""
+    return not (event.name().startswith(("Memcpy", "Memset")) or event.is_user_annotation())
+
+
+def _traced_calls(call, n: int, device) -> tuple[list[float], list[float]]:
+    """``n`` calls of ``call()`` under ``torch.profiler``, each from an idle
+    card inside its own range, its result brought to the host before the
+    next: every call's card busy time (:func:`call_busy_s`) and its host
+    time until its result is on the host (the profiler's own host cost
+    included).  Kernels are told to calls by time, not by the host op they
+    link to: a kernel launched through ``ctypes`` (K2, K3) links to no op
+    of its call in torch 2.11's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    # without CUPTI's teardown a session leaves every later CUDA launch of
+    # the process ~2x slower on the host (torch 2.11), and host times taken
+    # after it (the next decisions, the cadence, the video bench) read that
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    host = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            with record_function(f"{CALL_RANGE}{i}"):
+                out = call()
+            out.cpu()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize(device)
+    calls, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.name().startswith(CALL_RANGE):
+                calls[int(e.name()[len(CALL_RANGE):])] = (e.start_ns(), e.end_ns())
+        elif _is_kernel(e):
+            kernels.append((e.start_ns(), e.end_ns()))
+    if sorted(calls) != list(range(n)):
+        raise RuntimeError(f"the trace holds {len(calls)} call ranges, not {n}")
+    return call_busy_s([calls[i] for i in range(n)], kernels), host
+
+
+def measure_decision_latency(ctx, variant: str, S: int, n: int = 200, moves: list | None = None,
+                             samples: dict | None = None) -> dict:
     """Latency of ``n`` deployment decisions (after :data:`DECISION_WARMUP`
-    calls), each timed two ways:
+    calls), two ways, as the JAX bench measures them:
 
     - ``e2e``: host time from the call until the move is on the host,
       starting from an idle card: what the instrument waits for;
-    - ``device``: the span between two CUDA events the host enqueues on
-      the current stream just before and just after the call (one pair a
-      call, recorded in the same loop pass as the call, so ``n`` pairs by
-      construction).  It runs from the card reaching the first event to
-      its reaching the second, idle gaps included: for a call whose host
-      side is the slower it tracks the host's enqueue time, not the card's
-      busy time.  On the CPU (tests) there is no ``device`` field.
+    - ``device`` (on a card): after the ``e2e`` pass, ``n`` more calls
+      traced with ``torch.profiler``, each in its own range: a call's card
+      busy time is the union of the intervals of the kernels it launched
+      (:func:`call_busy_s`), idle gaps not counted.  Raises unless each of
+      the ``n`` ranges launched a kernel.  On the CPU (tests) there is no
+      ``device`` field.
 
-    ``e2e_ms`` is the fastest call, ``device_ms`` the mean event span.  ``moves``,
-    when given, receives each decision's move on the host."""
+    ``e2e_ms`` is the fastest call, ``device_ms`` the mean busy time.
+    ``moves``, when given, receives each timed decision's move on the host;
+    ``samples``, when given, each call's seconds: ``e2e``, and on a card
+    ``device`` with ``traced_e2e`` (the traced calls' host times)."""
     decide, views, cam_tl = ctx.make_decide(variant, S)
     on_card = views.is_cuda
     for _ in range(DECISION_WARMUP):
         decide(views, cam_tl).cpu()
 
-    e2e, pairs = [], []
+    e2e = []
     for _ in range(n):
         if on_card:
             torch.cuda.synchronize(views.device)
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        if on_card:
-            e0.record()
-        move = decide(views, cam_tl)
-        if on_card:
-            e1.record()
-        move = move.cpu()
+        move = decide(views, cam_tl).cpu()
         e2e.append(time.perf_counter() - t0)
-        if on_card:
-            pairs.append((e0, e1))
         if moves is not None:
             moves.append(move)
 
     out = {"n": n, "e2e_ms": round(min(e2e) * 1e3, 3), "e2e": _tails_ms(e2e)}
+    if samples is not None:
+        samples["e2e"] = e2e
     if on_card:
-        torch.cuda.synchronize(views.device)
-        device_s = [a.elapsed_time(b) * 1e-3 for a, b in pairs]
+        device_s, traced = _traced_calls(lambda: decide(views, cam_tl), n, views.device)
         out.update(device_ms=round(float(np.mean(device_s)) * 1e3, 3), device=_tails_ms(device_s))
+        if samples is not None:
+            samples.update(device=device_s, traced_e2e=traced)
     return out
 
 
@@ -432,7 +510,7 @@ def _measure(detector=CHECKPOINT, imgsz: int = 416, device="cuda", latency_n: in
 def _verdict(lat: dict) -> str:
     """The deadline verdict, a tail claim: the bf16 S=1 decision's host
     p95 (call to move on the host: what the co-located instrument waits for)
-    against the budget, the card's span beside it, and the cadence's
+    against the budget, the card's busy time beside it, and the cadence's
     misses."""
     d, cadence = lat["bf16_s1"], lat["bf16_cadence"]
     host_p95 = d["e2e"]["p95_ms"]
