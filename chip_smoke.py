@@ -195,11 +195,19 @@ live loop over many streams, at full width:
     ``tools/bench_video.py::run`` over a 240-frame exp0 recording, whole
     frames and ROI 512 px, in chunks of 4 cycles (no hand kernel);
 41. (run right after phase 14) holds K3 against its plain version on the
-    card, 0 differing bits, on the polyfit replay's first 20 fits and on
-    seeded fits of degree 1-5 (y one column or two, one weighting or 100,
-    zero weights, all masked, rank-deficient), and times K3, the plain
-    version, ``torch.linalg.eigh`` of the same normal matrices and an empty
-    kernel at the replay's shape and the swarm's, beside the bound;
+    card, 0 differing bits and one launch a call, on the polyfit replay's
+    first 20 fits and on seeded fits of degree 1-5 (y one column or two,
+    one weighting or 100, zero weights, all masked, rank-deficient) and at
+    the grid's edges (M around a column tile, P=1 x 7,993 columns, P=1,000
+    x 2, deg 0-7 at the 48 KB limit, the edge cases over several tiles);
+    reports each K3 instantiation's registers, shared memory and spills
+    from ``-Xptxas -v``; and times K3, the plain version,
+    ``torch.linalg.eigh`` of the same normal matrices,
+    ``torch.linalg.lstsq`` of the same scaled systems (the whole fit, for
+    full-rank inputs only) and an empty kernel at the replay's shape and
+    the swarm's, beside the bound; with ``--k3-parent DIR`` (the parent
+    commit's tree, unpacked by ``git archive``) also the parent's K3, built
+    from it and timed with this one in turns;
 42. (in a child process, beside phases 27-29) kills and resumes the
     detector recipe on the card at the CPU test's size (YOLOv8n, 64 px, 3
     epochs): two uninterrupted runs with the card's default kernels (their
@@ -1227,36 +1235,126 @@ def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator)
     """Seeded (name, x, y, deg, w) cases on the card: deg 1-5, y (N,) and
     (N, M), w (N,) and (100, N), zero weights, an all-masked fit (weights
     and samples zeroed, as the engine zeroes a cycle without detections)
-    and a rank-deficient one, at the engine's and the swarm's times."""
+    and a rank-deficient one, at the engine's and the swarm's times; then
+    the grid's edges: M just below, at and above a column tile and
+    into a fifth one at P=100, P=1 over 7,993 columns, P=1,000 over 2, deg
+    0-7 with N at the 48 KB limit, and the zeroed, all-masked (signed zeros
+    in y) and rank-deficient weightings at P=100 over several tiles."""
+    from wtracker_tpu_torch.ops.polyfit import KERNEL_COL_THREADS
+
     cases = []
+
+    def track(x, m):
+        t = x.cpu().numpy()
+        return torch.from_numpy(180 + 2.5 * t[:, None] + 0.1 * t[:, None] ** 2 + rng.normal(0, 3, (len(t), m))).cuda()
+
+    def weightings(p, n):
+        return torch.from_numpy(rng.uniform(0.0, 1.0, (p, n))).cuda()
+
     for deg in (1, 2, 3, 4, 5):
         x = x5 if deg <= 2 else x8
         n = x.shape[0]
-        t = x.cpu().numpy()
-        y = torch.from_numpy(180 + 2.5 * t[:, None] + 0.1 * t[:, None] ** 2 + rng.normal(0, 3, (n, 2))).cuda()
+        y = track(x, 2)
         w = torch.from_numpy(rng.uniform(0.2, 2.0, n)).cuda()
-        wp = torch.from_numpy(rng.uniform(0.0, 1.0, (PSO_POP, n))).cuda()
         zeroed, masked, deficient = w.clone(), torch.zeros_like(w), w.clone()
         zeroed[[1, 3]] = 0.0
         deficient[2:] = 0.0
         cases += [
             (f"deg{deg}_y2d", x, y, deg, w), (f"deg{deg}_y1d", x, y[:, 0].contiguous(), deg, w),
-            (f"deg{deg}_p100", x, y, deg, wp), (f"deg{deg}_zero_weights", x, y, deg, zeroed),
+            (f"deg{deg}_p100", x, y, deg, weightings(PSO_POP, n)), (f"deg{deg}_zero_weights", x, y, deg, zeroed),
             (f"deg{deg}_all_masked", x, torch.zeros_like(y), deg, masked), (f"deg{deg}_rank_deficient", x, y, deg, deficient),
         ]
+    for m in (KERNEL_COL_THREADS - 1, KERNEL_COL_THREADS, KERNEL_COL_THREADS + 1, 5 * KERNEL_COL_THREADS + 1):
+        cases.append((f"p100_m{m}", x8, track(x8, m), 2, weightings(PSO_POP, 8)))
+    cases += [("p1_m7993", x8, track(x8, 7993), 2, weightings(1, 8)), ("p1000_m2", x8, track(x8, 2), 2, weightings(1000, 8))]
+    for deg in range(8):
+        n = 6144 // (deg + 1)
+        x = torch.arange(n, dtype=torch.float64, device="cuda") - n // 2
+        y = 180 + 0.05 * x[:, None] + torch.from_numpy(rng.normal(0, 3, (n, 3))).cuda()
+        w = weightings(2, n)
+        w[1, ::3] = 0.0
+        cases.append((f"deg{deg}_n{n}_48kb", x, y, deg, w))
+    y, w = track(x8, 2000), weightings(PSO_POP, 8)
+    zeroed, deficient = w.clone(), w.clone()
+    zeroed[:, [1, 3]] = 0.0
+    deficient[:, 2:] = 0.0
+    masked_y = torch.zeros_like(y)
+    masked_y[::2] = -0.0
+    cases += [("p100_m2000_zero_weights", x8, y, 2, zeroed), ("p100_m2000_rank_deficient", x8, y, 2, deficient),
+              ("p100_m2000_all_masked", x8, masked_y, 2, torch.zeros_like(w))]
     return cases
 
 
-def check_polyfit_kernel(fits: list, tmp: Path) -> dict:
+def k3_ptxas(report: str) -> list[dict]:
+    """Registers, static shared memory and spills of each K3 instantiation
+    (K = deg + 1), from ``nvcc -Xptxas -v``'s report of its build."""
+    found, current = {}, None
+    for line in report.splitlines():
+        name = re.search(r"Function properties for (\S+)", line)
+        if name:
+            current = re.search(r"polyfit_kernelILi(\d)E", name.group(1))
+            current = int(current.group(1)) if current else None
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            found.setdefault(current, {})["spill_stores"], found[current]["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used:
+            found.setdefault(current, {})["registers"], found[current]["static_smem_bytes"] = map(int, used.groups())
+    return [{"k": k, **v} for k, v in sorted(found.items())]
+
+
+def parent_polyfit(parent: Path, build_dir: Path):
+    """The K3 of the parent commit's tree, unpacked at ``parent`` (``git
+    archive``): the entry point before the grid (a block a weighting,
+    thread 0's Jacobi before the columns), built with K3's flags and called
+    as its wrapper called it.  Returns ``fit(x, y, w) -> (P, k, M)`` at deg
+    2, for timing beside this tree's K3 in turns."""
+    import ctypes
+
+    from wtracker_tpu_torch.ops import _build
+
+    lib = build_dir / "libpolyfit_f64_parent.so"
+    cmd = [_build._nvcc(), *_build.flags("polyfit_f64"), "-o", str(lib),
+           str(parent / "wtracker_tpu_torch" / "csrc" / "polyfit_f64.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the parent's K3 did not build:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).polyfit_f64
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    eps = torch.finfo(torch.float64).eps
+
+    def fit(x, y, w):
+        n, rhs = x.shape[0], (y if y.ndim > 1 else y[:, None]).contiguous()
+        w2 = w.reshape(-1, n).contiguous()
+        out = torch.empty((w2.shape[0], 3, rhs.shape[1]), dtype=torch.float64, device=x.device)
+        err = fn(x.data_ptr(), rhs.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n, rhs.shape[1], 3,
+                 max((n * eps) ** 2, 16 * eps), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"the parent's K3 launch failed with CUDA error {err}")
+        return out
+
+    return fit
+
+
+def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> dict:
     """Phase 41: K3 against its plain version on the card, 0 differing bits
     (signed zeros included) on the polyfit replay's first 20 fits (phase
     14's warm-up) and on :func:`_polyfit_cases`; then medians of 50 calls
     (L2 flushed) of K3, the plain version, one batched ``torch.linalg.eigh``
-    of the same normal matrices (timed only; the port never calls it) and
-    an empty kernel, at the replay's shape (one weighting of N=5 samples,
-    deg 2, M=2) and the swarm's (WeightEvaluator over phase 14's log, P=100
-    weightings of N=8, deg 2, M its columns), beside each shape's bound."""
-    from wtracker_tpu_torch.ops.polyfit import polyfit, polyfit_reference, polyvander
+    of the same normal matrices, one ``torch.linalg.lstsq`` (driver
+    ``gels``, CUDA's only one, which takes full-rank systems only) of the
+    same scaled systems (both timed only; the port calls neither) and an
+    empty kernel, at the replay's shape (one weighting of N=5 samples, deg
+    2, M=2) and the swarm's (WeightEvaluator over phase 14's log, P=100
+    weightings of N=8, deg 2, M its columns), beside each shape's bound.
+    With ``parent`` (the parent commit's tree, ``--k3-parent DIR``) the
+    parent's K3 is built from it and timed with this one in turns (this,
+    parent, parent, this), its bits checked against this one's."""
+    from wtracker_tpu_torch.ops.polyfit import plan, polyfit, polyfit_reference, polyvander
     from wtracker_tpu_torch.sim.config import TimingConfig
     from wtracker_tpu_torch.sim.controllers.polyfit import WeightEvaluator
 
@@ -1266,9 +1364,12 @@ def check_polyfit_kernel(fits: list, tmp: Path) -> dict:
     cases = [(f"replay_fit{i}", x, y, 2, w) for i, (x, y, w) in enumerate(fits)] + _polyfit_cases(x5, x8, rng)
     differing, compared, max_err = 0, 0, 0.0
     for name, x, y, deg, w in cases:
+        before = polyfit.launches
         got = polyfit(x, y, deg, w)
         want = polyfit_reference(x, y, deg, w)
         torch.cuda.synchronize()
+        if polyfit.launches != before + 1:
+            raise AssertionError(f"K3 {name}: {polyfit.launches - before} launches for one call")
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise AssertionError(f"K3 {name}: shape {tuple(got.shape)} against {tuple(want.shape)}, or not finite")
         bad = int((got.view(torch.int64) != want.view(torch.int64)).sum())
@@ -1277,6 +1378,8 @@ def check_polyfit_kernel(fits: list, tmp: Path) -> dict:
         if bad:
             raise AssertionError(f"K3 {name}: {bad} of {got.numel()} coefficients differ from the plain version "
                                  f"(largest {float((got - want).abs().max())})")
+    n_cases = len(cases)
+    del cases
 
     timing = TimingConfig.load_json(str(ROOT / "configs" / "timing_config.json"))
     target = timing.cycle_frame_num + timing.imaging_frame_num // 2
@@ -1284,28 +1387,44 @@ def check_polyfit_kernel(fits: list, tmp: Path) -> dict:
     w_pop = torch.from_numpy(rng.uniform(1e-6, 5.0, (PSO_POP, len(EVAL_SAMPLE_TIMES)))).cuda()
     swarm = tuple(torch.from_numpy(np.asarray(a, np.float64)).cuda() for a in (ev.x_input, ev.y_input))
     shapes = {"replay": fits[-1], "swarm": (*swarm, w_pop)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     times = {}
-    for shape, (x, y, w) in shapes.items():
-        got, want = polyfit(x, y, 2, w), polyfit_reference(x, y, 2, w)
-        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
-            raise AssertionError(f"K3 differs from the plain version at the {shape} shape")
-        lhs = polyvander(x, 2) * w[..., :, None]
-        scl = torch.sqrt((lhs * lhs).sum(-2))
-        a = lhs / torch.where(scl == 0, 1.0, scl)[..., None, :]
-        normal = (a.transpose(-1, -2) @ a).reshape(-1, 3, 3)
-        p = normal.shape[0]
-        ops, moved = polyfit_work(p, x.shape[0], 3, y.shape[1])
-        t_ops, t_bytes = ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S
-        times[shape] = {
-            "p": p, "n": x.shape[0], "deg": 2, "m": y.shape[1],
-            "ms": time_ms(lambda: polyfit(x, y, 2, w)),
-            "plain_ms": time_ms(lambda: polyfit_reference(x, y, 2, w)),
-            "library_ms": time_ms(lambda: torch.linalg.eigh(normal)),
-            "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
-            "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "operations": ops, "bytes": moved,
-        }
-    return {"cases": len(cases), "coefficients_compared": compared, "differing_bits": differing, "max_abs_err": max_err,
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_k3_parent_") as build_dir:
+        old = parent_polyfit(parent, Path(build_dir)) if parent is not None else None
+        for shape, (x, y, w) in shapes.items():
+            got, want = polyfit(x, y, 2, w), polyfit_reference(x, y, 2, w)
+            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+                raise AssertionError(f"K3 differs from the plain version at the {shape} shape")
+            lhs = polyvander(x, 2) * w[..., :, None]
+            scl = torch.sqrt((lhs * lhs).sum(-2))
+            a = lhs / torch.where(scl == 0, 1.0, scl)[..., None, :]
+            normal = (a.transpose(-1, -2) @ a).reshape(-1, 3, 3)
+            rhs = (y if y.ndim > 1 else y[:, None]) * w[..., :, None]
+            p = normal.shape[0]
+            ops, moved = polyfit_work(p, x.shape[0], 3, y.shape[1])
+            t_ops, t_bytes = ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S
+            grid = plan(p, x.shape[0], 3, y.shape[1], sms)
+            times[shape] = {
+                "p": p, "n": x.shape[0], "deg": 2, "m": y.shape[1],
+                "plan": {"tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks, "per_sm": grid.per_sm,
+                         "shared_bytes": grid.shared, "sms": sms},
+                "ms": time_ms(lambda: polyfit(x, y, 2, w)),
+                "plain_ms": time_ms(lambda: polyfit_reference(x, y, 2, w)),
+                "library_ms": time_ms(lambda: torch.linalg.eigh(normal)),
+                "lstsq_ms": time_ms(lambda: torch.linalg.lstsq(a, rhs, driver="gels")),
+                "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
+                "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "operations": ops, "bytes": moved,
+            }
+            if old is not None:
+                if not torch.equal(old(x, y, w).view(torch.int64), got.reshape(p, 3, -1).view(torch.int64)):
+                    raise AssertionError(f"the parent's K3 and this one differ at the {shape} shape")
+                turns = {"this": [], "parent": []}
+                for who in ("this", "parent", "parent", "this"):
+                    fn = (lambda: polyfit(x, y, 2, w)) if who == "this" else (lambda: old(x, y, w))
+                    turns[who].append(time_ms(fn))
+                times[shape]["turns_ms"] = turns
+    return {"cases": n_cases, "coefficients_compared": compared, "differing_bits": differing, "max_abs_err": max_err,
             "replay_fits_checked": len(fits), "times": times}
 
 
@@ -3819,7 +3938,8 @@ def main() -> int:
     k3_log, k3_build_s = k3_report.result()
     k3_build.shutdown()
     log_nvcc(k3_log)
-    log(f"built K3 in {k3_build_s:.1f} s, beside phases 3-13")
+    k3_regs = k3_ptxas(k3_log.get("polyfit_f64", ""))
+    log(f"built K3 in {k3_build_s:.1f} s, beside phases 3-13; ptxas: {k3_regs}")
     k3_before_replay = hand_kernel_launches()["polyfit"]
     if k3_before_replay:
         raise AssertionError(f"phases 1-13 launched K3 {k3_before_replay} times")
@@ -3828,10 +3948,12 @@ def main() -> int:
     log(f"replay: {({k: round(v['cycles_per_s'], 1) for k, v in replayed['controllers'].items()})} cycles/s")
 
     # -- 41. K3 against its plain version, and its times -------------------------
-    k3 = check_polyfit_kernel(fits, replay_tmp)
+    k3_parent = Path(sys.argv[sys.argv.index("--k3-parent") + 1]) if "--k3-parent" in sys.argv else None
+    k3 = check_polyfit_kernel(fits, replay_tmp, k3_parent)
     del fits
-    log(f"K3: {k3['cases']} cases, {k3['differing_bits']} differing of {k3['coefficients_compared']}; "
-        f"{({k: {m: v[m] for m in ('ms', 'plain_ms', 'library_ms', 'bound_ms')} for k, v in k3['times'].items()})}")
+    log(f"K3: {k3['cases']} cases, {k3['differing_bits']} differing of {k3['coefficients_compared']}; " + str({
+        k: {m: v.get(m) for m in ('ms', 'plain_ms', 'library_ms', 'lstsq_ms', 'bound_ms', 'turns_ms')}
+        for k, v in k3['times'].items()}))
     zero_hand_kernel_launches()
 
     # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process ------
@@ -4114,6 +4236,13 @@ def main() -> int:
                 "bound_by": k3r["bound_by"],
                 "library_ms": k3r["library_ms"],
                 "library": "torch.linalg.eigh of the same normal matrices (the eigendecomposition alone)",
+                "lstsq_ms": k3r["lstsq_ms"],
+                "lstsq_ms_swarm": k3s["lstsq_ms"],
+                "lstsq": "torch.linalg.lstsq, driver gels, of the same scaled systems: the whole fit, full-rank inputs only",
+                "turns_ms": k3r.get("turns_ms"),
+                "turns_ms_swarm": k3s.get("turns_ms"),
+                "ptxas": k3_regs,
+                "plan_swarm": k3s["plan"],
                 "differing_bits": k3["differing_bits"],
                 "coefficients_compared": k3["coefficients_compared"],
                 "empty_kernel_ms": k3r["empty_kernel_ms"],

@@ -1,0 +1,288 @@
+#!/usr/bin/env python3
+"""Times the float64 polyfit kernel (K3) against variants of itself.
+
+The kernel (``wtracker_tpu_torch/csrc/polyfit_f64.cu``) runs a weighting's
+serial setup (the 12-sweep Jacobi) in warp 0 beside the column work of
+warps 1-7, then solves and stores its columns.  This script builds a copy
+of the source for each variant below, with one change each, loads it with
+the shipped entry point's C signature, and times it beside the shipped
+kernel at the polyfit replay's shape (one weighting of N=5 samples, deg 2,
+M=2) and the particle swarm's (P=100 weightings of N=8, deg 2, M=6,170):
+
+- ``per_sm2``, ``per_sm3``: 2 or 3 blocks of 256 threads resident on an SM
+  for deg <= 2 (the kernel has 4: at most 64 registers a thread), with
+  ``ops/polyfit.py::plan`` sizing the tiles for that wave;
+- ``store16``: each thread solves two neighbouring columns and writes each
+  row of the pair as one 16-byte store (the kernel: one column, 8-byte
+  stores); for an even M only, which both shapes are;
+- ``unroll2``: the solve's loop over a thread's columns unrolled by two;
+  these four are held bit for bit to the plain version at both shapes;
+- ``no_jacobi``: no Jacobi sweep (the setup without its chain);
+  ``no_store``: the solve runs but its result is not written (a store that
+  never fires); ``no_rhs``: warps 1-7 form no right-hand side (no y read);
+  ``no_solve``: each column's right-hand side is stored as it is (no
+  projection, solve or unscaling); ``no_div``: the unscaling multiplies
+  where it divides.  These are timing ablations: their outputs are wrong
+  by construction and are not checked;
+- ``timeline``: the shipped kernel with clock stamps at the ends of its
+  phases (held bit for bit), read after one launch: where a block's time
+  goes.
+
+Each time is a median of 50 calls, each after a spin and an L2 flush
+(``chip_smoke.time_ms``), shipped first and last.  With ``--parent DIR``
+(the parent commit's tree unpacked there, e.g. by ``git archive``) its K3
+is timed too (``chip_smoke.parent_polyfit``).  The shipped library and the
+main path are not touched.
+
+Needs one CUDA card, ``nvcc`` and the checkout; run it from the checkout's
+root as ``python3 sweep_polyfit.py [--parent DIR]``.  Prints the card line,
+then one JSON line.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chip_smoke import SEED, card_line, parent_polyfit, time_ms
+
+STORE = """  for (int c = threadIdx.x; c < cols; c += kThreads) {
+    double b[K];"""
+STORE_LINE = "      ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);"
+STORE16 = """  for (int c = 2 * threadIdx.x; c < cols; c += 2 * kThreads) {
+    double res2[2][K];
+    for (int h = 0; h < 2; ++h) {
+    double b[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) b[j] = c + h < cols ? atb[j * tile + c + h] : 0.0;
+    double scaled[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      double proj = mul(evecs[0][j], b[0]);
+#pragma unroll
+      for (int i = 1; i < K; ++i) proj = add(proj, mul(evecs[i][j], b[i]));
+      scaled[j] = mul(inv[j], proj);
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      double res = mul(evecs[i][0], scaled[0]);
+#pragma unroll
+      for (int j = 1; j < K; ++j) res = add(res, mul(evecs[i][j], scaled[j]));
+      res2[h][i] = quo(res, scl[i]);
+    }
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (c + 1 < cols) *reinterpret_cast<double2*>(ob + static_cast<size_t>(i) * m + c) = make_double2(res2[0][i], res2[1][i]);
+      else ob[static_cast<size_t>(i) * m + c] = res2[0][i];
+    }
+  }
+  if (false) {
+    const int c = 0;
+    double b[K];"""
+# the timeline: per block, the card's clock at its start and end (ns) and the
+# SM cycles from its start to the end of its setup, of lane 0's Jacobi, of
+# the last right-hand side, of the meeting and of the last store
+TIMELINE = [
+    ("namespace {\n", """namespace {
+
+__device__ unsigned long long g_stamps[8 * 4096];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+"""),
+    ("  const int ct = static_cast<int>(threadIdx.x) - 32;  // a column thread's index, warps 1-7\n",
+     """  const int ct = static_cast<int>(threadIdx.x) - 32;  // a column thread's index, warps 1-7
+  __shared__ unsigned long long t_rhs, t_end;
+  const long long t0 = clock64();
+  unsigned long long* st = g_stamps + 8 * (blockIdx.x % 4096);
+  if (threadIdx.x == 0) {
+    t_rhs = 0;
+    t_end = 0;
+    st[0] = now_ns();
+  }
+"""),
+    ("  for (int e = threadIdx.x; e < n * K; e += kThreads) lhs[e] = quo(lhs[e], scl[e % K]);\n  __syncthreads();\n",
+     "  for (int e = threadIdx.x; e < n * K; e += kThreads) lhs[e] = quo(lhs[e], scl[e % K]);\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) st[1] = clock64() - t0;\n"),
+    ("        for (int i = 0; i < K; ++i) evecs[i][j] = v[i][j];\n      }\n    }\n  } else {",
+     "        for (int i = 0; i < K; ++i) evecs[i][j] = v[i][j];\n      }\n      st[2] = clock64() - t0;\n    }\n  } else {"),
+    ("      for (int j = 0; j < K; ++j) atb[j * tile + c] = acc[j];\n    }\n  }\n  __syncthreads();\n",
+     "      for (int j = 0; j < K; ++j) atb[j * tile + c] = acc[j];\n    }\n"
+     "    atomicMax(&t_rhs, static_cast<unsigned long long>(clock64() - t0));\n  }\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n    st[3] = t_rhs;\n    st[4] = clock64() - t0;\n  }\n"),
+    ("      ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);\n    }\n  }\n}\n",
+     "      ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);\n    }\n  }\n"
+     "  atomicMax(&t_end, static_cast<unsigned long long>(clock64() - t0));\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n    st[5] = t_end;\n    st[6] = now_ns();\n  }\n}\n"),
+    ("}  // namespace\n", """}  // namespace
+
+extern "C" int polyfit_stamps(void* dst, int count) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_stamps, sizeof(unsigned long long) * count));
+}
+"""),
+]
+VARIANTS = {  # name: (substitutions, blocks an SM for deg <= 2 or None, checked against the plain version)
+    "per_sm2": ([("constexpr int kMinBlocks[9] = {1, 4, 4, 4,", "constexpr int kMinBlocks[9] = {1, 2, 2, 2,")], 2, True),
+    "per_sm3": ([("constexpr int kMinBlocks[9] = {1, 4, 4, 4,", "constexpr int kMinBlocks[9] = {1, 3, 3, 3,")], 3, True),
+    "store16": ([(STORE, STORE16)], None, True),
+    "no_jacobi": ([("constexpr int kSweeps = 12;", "constexpr int kSweeps = 0;")], None, False),
+    "no_store": ([(STORE_LINE, "      if (res == 1.25e-300) ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);")], None, False),
+    "no_rhs": ([("      for (int i0 = 0; i0 < n; i0 += kRows) {", "      for (int i0 = 0; i0 < 0; i0 += kRows) {")], None, False),
+    "no_solve": ([(STORE_LINE, "      ob[static_cast<size_t>(i) * m + c] = b[i];")], None, False),
+    "no_div": ([(STORE_LINE, "      ob[static_cast<size_t>(i) * m + c] = mul(res, scl[i]);")], None, False),
+    "unroll2": ([(STORE, "#pragma unroll 2\n" + STORE)], None, True),
+    "timeline": (TIMELINE, None, True),
+}
+
+
+def build_all(sources: dict, tmp: Path) -> dict:
+    """One nvcc a variant, all started together, with K3's flags; returns
+    each variant's entry point."""
+    from wtracker_tpu_torch.ops import _build
+
+    procs = {}
+    for name, src in sources.items():
+        (tmp / f"{name}.cu").write_text(src)
+        cmd = [_build._nvcc(), *_build.flags("polyfit_f64"), "-o", str(tmp / f"{name}.so"), str(tmp / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name} did not build:\n{log}")
+        fn = ctypes.CDLL(str(tmp / f"{name}.so")).polyfit_f64
+        fn.argtypes, fn.restype = _build.SIGNATURES["polyfit_f64"]
+        fns[name] = fn
+    return fns
+
+
+@contextlib.contextmanager
+def blocks_per_sm(tp, per_sm: int | None):
+    saved = tp.KERNEL_MIN_BLOCKS
+    if per_sm is not None:
+        tp.KERNEL_MIN_BLOCKS = (saved[0], per_sm, per_sm, per_sm, *saved[4:])
+    try:
+        yield
+    finally:
+        tp.KERNEL_MIN_BLOCKS = saved
+
+
+def launcher(fn, tp, per_sm, x, y, w):
+    """The wrapper's launch of library ``fn`` at deg 2, its plan made once."""
+    n, m = x.shape[0], y.shape[1]
+    w2 = w.reshape(-1, n)
+    with blocks_per_sm(tp, per_sm):
+        grid = tp.plan(w2.shape[0], n, 3, m, torch.cuda.get_device_properties(0).multi_processor_count)
+    out = torch.empty((w2.shape[0], 3, m), dtype=torch.float64, device="cuda")
+    eps = torch.finfo(torch.float64).eps
+    cut = max((n * eps) ** 2, 16 * eps)
+
+    def run():
+        err = fn(x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n, m, 3, grid.tile, grid.tiles,
+                 cut, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed with CUDA error {err}")
+        return out
+
+    return run, {"tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks, "per_sm": grid.per_sm}
+
+
+def timeline(lib_dir: Path, run, blocks: int) -> dict:
+    """One launch of the ``timeline`` variant after an L2 flush and a spin,
+    as ``time_ms`` times it: each phase's end from its block's start (µs,
+    at the SM clock that the block's own start and end on the card's
+    clock imply), median and largest over the blocks, and the spread of
+    the blocks' starts and ends on the card's clock."""
+    stamps = ctypes.CDLL(str(lib_dir / "timeline.so")).polyfit_stamps
+    stamps.argtypes, stamps.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush.zero_()
+    torch.cuda._sleep(1_000_000)
+    run()
+    torch.cuda.synchronize()
+    count = 8 * min(blocks, 4096)
+    host = np.zeros(count, np.uint64)
+    if stamps(host.ctypes.data, count):
+        raise RuntimeError("could not read the timeline")
+    st = host.reshape(-1, 8).astype(np.float64)
+    ns_per_cycle = (st[:, 6] - st[:, 0]) / np.maximum(st[:, 5], 1)
+    out = {"ns_per_cycle_median": float(np.median(ns_per_cycle)),
+           "starts_spread_us": float(st[:, 0].max() - st[:, 0].min()) / 1e3,
+           "ends_spread_us": float(st[:, 6].max() - st[:, 6].min()) / 1e3,
+           "first_start_to_last_end_us": float(st[:, 6].max() - st[:, 0].min()) / 1e3}
+    for slot, name in ((1, "setup"), (2, "jacobi"), (3, "rhs"), (4, "meeting"), (5, "end")):
+        us = st[:, slot] * ns_per_cycle / 1e3
+        out[name] = {"median": float(np.median(us)), "max": float(us.max())}
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("sweep_polyfit: no CUDA card is visible", file=sys.stderr)
+        return 2
+    import importlib
+
+    tp = importlib.import_module("wtracker_tpu_torch.ops.polyfit")
+    root = Path(__file__).resolve().parent
+    source = (root / "wtracker_tpu_torch" / "csrc" / "polyfit_f64.cu").read_text()
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]) if "--parent" in sys.argv else None
+    rng = np.random.default_rng(SEED)
+
+    def track(t, m):
+        return torch.from_numpy(180 + 2.5 * t[:, None] + 0.1 * t[:, None] ** 2 + rng.normal(0, 3, (len(t), m))).cuda()
+
+    t5, t8 = np.array([-15.0, -10.0, -5.0, 0.0, 3.0]), np.array([-30.0, -25.0, -20.0, -15.0, -10.0, -5.0, 0.0, 3.0])
+    shapes = {
+        "replay": (torch.from_numpy(t5).cuda(), track(t5, 2), torch.ones(1, 5, dtype=torch.float64, device="cuda")),
+        "swarm": (torch.from_numpy(t8).cuda(), track(t8, 6170), torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 8))).cuda()),
+    }
+    for sub in VARIANTS.values():
+        for old, _ in sub[0]:
+            if source.count(old) != 1:
+                raise RuntimeError(f"the kernel source changed: {old!r} is not found once")
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="sweep_polyfit_") as tmp:
+        sources = {"shipped": source}
+        for name, (subs, _, _) in VARIANTS.items():
+            sources[name] = source
+            for old, new in subs:
+                sources[name] = sources[name].replace(old, new)
+        fns = build_all(sources, Path(tmp))
+        libs = {"shipped": (fns["shipped"], None, True), **{k: (fns[k], v[1], v[2]) for k, v in VARIANTS.items()}}
+        old_fit = parent_polyfit(parent, Path(tmp)) if parent is not None else None
+        for shape, (x, y, w) in shapes.items():
+            want = tp.polyfit_reference(x, y, 2, w)
+            row = {}
+            for name in ("shipped", *VARIANTS, "shipped"):
+                fn, per_sm, checked = libs[name]
+                run, grid = launcher(fn, tp, per_sm, x, y, w)
+                got = run()
+                torch.cuda.synchronize()
+                same = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
+                if checked and not same:
+                    raise AssertionError(f"{name} differs from the plain version at the {shape} shape")
+                entry = row.setdefault(name, {"ms": [], "plan": grid, "checked": checked, "bits_equal": same})
+                entry["ms"].append(time_ms(run))
+                if name == "timeline":
+                    entry["phases_us"] = timeline(Path(tmp), run, grid["blocks"])
+            if old_fit is not None:
+                row["parent"] = {"ms": [time_ms(lambda: old_fit(x, y, w))]}
+            results[shape] = row
+    print(card_line())
+    print(json.dumps({"sweep_polyfit": results, "torch": torch.__version__}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -376,3 +376,72 @@ def test_polyfit_on_the_card_never_runs_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="w must be"):
         tp.polyfit(x, y, 2, w[:4])
     torch.cuda.synchronize()
+
+
+def _polyfit_plan(p: int, n: int, deg: int, m: int):
+    from wtracker_tpu_torch.ops.polyfit import plan
+
+    return plan(p, n, deg + 1, m, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _check_polyfit(x, y, deg, w):
+    from wtracker_tpu_torch.ops.polyfit import polyfit, polyfit_reference
+
+    before = polyfit.launches
+    got = polyfit(x, y, deg, w)
+    torch.cuda.synchronize()
+    assert polyfit.launches == before + 1  # one launch whatever the grid
+    assert torch.isfinite(got).all() and _same_bits(got, polyfit_reference(x, y, deg, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [-1, 0, 1, 4 * 224 + 1], ids=["below", "at", "above", "five_tiles"])
+def test_polyfit_kernel_around_a_column_tile_bit_for_bit(extra):
+    """M below, at and just above one column a column thread (224: one
+    tile), and into a fifth tile, at the swarm's P=100 weightings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.polyfit import KERNEL_COL_THREADS
+
+    m = KERNEL_COL_THREADS + extra
+    x, y, w = _polyfit_data("y_2d", 2, 8, m=m, p=100)
+    assert _polyfit_plan(100, 8, 2, m).tiles == (1 if extra <= 0 else 2 if extra == 1 else 5)
+    _check_polyfit(x, y, 2, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, m", [(1, 7993), (1000, 2)], ids=["one_weighting_wide", "many_weightings_narrow"])
+def test_polyfit_kernel_extreme_batches_bit_for_bit(p, m):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, y, w = _polyfit_data("y_2d", 2, 8, m=m, p=p)
+    assert _polyfit_plan(p, 8, 2, m).blocks == p * (36 if m == 7993 else 1)
+    _check_polyfit(x, y, 2, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", range(8))
+def test_polyfit_kernel_at_the_shared_memory_limit_bit_for_bit(deg):
+    """N = 6,144 / (deg + 1): the scaled rows fill the 48 KB the wrapper
+    allows; integral sample times around 0, two weightings, three columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n = 6144 // (deg + 1)
+    rng = np.random.default_rng([deg, n])
+    t = np.arange(n, dtype=np.float64) - n // 2
+    y = 180 + 0.05 * t[:, None] + rng.normal(0, 3, (n, 3))
+    w = rng.uniform(0.0, 1.0, (2, n))
+    w[1, ::3] = 0.0
+    _check_polyfit(*(torch.from_numpy(a).cuda() for a in (t, y)), deg, torch.from_numpy(w).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zero_weights", "all_masked", "rank_deficient"])
+def test_polyfit_kernel_edge_cases_over_several_tiles_bit_for_bit(name):
+    """Zeroed, all-masked (signed zeros in y) and rank-deficient weightings,
+    P=4 of them, 2,000 columns split over several tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, y, w = _polyfit_data(name, 2, 8, m=2000, p=4)
+    assert _polyfit_plan(4, 8, 2, 2000).tiles > 1
+    _check_polyfit(x, y, 2, w)

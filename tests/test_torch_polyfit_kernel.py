@@ -12,6 +12,8 @@ card's side (K3 against the plain version, 0 differing bits) is
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -121,3 +123,75 @@ def test_a_device_without_a_kernel_raises():
     with pytest.raises(ValueError, match="no kernel"):
         tp.polyfit(torch.zeros(5, dtype=torch.float64, device="meta"), torch.zeros(5), 2)
     assert tp.polyfit.launches == before
+
+
+# -- the kernel's launch plan (ops/polyfit.py::plan), pure Python ---------------
+
+PLAN_P = [1, 2, 3, 99, 100, 101, 131, 132, 133, 264, 527, 528, 529, 1000]
+PLAN_M = [1, 2, 3, 31, 223, 224, 225, 1120, 1121, 1233, 1234, 1235, 6170, 7993, 9999, 10000]
+
+
+def _covered(p: int, m: int, grid) -> np.ndarray:
+    """How often each (weighting, column) is fitted: block b fits weighting
+    b // tiles on columns (b % tiles) * tile up to the next tile or M, as
+    the kernel reads its block index."""
+    fit, t = np.divmod(np.arange(grid.blocks), grid.tiles)
+    lo = t * grid.tile
+    assert (lo < m).all()  # no block without a column
+    edges = np.zeros((p, m + 1), np.int64)  # +1 where a block's columns start, -1 past their end
+    np.add.at(edges, (fit, lo), 1)
+    np.add.at(edges, (fit, np.minimum(m, lo + grid.tile)), -1)
+    return edges.cumsum(axis=1)[:, :m]
+
+
+@pytest.mark.parametrize("n, k", [(8, 3), (5, 3), (768, 8), (6144, 1), (2048, 3)])
+def test_plan_fits_every_weighting_and_column_once(n, k):
+    rng = np.random.default_rng(k * 10_000 + n)
+    pairs = [(p, m) for p in PLAN_P for m in PLAN_M] + list(zip(rng.integers(1, 1001, 40), rng.integers(1, 10_001, 40)))
+    for p, m in pairs:
+        grid = tp.plan(int(p), n, k, int(m), 132)
+        assert grid.blocks == p * grid.tiles and grid.tile >= 1, (p, m)
+        assert (_covered(int(p), int(m), grid) == 1).all(), (p, m)
+        # the weighting, its rows, the tile's right-hand sides and the static arrays fit per_sm blocks on an SM
+        assert grid.shared == 8 * (n * (k + 1) + k * grid.tile) <= tp.BLOCK_SHARED, (p, m)
+        static = 8 * (2 * k + 2 * k * k)
+        assert grid.per_sm * (grid.shared + static + tp.BLOCK_RESERVED) <= tp.SM_SHARED, (p, m)
+        assert 1 <= grid.per_sm <= tp.KERNEL_MIN_BLOCKS[k]
+        if p * -(-m // tp.KERNEL_COL_THREADS) <= 132 * grid.per_sm:  # it fits a wave at a column a thread
+            assert grid.blocks <= 132 * grid.per_sm, (p, m)
+
+
+def test_plan_fills_one_wave_at_the_swarms_shape():
+    """The particle swarm's batch (P=100 weightings of N=8 samples, deg 2,
+    M=6,170 columns) fills one wave of the 132 SMs at 4 blocks an SM,
+    a few columns a thread."""
+    grid = tp.plan(100, 8, 3, 6170, 132)
+    wave = 132 * grid.per_sm
+    assert grid.per_sm == 4 and wave // 2 < grid.blocks <= wave
+    assert -(-grid.tile // tp.KERNEL_COL_THREADS) <= 8  # right-hand sides a column thread forms
+    assert -(-grid.tile // tp.KERNEL_THREADS) <= 8  # columns a thread solves and stores
+
+
+def test_plan_of_the_replay_is_one_block():
+    """The polyfit replay's fit: one weighting of N=5, deg 2, M=2."""
+    grid = tp.plan(1, 5, 3, 2, 132)
+    assert (grid.blocks, grid.tiles, grid.tile) == (1, 1, 2)
+
+
+def test_plan_refuses_what_the_kernel_cannot_take():
+    """The wrapper's refusals (it checks the terms before it plans): deg 8
+    and up, and scaled rows beyond 48 KB; 48 KB itself is taken."""
+    for n, k in ((5, 9), (5, 0), (6145, 1), (2049, 3), (769, 8)):
+        with pytest.raises(ValueError, match="deg 0-7 and N\\*\\(deg\\+1\\) <= 6144"):
+            tp.plan(1, n, k, 2, 132)
+    for n, k in ((6144, 1), (2048, 3), (768, 8)):
+        assert tp.plan(1, n, k, 2, 132).blocks == 1
+
+
+def test_plan_constants_are_the_kernels():
+    """The plan mirrors the kernel's block size and residency."""
+    src = (Path(tp.__file__).resolve().parents[1] / "csrc" / "polyfit_f64.cu").read_text()
+    assert re.findall(r"constexpr int kThreads = (\d+);", src) == [str(tp.KERNEL_THREADS)]
+    assert re.findall(r"constexpr int kColThreads = kThreads - (\d+);", src) == [str(tp.KERNEL_THREADS - tp.KERNEL_COL_THREADS)]
+    found = re.search(r"constexpr int kMinBlocks\[9\] = \{([\d, ]+)\};", src)
+    assert found and tuple(int(v) for v in found.group(1).split(",")) == tp.KERNEL_MIN_BLOCKS

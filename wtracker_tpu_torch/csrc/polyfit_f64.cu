@@ -1,4 +1,4 @@
-// Weighted polynomial least squares in float64, one launch a fit, for sm_90a.
+// Weighted polynomial least squares in float64, one launch a call, for sm_90a.
 //
 // Replaces the work XLA lowers for wtracker_tpu/ops/polyfit.py :: polyfit
 // (-> lstsq_minnorm -> jacobi_eigh): the Vandermonde matrix, the weights,
@@ -13,44 +13,80 @@
 // lstsq compute another decomposition), and the plain version is ~1,500
 // eager launches a degree-2 fit, ~1,480 of them the Jacobi rotations.
 //
-// Bound on the H100: a fit is a few thousand float64 operations (a degree-2
-// fit of 5 samples and 2 columns ~2,800, most in the 36 rotations) and ~200
-// bytes, so one fit is at the launch floor; the particle swarm's batch (100
-// weightings x 6,170 columns) is ~61 M operations and 15 MB, bound by its
-// bytes at ~4.5 us (chip_smoke.py::polyfit_work counts them).
+// What bounds it on the H100.  A call has two parts of different shapes.
+// * The setup of a weighting (its scaled Vandermonde rows, the k x k normal
+//   matrix, 12 Jacobi sweeps, the cutoff) is a few thousand operations in
+//   one serial chain: each rotation waits for the one before, and holds a
+//   quotient, two square roots and two reciprocals, each tens of cycles
+//   deep.  At deg 2 its 36 rotations take ~13 us on one lane, whatever the
+//   thread count.
+// * The columns (right-hand side, projection, solve, unscaling) are
+//   independent of each other: at the particle swarm's shape (100
+//   weightings, N=8, 6,170 columns) ~60 M float64 operations and the
+//   14.8 MB (P, k, M) result, whose write is the call's bound, ~4.5 us
+//   (chip_smoke.py::polyfit_work counts both).
+// So the chain bounds the kernel at both shapes: at the replay's (1
+// weighting, N=5, 2 columns) it is the kernel beside the launch; at the
+// swarm's the right-hand sides run beside it and only the solve and the
+// write (~2 us) come after it (sweep_polyfit.py's timeline and ablations).
+//
+// The design.
+// * The grid is weightings x column tiles, flattened: block b fits
+//   weighting b / tiles on columns [(b % tiles) * tile, + tile).
+//   ops/polyfit.py :: plan picks the tile so that the batch fills about one
+//   wave of blocks (kMinBlocks[K] resident on each SM, held by
+//   __launch_bounds__), so every block's setup chain runs at the same time
+//   and each thread holds a few columns.
+// * Each block computes its own weighting's setup: the blocks of one
+//   weighting run the same chain side by side, so its latency is paid once
+//   a wave.  Sharing it over a cluster through distributed shared memory
+//   would save only its operations (~3 % of the swarm's) and add a cluster
+//   barrier to the chain.
+// * Warp 0 runs the setup: its lanes form the normal matrix's k^2 entries
+//   at once, lane 0 runs the Jacobi in registers (K = deg + 1 is a template
+//   parameter, so the arrays unroll).  Meanwhile warps 1-7 form their
+//   columns' right-hand sides A^T (w y) into shared memory, each column's y
+//   loads issued kRows at a time ahead of their use (a thread's first ones
+//   before the setup starts).  The block meets once; then all its threads
+//   project, solve, unscale and store their columns, coalesced.
+// * The chain itself is shorter than a plain reading of the plain version:
+//   1 / x is __drcp_rn (IEEE 1 / x), and sign(tau) / d is the reciprocal of
+//   d with tau's sign (round to nearest is symmetric), so a rotation holds
+//   one quotient where it held three.
 //
 // Exactness.  The plain version runs one torch op a step, so each product,
 // sum, quotient and square root is rounded on its own.  Here every such step
 // is an explicit round-to-nearest intrinsic (__dmul_rn, __dadd_rn,
-// __dsub_rn, __ddiv_rn, __dsqrt_rn), and the file is also compiled with
-// --fmad=false, so no product and sum contract into an FMA.  Division and
-// square root are IEEE on both sides (torch's reciprocal() is 1 / x, and
-// a tensor divided by a tensor is a / b; no division by a Python number
-// appears in the fit).  Sums run in the plain version's order,
-// ((x0 + x1) + x2) + ..., starting from the first term (so a -0.0 stays
-// -0.0).  Rotations whose pivot is below DBL_MIN are selected away as
-// torch.where does, after the same arithmetic, and rows and columns update
-// as c*x + (-+s)*x_flipped.
-//
-// Design (simple first): one block per weighting (the P axis, 1 without a
-// batch).  The block's threads build the scaled Vandermonde rows in shared
-// memory; thread 0 forms the k x k normal matrix and runs the Jacobi in
-// registers (K = deg + 1 <= 8 is a template parameter, so the arrays are
-// unrolled); then the threads share the M right-hand-side columns for the
-// projection, the solve and the unscaling.
+// __dsub_rn, __ddiv_rn, __drcp_rn, __dsqrt_rn), and the file is also
+// compiled with --fmad=false, so no product and sum contract into an FMA.
+// Division, reciprocal and square root are IEEE on both sides (torch's
+// reciprocal() is 1 / x, and a tensor divided by a tensor is a / b; no
+// division by a Python number appears in the fit).  Sums run in the plain
+// version's order, ((x0 + x1) + x2) + ..., starting from the first term (so
+// a -0.0 stays -0.0), and each column's sums stay inside one thread, so the
+// tiling reorders none.  Rotations whose pivot is below DBL_MIN are
+// selected away as torch.where does, after the same arithmetic, and rows
+// and columns update as c*x + (-+s)*x_flipped.
 #include <cuda_runtime.h>
 
 #include <cfloat>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // warp 0 the setup, warps 1-7 the right-hand sides
+constexpr int kColThreads = kThreads - 32;
+constexpr int kRows = 8;  // y rows whose loads a column thread issues together
 constexpr int kSweeps = 12;  // jacobi_eigh's default
+// blocks of kThreads resident on an SM, by K = deg + 1 (__launch_bounds__:
+// at most 64 registers a thread for K <= 3, 128 for K <= 5; lane 0 holds
+// the Jacobi's 2 K^2 doubles)
+constexpr int kMinBlocks[9] = {1, 4, 4, 4, 2, 2, 1, 1, 1};
 
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double quo(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double rcp(double a) { return __drcp_rn(a); }
 
 __device__ __forceinline__ bool is_nan(double v) { return v != v; }
 
@@ -79,8 +115,10 @@ __device__ void jacobi(double (&a)[K][K], double (&v)[K][K]) {
         const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
         const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
         const double sgn = sign_of(tau);
-        const double t = sgn == 0.0 ? quo(1.0, add(tau, root)) : quo(sgn, add(fabs(tau), root));
-        const double c_rot = quo(1.0, __dsqrt_rn(add(mul(t, t), 1.0)));
+        // t = 1 / (tau + root) where sign(tau) is 0, else sign(tau) / (|tau| + root)
+        const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
+        const double t = sgn < 0.0 ? -r : r;
+        const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
         const double s = mul(t, c_rot);
         const double c = rotate ? c_rot : 1.0;
         const double s_sel = rotate ? s : 0.0;
@@ -112,21 +150,40 @@ __device__ void jacobi(double (&a)[K][K], double (&v)[K][K]) {
   }
 }
 
-// x (n,), y (n, m), w (P, n) -> out (P, K, m); cut_factor is
-// max(rcond^2, 16 eps) with rcond = n eps, computed by the wrapper as the
-// plain version computes it.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    polyfit_kernel(const double* __restrict__ x, const double* __restrict__ y, const double* __restrict__ w,
-                   double* __restrict__ out, int n, int m, double cut_factor) {
-  extern __shared__ double lhs[];  // (n, K): the weighted Vandermonde rows, then scaled
-  __shared__ double scl[K], inv[K], evecs[K][K];
-  const double* wb = w + static_cast<size_t>(blockIdx.x) * n;
+// rows i0 .. i0 + kRows - 1 of one y column (0.0 past row n), loads issued together
+__device__ __forceinline__ void load_rows(double (&v)[kRows], const double* col, int i0, int n, int m) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) v[r] = i0 + r < n ? __ldg(col + static_cast<size_t>(i0 + r) * m) : 0.0;
+}
 
-  for (int e = threadIdx.x; e < n * K; e += blockDim.x) {
-    const int i = e / K, j = e % K;
+// x (n,), y (n, m), w (P, n) -> out (P, K, m), in blocks of `tile` columns,
+// `tiles` a weighting; cut_factor is max(rcond^2, 16 eps) with rcond = n eps,
+// computed by the wrapper as the plain version computes it.
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks[K])
+    polyfit_kernel(const double* __restrict__ x, const double* __restrict__ y, const double* __restrict__ w,
+                   double* __restrict__ out, int n, int m, int tile, int tiles, double cut_factor) {
+  extern __shared__ double smem[];
+  double* ws = smem;          // (n,): the weighting
+  double* lhs = ws + n;       // (n, K): the weighted Vandermonde rows, then scaled
+  double* atb = lhs + n * K;  // (K, tile): the block's right-hand sides
+  __shared__ double scl[K], inv[K], evecs[K][K], ata[K * K];
+  const int fit = blockIdx.x / tiles;
+  const int col0 = (blockIdx.x - fit * tiles) * tile;
+  const int cols = min(tile, m - col0);
+  const double* wb = w + static_cast<size_t>(fit) * n;
+  const double* yb = y + col0;
+  const int ct = static_cast<int>(threadIdx.x) - 32;  // a column thread's index, warps 1-7
+
+  double ys[kRows];
+  if (ct >= 0 && ct < cols) load_rows(ys, yb + ct, 0, n, m);  // in flight through the setup
+
+  for (int i = threadIdx.x; i < n; i += kThreads) ws[i] = wb[i];
+  for (int e = threadIdx.x; e < n * K; e += kThreads) {
+    const int i = e / K, j = e - i * K;
+    const double xi = x[i];
     double van = 1.0;  // x^j as x^(j-1) * x
-    for (int d = 0; d < j; ++d) van = mul(van, x[i]);
+    for (int d = 0; d < j; ++d) van = mul(van, xi);
     lhs[e] = mul(van, wb[i]);
   }
   __syncthreads();
@@ -138,55 +195,79 @@ __global__ void __launch_bounds__(kThreads)
     scl[j] = r == 0.0 ? 1.0 : r;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < n * K; e += blockDim.x) lhs[e] = quo(lhs[e], scl[e % K]);
+  for (int e = threadIdx.x; e < n * K; e += kThreads) lhs[e] = quo(lhs[e], scl[e % K]);
   __syncthreads();
 
-  if (threadIdx.x == 0) {
-    double a[K][K], v[K][K];
+  if (ct < 0) {  // warp 0: the normal matrix, one entry a lane, then lane 0's Jacobi
+    for (int e = threadIdx.x; e < K * K; e += 32) {
+      const int p = e / K, q = e - p * K;
+      double acc = mul(lhs[p], lhs[q]);
+      for (int i = 1; i < n; ++i) acc = add(acc, mul(lhs[i * K + p], lhs[i * K + q]));
+      ata[e] = acc;
+    }
+    __syncwarp();
+    if (threadIdx.x == 0) {
+      double a[K][K], v[K][K];
 #pragma unroll
-    for (int p = 0; p < K; ++p) {
+      for (int p = 0; p < K; ++p) {
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        double acc = mul(lhs[p], lhs[q]);
-        for (int i = 1; i < n; ++i) acc = add(acc, mul(lhs[i * K + p], lhs[i * K + q]));
-        a[p][q] = acc;
+        for (int q = 0; q < K; ++q) a[p][q] = ata[p * K + q];
+      }
+      jacobi<K>(a, v);
+      double ev[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) ev[j] = is_nan(a[j][j]) ? a[j][j] : fmax(a[j][j], 0.0);  // clamp_min(0.0)
+      double top = ev[0];  // amax: a NaN wins
+#pragma unroll
+      for (int j = 1; j < K; ++j) {
+        if (!is_nan(top) && (is_nan(ev[j]) || ev[j] > top)) top = ev[j];
+      }
+      const double cutoff = mul(top, cut_factor);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        inv[j] = ev[j] > cutoff ? rcp(ev[j]) : 0.0;
+#pragma unroll
+        for (int i = 0; i < K; ++i) evecs[i][j] = v[i][j];
       }
     }
-    jacobi<K>(a, v);
-    double ev[K];
+  } else {  // warps 1-7: atb = A^T (w y) for the block's columns, summed over the samples in order
+    for (int c = ct; c < cols; c += kColThreads) {
+      const double* yc = yb + c;
+      double acc[K];
 #pragma unroll
-    for (int j = 0; j < K; ++j) ev[j] = is_nan(a[j][j]) ? a[j][j] : fmax(a[j][j], 0.0);  // clamp_min(0.0)
-    double top = ev[0];  // amax: a NaN wins
+      for (int j = 0; j < K; ++j) acc[j] = 0.0;
+      for (int i0 = 0; i0 < n; i0 += kRows) {
+        if (c != ct || i0 != 0) load_rows(ys, yc, i0, n, m);
 #pragma unroll
-    for (int j = 1; j < K; ++j) {
-      if (!is_nan(top) && (is_nan(ev[j]) || ev[j] > top)) top = ev[j];
-    }
-    const double cutoff = mul(top, cut_factor);
+        for (int r = 0; r < kRows; ++r) {
+          const int i = i0 + r;
+          if (i < n) {
+            const double rhs = mul(ys[r], ws[i]);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      inv[j] = ev[j] > cutoff ? quo(1.0, ev[j]) : 0.0;
+            for (int j = 0; j < K; ++j) {
+              const double term = mul(lhs[i * K + j], rhs);
+              acc[j] = i == 0 ? term : add(acc[j], term);
+            }
+          }
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < K; ++i) evecs[i][j] = v[i][j];
+      for (int j = 0; j < K; ++j) atb[j * tile + c] = acc[j];
     }
   }
   __syncthreads();
 
-  double* ob = out + static_cast<size_t>(blockIdx.x) * K * m;
-  for (int col = threadIdx.x; col < m; col += blockDim.x) {
-    double atb[K];
+  double* ob = out + static_cast<size_t>(fit) * K * m + col0;
+  for (int c = threadIdx.x; c < cols; c += kThreads) {
+    double b[K];
 #pragma unroll
-    for (int j = 0; j < K; ++j) atb[j] = mul(lhs[j], mul(y[col], wb[0]));
-    for (int i = 1; i < n; ++i) {
-      const double rhs = mul(y[static_cast<size_t>(i) * m + col], wb[i]);
-#pragma unroll
-      for (int j = 0; j < K; ++j) atb[j] = add(atb[j], mul(lhs[i * K + j], rhs));
-    }
+    for (int j = 0; j < K; ++j) b[j] = atb[j * tile + c];
     double scaled[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) {  // inv * (evecs^T @ atb)
-      double proj = mul(evecs[0][j], atb[0]);
+      double proj = mul(evecs[0][j], b[0]);
 #pragma unroll
-      for (int i = 1; i < K; ++i) proj = add(proj, mul(evecs[i][j], atb[i]));
+      for (int i = 1; i < K; ++i) proj = add(proj, mul(evecs[i][j], b[i]));
       scaled[j] = mul(inv[j], proj);
     }
 #pragma unroll
@@ -194,40 +275,50 @@ __global__ void __launch_bounds__(kThreads)
       double res = mul(evecs[i][0], scaled[0]);
 #pragma unroll
       for (int j = 1; j < K; ++j) res = add(res, mul(evecs[i][j], scaled[j]));
-      ob[static_cast<size_t>(i) * m + col] = quo(res, scl[i]);
+      ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);
     }
   }
 }
 
 template <int K>
-int launch(const double* x, const double* y, const double* w, double* out, int batch, int n, int m,
-           double cut_factor, cudaStream_t stream) {
-  const size_t shared = sizeof(double) * static_cast<size_t>(n) * K;
-  polyfit_kernel<K><<<batch, kThreads, shared, stream>>>(x, y, w, out, n, m, cut_factor);
+int launch(const double* x, const double* y, const double* w, double* out, int batch, int n, int m, int tile,
+           int tiles, double cut_factor, cudaStream_t stream) {
+  const size_t shared = sizeof(double) * (static_cast<size_t>(n) * (K + 1) + static_cast<size_t>(K) * tile);
+  if (shared > (48u << 10)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(polyfit_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = static_cast<long long>(batch) * tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  polyfit_kernel<K><<<static_cast<unsigned>(blocks), kThreads, shared, stream>>>(x, y, w, out, n, m, tile, tiles,
+                                                                                cut_factor);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The C entry point: k = deg + 1 in [1, 8], n * k * 8 bytes of shared
-// memory at most 48 KB (the wrapper checks both); returns the launch's CUDA
-// error code.
+// The C entry point: k = deg + 1 in [1, 8], n * k * 8 bytes of scaled rows
+// at most 48 KB, `tile` columns a block and `tiles` blocks a weighting from
+// ops/polyfit.py :: plan (the wrapper checks all of it); returns the
+// launch's CUDA error code.
 extern "C" int polyfit_f64(const void* x, const void* y, const void* w, void* out, int batch, int n, int m, int k,
-                           double cut_factor, void* stream) {
+                           int tile, int tiles, double cut_factor, void* stream) {
   const auto* xd = static_cast<const double*>(x);
   const auto* yd = static_cast<const double*>(y);
   const auto* wd = static_cast<const double*>(w);
   auto* od = static_cast<double*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile < 1 || tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
-    case 1: return launch<1>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 2: return launch<2>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 3: return launch<3>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 4: return launch<4>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 5: return launch<5>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 6: return launch<6>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 7: return launch<7>(xd, yd, wd, od, batch, n, m, cut_factor, s);
-    case 8: return launch<8>(xd, yd, wd, od, batch, n, m, cut_factor, s);
+    case 1: return launch<1>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 2: return launch<2>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 3: return launch<3>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 4: return launch<4>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 5: return launch<5>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 6: return launch<6>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 7: return launch<7>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
+    case 8: return launch<8>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

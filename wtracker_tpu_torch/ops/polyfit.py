@@ -27,12 +27,13 @@ change of shape and no host sync.
 version's arithmetic and gives its bits; on the CPU it runs the plain
 version, :func:`polyfit_reference`, whose every step is an eager torch op
 (about 1,500 launches a degree-2 fit on the card, most in
-:func:`jacobi_eigh`).
+:func:`jacobi_eigh`).  :func:`plan` cuts a launch into blocks of columns.
 """
 
 from __future__ import annotations
 
-from functools import reduce
+from dataclasses import dataclass
+from functools import cache, reduce
 
 import numpy as np
 import torch
@@ -41,6 +42,64 @@ __all__ = ["jacobi_eigh", "lstsq_minnorm", "polyvander", "polyfit", "polyfit_ref
 
 KERNEL_MAX_TERMS = 8  # deg + 1: the kernel's unrolled Jacobi
 KERNEL_MAX_SHARED = 48 << 10  # bytes of the kernel's (N, deg + 1) scaled Vandermonde rows
+# the kernel's constants (csrc/polyfit_f64.cu; a CPU test reads them back)
+KERNEL_THREADS = 256  # kThreads: warp 0 the setup, the other warps the columns' right-hand sides
+KERNEL_COL_THREADS = KERNEL_THREADS - 32
+KERNEL_MIN_BLOCKS = (1, 4, 4, 4, 2, 2, 1, 1, 1)  # kMinBlocks[deg + 1]: blocks resident on an SM
+SMS = 132  # the H100's streaming multiprocessors
+SM_SHARED = 233_472  # shared memory an SM holds (228 KB)
+BLOCK_SHARED = 232_448  # shared memory a block may use (227 KB)
+BLOCK_RESERVED = 1024  # the runtime's shared memory for each resident block
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch of the kernel: ``tiles`` blocks a weighting, each on
+    ``tile`` columns (block ``b`` fits weighting ``b // tiles`` on columns
+    ``(b % tiles) * tile`` up to the next tile or M), ``blocks`` in all,
+    ``shared`` bytes of dynamic shared memory a block, ``per_sm`` blocks
+    resident on an SM."""
+
+    tile: int
+    tiles: int
+    blocks: int
+    shared: int
+    per_sm: int
+
+
+def _check_terms(n: int, k: int) -> None:
+    if not (1 <= k <= KERNEL_MAX_TERMS and n * k * 8 <= KERNEL_MAX_SHARED):
+        raise ValueError(f"the polyfit kernel takes deg 0-{KERNEL_MAX_TERMS - 1} and N*(deg+1) <= "
+                         f"{KERNEL_MAX_SHARED // 8}, got deg {k - 1}, N {n}")
+
+
+def plan(p: int, n: int, k: int, m: int, sms: int = SMS) -> Plan:
+    """The kernel's grid for P weightings of N samples, k = deg + 1 terms
+    and M columns on a card of ``sms`` SMs.
+
+    Every block runs its weighting's serial setup (the Jacobi) beside its
+    columns, so the batch should fit in one wave of resident blocks: then
+    all the chains run at once.  The weightings' share of that wave sets the
+    tiles a weighting, never more than give each column thread a column.
+    A block's shared memory holds its weighting (N), the scaled rows (N·k)
+    and its columns' right-hand sides (k·tile), at most what lets the
+    kernel's ``per_sm`` blocks share an SM.  A batch larger than a wave
+    (P above it, or columns beyond shared memory) takes more waves."""
+    _check_terms(n, k)
+    fixed = 8 * (n * (k + 1) + 2 * k + 2 * k * k)  # weighting, rows; static scl, inv, evecs, ata
+    per_sm = KERNEL_MIN_BLOCKS[k]
+    while per_sm > 1 and fixed + 8 * k > SM_SHARED // per_sm - BLOCK_RESERVED:
+        per_sm -= 1
+    room = min(BLOCK_SHARED, SM_SHARED // per_sm - BLOCK_RESERVED) - fixed
+    tiles = max(1, min(sms * per_sm // max(p, 1), -(-m // KERNEL_COL_THREADS)))
+    tile = max(1, min(-(-m // tiles), room // (8 * k)))
+    tiles = max(1, -(-m // tile))
+    return Plan(tile=tile, tiles=tiles, blocks=p * tiles, shared=8 * (n * (k + 1) + k * tile), per_sm=per_sm)
+
+
+@cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _sum0(x: torch.Tensor) -> torch.Tensor:
@@ -161,7 +220,7 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     ``x`` on the card launches the kernel (one launch a call, counted in
     ``polyfit.launches``; ``y`` and ``w`` go to ``x``'s device); on the CPU
     this is :func:`polyfit_reference`.  The kernel takes ``deg`` < 8 and N·(deg
-    + 1) ≤ 6,144, and raises otherwise.
+    + 1) ≤ 6,144, and raises otherwise; :func:`plan` sets its grid.
     """
     x = torch.as_tensor(x, dtype=torch.float64)
     if x.device.type == "cpu":
@@ -174,9 +233,7 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     if x.ndim != 1 or y.ndim not in (1, 2) or y.shape[0] != x.shape[0] or x.shape[0] == 0:
         raise ValueError(f"x must be (N,) and y (N,) or (N, M) with N > 0, got {tuple(x.shape)} and {tuple(y.shape)}")
     n, k = x.shape[0], deg + 1
-    if not (1 <= k <= KERNEL_MAX_TERMS and n * k * 8 <= KERNEL_MAX_SHARED):
-        raise ValueError(f"the polyfit kernel takes deg 0-{KERNEL_MAX_TERMS - 1} and N*(deg+1) <= "
-                         f"{KERNEL_MAX_SHARED // 8}, got deg {deg}, N {n}")
+    _check_terms(n, k)
     if w is None:
         w = torch.ones(n, dtype=torch.float64, device=x.device)  # x * 1.0 is x: the plain version's unweighted bits
     w = torch.as_tensor(w, dtype=torch.float64, device=x.device)
@@ -190,10 +247,11 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     eps = torch.finfo(torch.float64).eps
     cut_factor = max((n * eps) ** 2, 16 * eps)  # lstsq_minnorm's, with polyfit's rcond
     if w.shape[0]:
+        grid = plan(w.shape[0], n, k, m, _sms(x.device))
         with torch.cuda.device(x.device):
             err = _build.load("polyfit_f64").polyfit_f64(
-                x.data_ptr(), rhs.data_ptr(), w.data_ptr(), out.data_ptr(), w.shape[0], n, m, k, cut_factor,
-                torch.cuda.current_stream(x.device).cuda_stream,
+                x.data_ptr(), rhs.data_ptr(), w.data_ptr(), out.data_ptr(), w.shape[0], n, m, k, grid.tile,
+                grid.tiles, cut_factor, torch.cuda.current_stream(x.device).cuda_stream,
             )
         if err:
             raise RuntimeError(f"polyfit kernel launch failed with CUDA error {err}")
