@@ -196,18 +196,25 @@ live loop over many streams, at full width:
     frames and ROI 512 px, in chunks of 4 cycles (no hand kernel);
 41. (run right after phase 14) holds K3 against its plain version on the
     card, 0 differing bits and one launch a call, on the polyfit replay's
-    first 20 fits and on seeded fits of degree 1-5 (y one column or two,
-    one weighting or 100, zero weights, all masked, rank-deficient) and at
-    the grid's edges (M around a column tile, P=1 x 7,993 columns, P=1,000
-    x 2, deg 0-7 at the 48 KB limit, the edge cases over several tiles);
-    reports each K3 instantiation's registers, shared memory and spills
-    from ``-Xptxas -v``; and times K3, the plain version,
+    first 20 fits and on seeded fits of degree 1-5, 8, 9, 12 and 15 (y one
+    column or two, one weighting or 100, zero weights, all masked,
+    rank-deficient) and at the grid's edges (M around a column tile, P=1 x
+    7,993 columns, P=1,000 x 2, deg 0-7 at the 48 KB limit, the edge cases
+    over several tiles, N beyond the register form's rows at deg 2 and 8,
+    the general form forced at deg 2, 7 and 8 in shared memory and in its
+    workspace); reports each K3 kernel's registers, shared memory and
+    spills from ``-Xptxas -v``; times K3, the plain version,
     ``torch.linalg.eigh`` of the same normal matrices,
     ``torch.linalg.lstsq`` of the same scaled systems (the whole fit, for
-    full-rank inputs only) and an empty kernel at the replay's shape and
-    the swarm's, beside the bound; with ``--k3-parent DIR`` (the parent
-    commit's tree, unpacked by ``git archive``) also the parent's K3, built
-    from it and timed with this one in turns;
+    full-rank inputs only; deg 2) and an empty kernel at the replay's shape
+    and the swarm's, at deg 2 and deg 8, beside the bound, and K3 alone at
+    deg 3-7; with ``--k3-parent DIR`` (the parent commit's tree, unpacked
+    by ``git archive``) also the parent's K3, built from it and timed with
+    this one in turns; then the polyfit replay at deg 8 over 200 cycles of
+    phase 14's log (the card's text = the CPU's, which a child process
+    computes beside the phase's checks; K3 once a cycle) beside the
+    ``polyfit_optimizer --degree 8`` command on the card (K3 once an
+    epoch);
 42. (in a child process, beside phases 27-29) kills and resumes the
     detector recipe on the card at the CPU test's size (YOLOv8n, 64 px, 3
     epochs): two uninterrupted runs with the card's default kernels (their
@@ -285,6 +292,15 @@ STREAM_CHUNK_CYCLES = 4
 # the in-process run's); --profile traces a cut of 200 cycles
 REPLAY_POLYFIT_TIMES = (-15, -10, -5, 0, 3)
 REPLAY_CLI_CYCLES = 250
+# K3's general form (phase 41): the polyfit replay at deg 8 over 11 sample
+# times for the first 200 cycles of the log, on the card and on the CPU; the
+# polyfit_optimizer command at --degree 8 for a few epochs; 16 sample times
+# for the cases of deg 12 and 15
+HIGH_DEG = 8
+HIGH_DEG_TIMES = tuple(range(-40, 1, 4))
+HIGH_DEG_CYCLES = 200
+HIGH_DEG_EPOCHS = 3
+LONG_TIMES = tuple(range(-60, 1, 4))
 PROFILE_REPLAY_CYCLES = 200
 SWEEP_STREAMS = 96
 # the mixed-geometry live loop: 6 streams of each of exp0-exp4 (30 streams,
@@ -1058,23 +1074,57 @@ def replay_setup(tmp: Path, table: np.ndarray | None = None):
     return exp, table, n, build
 
 
-def cpu_polyfit_replay(tmp: str) -> int:
-    """Phase 14's polyfit replay over every cycle on the CPU, in a child
-    process (``chip_smoke.py --cpu-polyfit TMP``) beside the phase's other
-    CPU reruns: writes ``cpu_polyfit.csv`` and prints its cycles and
-    seconds."""
+def cpu_polyfit_replay(tmp: str, high_deg: bool = False) -> int:
+    """A polyfit replay on the CPU in a child process, beside work on the
+    card: phase 14's over every cycle (``chip_smoke.py --cpu-polyfit TMP``,
+    into ``cpu_polyfit.csv``) or, with ``high_deg``, phase 41's at deg
+    HIGH_DEG over HIGH_DEG_TIMES for HIGH_DEG_CYCLES cycles
+    (``--cpu-polyfit-deg8 TMP``, into ``cpu_polyfit_deg8.csv``).  Prints
+    its cycles and seconds."""
     from wtracker_tpu_torch.sim import engine as te
 
     torch.set_num_threads(1)  # one fit is a few hundred tiny ops: threads only contend
     tmp = Path(tmp)
-    exp, _, n, build = replay_setup(tmp)
-    params, ctl = build("polyfit", "cpu")
+    exp, table, n, build = replay_setup(tmp)
+    if high_deg:
+        params, _ = build("csv", "cpu")
+        times = np.array(HIGH_DEG_TIMES, dtype=np.float64)
+        ctl = te.polyfit_controller(table, params, times, np.ones(len(times)), HIGH_DEG, device="cpu")
+        n = HIGH_DEG_CYCLES
+    else:
+        params, ctl = build("polyfit", "cpu")
     t0 = time.perf_counter()
     logs = te.run_engine(params, ctl, exp.init_position, n, device="cpu")
     seconds = time.perf_counter() - t0
-    (tmp / "cpu_polyfit.csv").write_text(te.logs_to_frame(params, logs).to_csv(index=False))
+    (tmp / CPU_POLYFIT_CSV[high_deg]).write_text(te.logs_to_frame(params, logs).to_csv(index=False))
     print(json.dumps({"cycles": n, "seconds": seconds}))
     return 0
+
+
+CPU_POLYFIT_CSV = {False: "cpu_polyfit.csv", True: "cpu_polyfit_deg8.csv"}
+
+
+def start_cpu_polyfit(tmp: Path, high_deg: bool = False) -> subprocess.Popen:
+    """Starts :func:`cpu_polyfit_replay` in a child process."""
+    flag = "--cpu-polyfit-deg8" if high_deg else "--cpu-polyfit"
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(tmp)], cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_cpu_polyfit(proc: subprocess.Popen, tmp: Path, high_deg: bool = False) -> tuple[dict, str]:
+    """Waits for :func:`start_cpu_polyfit`'s child: its cycles and seconds,
+    and the ``bboxes.csv`` text it wrote."""
+    stdout, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU polyfit replay exited {proc.returncode}:\n{stderr[-4000:]}")
+    return json.loads(stdout.strip().splitlines()[-1]), (tmp / CPU_POLYFIT_CSV[high_deg]).read_text()
+
+
+def stop_child(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict, list]:
@@ -1162,9 +1212,7 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict, list]:
     ]
     # the command runs beside the CPU reruns: polyfit over every cycle in
     # its child process, the others here
-    cpu_polyfit = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-polyfit", str(tmp)], cwd=ROOT,
-                                   env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
-                                   stderr=subprocess.PIPE, text=True)
+    cpu_polyfit = start_cpu_polyfit(tmp)
     try:
         with ThreadPoolExecutor(1) as pool:
             simulate = pool.submit(run_module, cmd)
@@ -1185,20 +1233,15 @@ def replay(tmp: Path, device: str = "cuda") -> tuple[dict, dict, list]:
                         raise AssertionError(f"{name}: the card and the CPU wrote different bboxes.csv text")
                     cpu[name]["identical_text"] = True
             t0 = time.perf_counter()
-            stdout, stderr = cpu_polyfit.communicate(timeout=900)
-            if cpu_polyfit.returncode != 0:
-                raise AssertionError(f"the CPU polyfit replay exited {cpu_polyfit.returncode}:\n{stderr[-4000:]}")
-            ran = json.loads(stdout.strip().splitlines()[-1])
-            if (tmp / "cpu_polyfit.csv").read_text() != texts["polyfit"]:
+            ran, text = finish_cpu_polyfit(cpu_polyfit, tmp)
+            if text != texts["polyfit"]:
                 raise AssertionError("polyfit: the card and the CPU wrote different bboxes.csv text over the whole log")
             cpu["polyfit"] = {"cycles": ran["cycles"], "cycles_per_s": ran["cycles"] / ran["seconds"],
                               "identical_text": True, "child_process": True, "waited_s": time.perf_counter() - t0}
             out["cpu"] = cpu
             out["cli_polyfit_wall_s"], proc = simulate.result()
     finally:
-        if cpu_polyfit.poll() is None:
-            cpu_polyfit.kill()
-            cpu_polyfit.wait()
+        stop_child(cpu_polyfit)
     if proc.returncode != 0:
         raise AssertionError(f"simulate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     cli_lines = (tmp / "simulate" / "bboxes.csv").read_text().splitlines()
@@ -1232,17 +1275,24 @@ def polyfit_work(p: int, n: int, k: int, m: int, sweeps: int = 12) -> tuple[int,
 
 
 def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator) -> list:
-    """Seeded (name, x, y, deg, w) cases on the card: deg 1-5, y (N,) and
-    (N, M), w (N,) and (100, N), zero weights, an all-masked fit (weights
-    and samples zeroed, as the engine zeroes a cycle without detections)
-    and a rank-deficient one, at the engine's and the swarm's times; then
-    the grid's edges: M just below, at and above a column tile and
-    into a fifth one at P=100, P=1 over 7,993 columns, P=1,000 over 2, deg
-    0-7 with N at the 48 KB limit, and the zeroed, all-masked (signed zeros
-    in y) and rank-deficient weightings at P=100 over several tiles."""
+    """Seeded (name, x, y, deg, w, form) cases on the card: deg 1-5, y (N,)
+    and (N, M), w (N,) and (100, N), zero weights, an all-masked fit
+    (weights and samples zeroed, as the engine zeroes a cycle without
+    detections) and a rank-deficient one, at the engine's and the swarm's
+    times; the same at deg 8, 9 (11 sample times), 12 and 15 (16), in the
+    general form; then the grid's edges: M just below, at and above a
+    column tile and into a fifth one at P=100, P=1 over 7,993 columns,
+    P=1,000 over 2, deg 0-7 with N at the 48 KB limit, and the zeroed,
+    all-masked (signed zeros in y) and rank-deficient weightings at P=100
+    over several tiles; N beyond the register form's rows at deg 2
+    (20,000) and 8 (1,000); and deg 2, 7 and 8 at the swarm's batch forced
+    into the general form in shared memory and in its global workspace.
+    ``workspace`` is None (the routing of ``polyfit``) or what
+    ``ops/polyfit.py::_polyfit_kernel`` takes to force the general form."""
     from wtracker_tpu_torch.ops.polyfit import KERNEL_COL_THREADS
 
     cases = []
+    x11, x16 = (torch.tensor(t, dtype=torch.float64, device="cuda") for t in (HIGH_DEG_TIMES, LONG_TIMES))
 
     def track(x, m):
         t = x.cpu().numpy()
@@ -1251,8 +1301,8 @@ def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator)
     def weightings(p, n):
         return torch.from_numpy(rng.uniform(0.0, 1.0, (p, n))).cuda()
 
-    for deg in (1, 2, 3, 4, 5):
-        x = x5 if deg <= 2 else x8
+    for deg in (1, 2, 3, 4, 5, 8, 9, 12, 15):
+        x = x5 if deg <= 2 else x8 if deg <= 5 else x11 if deg <= 9 else x16
         n = x.shape[0]
         y = track(x, 2)
         w = torch.from_numpy(rng.uniform(0.2, 2.0, n)).cuda()
@@ -1282,39 +1332,63 @@ def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator)
     masked_y[::2] = -0.0
     cases += [("p100_m2000_zero_weights", x8, y, 2, zeroed), ("p100_m2000_rank_deficient", x8, y, 2, deficient),
               ("p100_m2000_all_masked", x8, masked_y, 2, torch.zeros_like(w))]
-    return cases
+    for deg, n, m, p in ((2, 20_000, 3, 2), (8, 1_000, 5, 3)):  # the rows recomputed where they are read
+        x = torch.arange(n, dtype=torch.float64, device="cuda") - n // 2
+        y = 180 + 0.05 * x[:, None] + torch.from_numpy(rng.normal(0, 3, (n, m))).cuda()
+        w = weightings(p, n)
+        w[-1, ::3] = 0.0
+        cases.append((f"deg{deg}_n{n}_rows_recomputed", x, y, deg, w))
+    w = weightings(PSO_POP, 8)
+    w[1, [1, 3]] = 0.0
+    w[2] = 0.0
+    w[3, 2:] = 0.0
+    for deg in (2, 7, 8):
+        y = masked_y.clone()
+        y[:, 1:] = track(x8, 1999)
+        for workspace in (False, True):
+            cases.append((f"deg{deg}_p100_m2000_general_{'workspace' if workspace else 'shared'}", x8, y, deg, w,
+                          workspace))
+    return [case if len(case) == 6 else (*case, None) for case in cases]
 
 
 def k3_ptxas(report: str) -> list[dict]:
-    """Registers, static shared memory and spills of each K3 instantiation
-    (K = deg + 1), from ``nvcc -Xptxas -v``'s report of its build."""
+    """Registers, static shared memory and spills of each K3 kernel, from
+    ``nvcc -Xptxas -v``'s report of its build: the register form's
+    instantiations (``"k"``: K = deg + 1) and the general form (``"k"``:
+    ``"general"``)."""
     found, current = {}, None
     for line in report.splitlines():
         name = re.search(r"Function properties for (\S+)", line)
         if name:
-            current = re.search(r"polyfit_kernelILi(\d)E", name.group(1))
-            current = int(current.group(1)) if current else None
+            k = re.search(r"polyfit_kernelILi(\d+)E", name.group(1))
+            current = int(k.group(1)) if k else "general" if "polyfit_general" in name.group(1) else None
             continue
         if current is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             found.setdefault(current, {})["spill_stores"], found[current]["spill_loads"] = map(int, spill.groups())
-        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        used = re.search(r"Used (\d+) registers", line)
         if used:
-            found.setdefault(current, {})["registers"], found[current]["static_smem_bytes"] = map(int, used.groups())
-    return [{"k": k, **v} for k, v in sorted(found.items())]
+            smem = re.search(r"(\d+) bytes smem", line)
+            found.setdefault(current, {})["registers"] = int(used.group(1))
+            found[current]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    general = found.pop("general", None)
+    return [{"k": k, **v} for k, v in sorted(found.items())] + ([{"k": "general", **general}] if general else [])
 
 
 def parent_polyfit(parent: Path, build_dir: Path):
     """The K3 of the parent commit's tree, unpacked at ``parent`` (``git
-    archive``): the entry point before the grid (a block a weighting,
-    thread 0's Jacobi before the columns), built with K3's flags and called
-    as its wrapper called it.  Returns ``fit(x, y, w) -> (P, k, M)`` at deg
-    2, for timing beside this tree's K3 in turns."""
+    archive``): its one form, the register kernel, whose entry point takes
+    the grid but no workspace, built with K3's flags and called as its
+    wrapper called it, on the grid of ``plan``'s register form (which this
+    tree keeps as it was; the entry point now also takes the form and the
+    workspace).  Returns ``fit(x, y, w) -> (P, k, M)`` at deg 2,
+    for timing beside this tree's K3 in turns."""
     import ctypes
 
     from wtracker_tpu_torch.ops import _build
+    from wtracker_tpu_torch.ops.polyfit import plan
 
     lib = build_dir / "libpolyfit_f64_parent.so"
     cmd = [_build._nvcc(), *_build.flags("polyfit_f64"), "-o", str(lib),
@@ -1323,16 +1397,19 @@ def parent_polyfit(parent: Path, build_dir: Path):
     if proc.returncode:
         raise AssertionError(f"the parent's K3 did not build:\n{proc.stdout}{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).polyfit_f64
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     eps = torch.finfo(torch.float64).eps
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def fit(x, y, w):
         n, rhs = x.shape[0], (y if y.ndim > 1 else y[:, None]).contiguous()
         w2 = w.reshape(-1, n).contiguous()
         out = torch.empty((w2.shape[0], 3, rhs.shape[1]), dtype=torch.float64, device=x.device)
+        grid = plan(w2.shape[0], n, 3, rhs.shape[1], sms)
+        assert grid.form == "register"
         err = fn(x.data_ptr(), rhs.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n, rhs.shape[1], 3,
-                 max((n * eps) ** 2, 16 * eps), torch.cuda.current_stream().cuda_stream)
+                 grid.tile, grid.tiles, max((n * eps) ** 2, 16 * eps), torch.cuda.current_stream().cuda_stream)
         if err:
             raise AssertionError(f"the parent's K3 launch failed with CUDA error {err}")
         return out
@@ -1340,32 +1417,76 @@ def parent_polyfit(parent: Path, build_dir: Path):
     return fit
 
 
+def _k3_shape_times(x, y, w, deg: int, sms: int, plain_reps: int = 50, lstsq: bool = False) -> dict:
+    """K3 at one shape and degree beside the plain version (``plain_reps``
+    calls), ``torch.linalg.eigh`` of the same normal matrices, with
+    ``lstsq`` ``torch.linalg.lstsq`` of the same scaled systems, an empty
+    kernel and the bound, with its launch plan; checked bit for bit first."""
+    from wtracker_tpu_torch.ops.polyfit import plan, polyfit, polyfit_reference, polyvander
+
+    def fit():
+        return polyfit(x, y, deg, w)
+
+    got, want = fit(), polyfit_reference(x, y, deg, w)
+    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+        raise AssertionError(f"K3 differs from the plain version at deg {deg}, P {w.reshape(-1, x.shape[0]).shape[0]}")
+    k = deg + 1
+    lhs = polyvander(x, deg) * w[..., :, None]
+    scl = torch.sqrt((lhs * lhs).sum(-2))
+    a = lhs / torch.where(scl == 0, 1.0, scl)[..., None, :]
+    normal = (a.transpose(-1, -2) @ a).reshape(-1, k, k)
+    p = normal.shape[0]
+    ops, moved = polyfit_work(p, x.shape[0], k, y.shape[1])
+    t_ops, t_bytes = ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S
+    grid = plan(p, x.shape[0], k, y.shape[1], sms)
+    out = {
+        "p": p, "n": x.shape[0], "deg": deg, "m": y.shape[1],
+        "plan": {"form": grid.form, "tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks,
+                 "per_sm": grid.per_sm, "shared_bytes": grid.shared, "workspace_bytes": grid.workspace, "sms": sms},
+        "ms": time_ms(fit),
+        "plain_ms": time_ms(lambda: polyfit_reference(x, y, deg, w), reps=plain_reps),
+        "library_ms": time_ms(lambda: torch.linalg.eigh(normal)),
+        "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
+        "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "operations": ops, "bytes": moved,
+    }
+    if lstsq:
+        rhs = (y if y.ndim > 1 else y[:, None]) * w[..., :, None]
+        out["lstsq_ms"] = time_ms(lambda: torch.linalg.lstsq(a, rhs, driver="gels"))
+    return {**out, "bound_share": out["bound_ms"] / out["ms"]}
+
+
 def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> dict:
     """Phase 41: K3 against its plain version on the card, 0 differing bits
-    (signed zeros included) on the polyfit replay's first 20 fits (phase
-    14's warm-up) and on :func:`_polyfit_cases`; then medians of 50 calls
-    (L2 flushed) of K3, the plain version, one batched ``torch.linalg.eigh``
-    of the same normal matrices, one ``torch.linalg.lstsq`` (driver
-    ``gels``, CUDA's only one, which takes full-rank systems only) of the
-    same scaled systems (both timed only; the port calls neither) and an
-    empty kernel, at the replay's shape (one weighting of N=5 samples, deg
-    2, M=2) and the swarm's (WeightEvaluator over phase 14's log, P=100
-    weightings of N=8, deg 2, M its columns), beside each shape's bound.
-    With ``parent`` (the parent commit's tree, ``--k3-parent DIR``) the
-    parent's K3 is built from it and timed with this one in turns (this,
-    parent, parent, this), its bits checked against this one's."""
-    from wtracker_tpu_torch.ops.polyfit import plan, polyfit, polyfit_reference, polyvander
+    (signed zeros included) and one launch a call on the polyfit replay's
+    first 20 fits (phase 14's warm-up) and on :func:`_polyfit_cases`; then
+    medians of 50 calls (L2 flushed) of K3, the plain version, one batched
+    ``torch.linalg.eigh`` of the same normal matrices, one
+    ``torch.linalg.lstsq`` (driver ``gels``, CUDA's only one, which takes
+    full-rank systems only) of the same scaled systems (both timed only; the
+    port calls neither) and an empty kernel, at the replay's shape (one
+    weighting of N=5 samples, deg 2, M=2) and the swarm's (WeightEvaluator
+    over phase 14's log, P=100 weightings of N=8, deg 2, M its columns),
+    beside each shape's bound.  The same at deg 8 (the general form; the
+    plain version over 3 calls) at the replay's shape with the 11
+    HIGH_DEG_TIMES (P=1, M=2) and the swarm's (P=100 weightings of them,
+    WeightEvaluator's columns at those times); K3 alone at deg 3-7 at those
+    two shapes.  With ``parent`` (the
+    parent commit's tree, ``--k3-parent DIR``) the parent's K3 is built
+    from it and timed with this one in turns at deg 2 (this, parent,
+    parent, this), its bits checked against this one's."""
+    from wtracker_tpu_torch.ops.polyfit import _polyfit_kernel, plan, polyfit, polyfit_reference, register_form
     from wtracker_tpu_torch.sim.config import TimingConfig
     from wtracker_tpu_torch.sim.controllers.polyfit import WeightEvaluator
 
     x5 = torch.tensor(sorted(REPLAY_POLYFIT_TIMES), dtype=torch.float64, device="cuda")
     x8 = torch.tensor(EVAL_SAMPLE_TIMES, dtype=torch.float64, device="cuda")
     rng = np.random.default_rng(SEED)
-    cases = [(f"replay_fit{i}", x, y, 2, w) for i, (x, y, w) in enumerate(fits)] + _polyfit_cases(x5, x8, rng)
-    differing, compared, max_err = 0, 0, 0.0
-    for name, x, y, deg, w in cases:
+    cases = [(f"replay_fit{i}", x, y, 2, w, None) for i, (x, y, w) in enumerate(fits)] + _polyfit_cases(x5, x8, rng)
+    differing, compared, max_err, by_form = 0, 0, 0.0, {}
+    for name, x, y, deg, w, workspace in cases:
         before = polyfit.launches
-        got = polyfit(x, y, deg, w)
+        got = polyfit(x, y, deg, w) if workspace is None else _polyfit_kernel(x, y, deg, w, workspace)
         want = polyfit_reference(x, y, deg, w)
         torch.cuda.synchronize()
         if polyfit.launches != before + 1:
@@ -1375,6 +1496,9 @@ def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> d
         bad = int((got.view(torch.int64) != want.view(torch.int64)).sum())
         differing, compared = differing + bad, compared + got.numel()
         max_err = max(max_err, float((got - want).abs().max()))
+        key = f"forced_general_{'workspace' if workspace else 'shared'}" if workspace is not None else (
+            "register" if register_form(x.shape[0], deg + 1) else "general")
+        by_form[key] = by_form.get(key, 0) + 1
         if bad:
             raise AssertionError(f"K3 {name}: {bad} of {got.numel()} coefficients differ from the plain version "
                                  f"(largest {float((got - want).abs().max())})")
@@ -1384,48 +1508,89 @@ def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> d
     timing = TimingConfig.load_json(str(ROOT / "configs" / "timing_config.json"))
     target = timing.cycle_frame_num + timing.imaging_frame_num // 2
     ev = WeightEvaluator([str(tmp / "worm.csv")], timing, np.array(EVAL_SAMPLE_TIMES), target, device="cpu")
+    ev11 = WeightEvaluator([str(tmp / "worm.csv")], timing, np.array(HIGH_DEG_TIMES), target, device="cpu")
     w_pop = torch.from_numpy(rng.uniform(1e-6, 5.0, (PSO_POP, len(EVAL_SAMPLE_TIMES)))).cuda()
     swarm = tuple(torch.from_numpy(np.asarray(a, np.float64)).cuda() for a in (ev.x_input, ev.y_input))
+    x11, y11 = (torch.from_numpy(np.asarray(a, np.float64)).cuda() for a in (ev11.x_input, ev11.y_input))
+    w11 = torch.from_numpy(rng.uniform(1e-6, 5.0, (PSO_POP, x11.shape[0]))).cuda()
+    high = {"replay": (x11, y11[:, :2].contiguous(), torch.ones(x11.shape[0], dtype=torch.float64, device="cuda")),
+            "swarm": (x11, y11, w11)}
     shapes = {"replay": fits[-1], "swarm": (*swarm, w_pop)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    times = {}
+    times, times_deg8 = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_k3_parent_") as build_dir:
         old = parent_polyfit(parent, Path(build_dir)) if parent is not None else None
         for shape, (x, y, w) in shapes.items():
-            got, want = polyfit(x, y, 2, w), polyfit_reference(x, y, 2, w)
-            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
-                raise AssertionError(f"K3 differs from the plain version at the {shape} shape")
-            lhs = polyvander(x, 2) * w[..., :, None]
-            scl = torch.sqrt((lhs * lhs).sum(-2))
-            a = lhs / torch.where(scl == 0, 1.0, scl)[..., None, :]
-            normal = (a.transpose(-1, -2) @ a).reshape(-1, 3, 3)
-            rhs = (y if y.ndim > 1 else y[:, None]) * w[..., :, None]
-            p = normal.shape[0]
-            ops, moved = polyfit_work(p, x.shape[0], 3, y.shape[1])
-            t_ops, t_bytes = ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S
-            grid = plan(p, x.shape[0], 3, y.shape[1], sms)
-            times[shape] = {
-                "p": p, "n": x.shape[0], "deg": 2, "m": y.shape[1],
-                "plan": {"tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks, "per_sm": grid.per_sm,
-                         "shared_bytes": grid.shared, "sms": sms},
-                "ms": time_ms(lambda: polyfit(x, y, 2, w)),
-                "plain_ms": time_ms(lambda: polyfit_reference(x, y, 2, w)),
-                "library_ms": time_ms(lambda: torch.linalg.eigh(normal)),
-                "lstsq_ms": time_ms(lambda: torch.linalg.lstsq(a, rhs, driver="gels")),
-                "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
-                "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "operations": ops, "bytes": moved,
-            }
+            times[shape] = _k3_shape_times(x, y, w, 2, sms, lstsq=True)
             if old is not None:
-                if not torch.equal(old(x, y, w).view(torch.int64), got.reshape(p, 3, -1).view(torch.int64)):
+                got = polyfit(x, y, 2, w).reshape(times[shape]["p"], 3, -1)
+                if not torch.equal(old(x, y, w).view(torch.int64), got.view(torch.int64)):
                     raise AssertionError(f"the parent's K3 and this one differ at the {shape} shape")
                 turns = {"this": [], "parent": []}
                 for who in ("this", "parent", "parent", "this"):
                     fn = (lambda: polyfit(x, y, 2, w)) if who == "this" else (lambda: old(x, y, w))
                     turns[who].append(time_ms(fn))
                 times[shape]["turns_ms"] = turns
-    return {"cases": n_cases, "coefficients_compared": compared, "differing_bits": differing, "max_abs_err": max_err,
-            "replay_fits_checked": len(fits), "times": times}
+    times_deg3_7 = {}
+    for shape, (x, y, w) in high.items():
+        times_deg8[shape] = _k3_shape_times(x, y, w, HIGH_DEG, sms, plain_reps=3)
+        p = w.reshape(-1, x.shape[0]).shape[0]
+        for deg in range(3, 8):  # K3 alone, in the form polyfit routes to
+            ops, moved = polyfit_work(p, x.shape[0], deg + 1, y.shape[1])
+            times_deg3_7.setdefault(shape, {})[deg] = {
+                "form": plan(p, x.shape[0], deg + 1, y.shape[1], sms).form,
+                "ms": time_ms(lambda deg=deg: polyfit(x, y, deg, w)),
+                "bound_ms": max(ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S) * 1e3,
+            }
+    return {"cases": n_cases, "cases_by_form": by_form, "coefficients_compared": compared, "differing_bits": differing,
+            "max_abs_err": max_err, "replay_fits_checked": len(fits), "times": times, "times_deg8": times_deg8,
+            "times_deg3_7": times_deg3_7}
+
+
+def polyfit_high_degree(tmp: Path, timing_path: Path, cpu_replay: subprocess.Popen) -> dict:
+    """Phase 41, the general form on the main paths: the polyfit replay at
+    deg HIGH_DEG over HIGH_DEG_TIMES for the first HIGH_DEG_CYCLES cycles of
+    phase 14's log on the card (K3 once a cycle), whose ``bboxes.csv`` text
+    must equal the CPU's (``cpu_replay``: :func:`start_cpu_polyfit`'s child
+    at that degree, started before the phase's checks), beside the
+    ``polyfit_optimizer`` command at ``--degree`` HIGH_DEG on its default
+    device, the card, for HIGH_DEG_EPOCHS epochs (K3 once for the baseline,
+    once for the first scoring and once an epoch; the written config's
+    degree)."""
+    from wtracker_tpu_torch.sim import engine as te
+    from wtracker_tpu_torch.sim.controllers.polyfit import PolyfitConfig
+
+    exp, table, _, build = replay_setup(tmp)
+    times = np.array(HIGH_DEG_TIMES, dtype=np.float64)
+    args = ["--timing-config", timing_path, "--logs", tmp / "worm.csv", "--output", tmp / "polyfit_deg8.json",
+            "--degree", HIGH_DEG, "--pop", PSO_POP, "--epochs", HIGH_DEG_EPOCHS]
+    with ThreadPoolExecutor(1) as pool:
+        tuned = pool.submit(run_cli, "polyfit_optimizer", args)
+        params, _ = build("csv", "cuda")
+        ctl = te.polyfit_controller(table, params, times, np.ones(len(times)), HIGH_DEG, device="cuda")
+        zero_hand_kernel_launches()
+        t0 = time.perf_counter()
+        logs = te.run_engine(params, ctl, exp.init_position, HIGH_DEG_CYCLES, device="cuda")
+        cuda_sync("cuda")
+        wall = time.perf_counter() - t0
+        launches = check_no_hand_kernel(f"the deg {HIGH_DEG} polyfit replay on the card", expect=("polyfit",))
+        if launches["polyfit"] != HIGH_DEG_CYCLES:
+            raise AssertionError(f"the deg {HIGH_DEG} replay on the card launched K3 {launches['polyfit']} times")
+        text = te.logs_to_frame(params, logs).to_csv(index=False)
+        cmd_wall, stdout, cmd_launches = tuned.result()
+    t0 = time.perf_counter()
+    ran, cpu_text = finish_cpu_polyfit(cpu_replay, tmp, high_deg=True)
+    waited = time.perf_counter() - t0
+    if ran["cycles"] != HIGH_DEG_CYCLES or text != cpu_text:
+        raise AssertionError(f"the deg {HIGH_DEG} polyfit replay: the card and the CPU wrote different bboxes.csv text")
+    cfg = PolyfitConfig.load_json(str(tmp / "polyfit_deg8.json"))
+    if cfg.degree != HIGH_DEG or cmd_launches["polyfit"] != HIGH_DEG_EPOCHS + 2 or not np.isfinite(cfg.weights).all():
+        raise AssertionError(f"polyfit_optimizer --degree {HIGH_DEG}: degree {cfg.degree}, K3 {cmd_launches}")
+    return {"deg": HIGH_DEG, "sample_times": list(HIGH_DEG_TIMES), "cycles": HIGH_DEG_CYCLES,
+            "card_cycles_per_s": HIGH_DEG_CYCLES / wall, "cpu_cycles_per_s": ran["cycles"] / ran["seconds"],
+            "cpu_child_waited_s": waited, "text_equal": True, "k3_launches_replay": launches["polyfit"],
+            "command_wall_s": cmd_wall, "command_epochs": HIGH_DEG_EPOCHS, "command_k3_launches": cmd_launches["polyfit"],
+            "command_mae": re.search(r"MAE uniform (\S+) -> tuned (\S+)", stdout).groups()}
 
 
 def sweep(tmp: Path, device: str = "cuda") -> dict:
@@ -3949,11 +4114,18 @@ def main() -> int:
 
     # -- 41. K3 against its plain version, and its times -------------------------
     k3_parent = Path(sys.argv[sys.argv.index("--k3-parent") + 1]) if "--k3-parent" in sys.argv else None
-    k3 = check_polyfit_kernel(fits, replay_tmp, k3_parent)
-    del fits
-    log(f"K3: {k3['cases']} cases, {k3['differing_bits']} differing of {k3['coefficients_compared']}; " + str({
-        k: {m: v.get(m) for m in ('ms', 'plain_ms', 'library_ms', 'lstsq_ms', 'bound_ms', 'turns_ms')}
-        for k, v in k3['times'].items()}))
+    cpu_deg8 = start_cpu_polyfit(replay_tmp, high_deg=True)  # the deg 8 replay's CPU side, beside the checks
+    try:
+        k3 = check_polyfit_kernel(fits, replay_tmp, k3_parent)
+        del fits
+        log(f"K3: {k3['cases']} cases {k3['cases_by_form']}, {k3['differing_bits']} differing of "
+            f"{k3['coefficients_compared']}; " + str({
+                f"{k}{deg}": {m: v.get(m) for m in ('ms', 'plain_ms', 'library_ms', 'lstsq_ms', 'bound_ms', 'turns_ms')}
+                for deg, t in ((2, k3['times']), (HIGH_DEG, k3['times_deg8'])) for k, v in t.items()}))
+        k3_high = polyfit_high_degree(replay_tmp, ROOT / "configs" / "timing_config.json", cpu_deg8)
+    finally:
+        stop_child(cpu_deg8)
+    log(f"deg {HIGH_DEG}: {k3_high}")
     zero_hand_kernel_launches()
 
     # -- 15. sweeps: the sweep command over exp0-exp4, S streams in process ------
@@ -4138,6 +4310,7 @@ def main() -> int:
     # -- results ---------------------------------------------------------------
     t12, t3 = times[params.imaging_n], times[params.moving_n]
     k3r, k3s = k3["times"]["replay"], k3["times"]["swarm"]
+    k3r8, k3s8 = k3["times_deg8"]["replay"], k3["times_deg8"]["swarm"]
     kernels = {
         "kernels": [
             {
@@ -4252,6 +4425,19 @@ def main() -> int:
                 "library_ms_swarm": k3s["library_ms"],
                 "bound_ms_swarm": k3s["bound_ms"],
                 "swarm_shape": {k: k3s[k] for k in ("p", "n", "deg", "m")},
+                # deg 8: K3's general form at the replay's shape (11 sample times) and the swarm's
+                "ms_deg8": k3r8["ms"],
+                "plain_ms_deg8": k3r8["plain_ms"],
+                "library_ms_deg8": k3r8["library_ms"],
+                "bound_ms_deg8": k3r8["bound_ms"],
+                "ms_swarm_deg8": k3s8["ms"],
+                "plain_ms_swarm_deg8": k3s8["plain_ms"],
+                "library_ms_swarm_deg8": k3s8["library_ms"],
+                "bound_ms_swarm_deg8": k3s8["bound_ms"],
+                "swarm_shape_deg8": {k: k3s8[k] for k in ("p", "n", "deg", "m")},
+                "cases_by_form": k3["cases_by_form"],
+                "launches_deg8_replay": k3_high["k3_launches_replay"],
+                "launches_deg8_command": k3_high["command_k3_launches"],
                 "launches_swarm_in_process": pso["k3_launches_in_process"],
                 "launches_swarm_command": pso["command_k3_launches"],
                 "launches_weight_eval": pt["weight_eval_launches"]["polyfit"],
@@ -4331,7 +4517,7 @@ def main() -> int:
     print(json.dumps({"detector_gates": {**gated, "card": card}}))
     print(json.dumps({"trace_profile": {**traced, "phases_38_39_s": tools_s, "card": card}}))
     print(json.dumps({"bench_tools": {**benched, "phase_40_s": bench_s, "card": card}}))
-    print(json.dumps({"polyfit_kernel": {**k3, "card": card}}))
+    print(json.dumps({"polyfit_kernel": {**k3, "high_degree": k3_high, "card": card}}))
     print(json.dumps({"yolo_resume": {**resumed, "card": card}}))
     if profile:
         print(json.dumps({"profile": {**profiles, "card": card}}))
@@ -4344,8 +4530,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 37, started by the script itself
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    if sys.argv[1:2] == ["--cpu-polyfit"]:  # phase 14's CPU polyfit replay, started by the script itself
-        sys.exit(cpu_polyfit_replay(sys.argv[2]))
+    if sys.argv[1:2] in (["--cpu-polyfit"], ["--cpu-polyfit-deg8"]):  # a CPU polyfit replay of phase 14 or 41
+        sys.exit(cpu_polyfit_replay(sys.argv[2], high_deg=sys.argv[1] == "--cpu-polyfit-deg8"))
     if sys.argv[1:2] == ["--resume-worker"]:  # phase 42's deterministic runs, started by the script itself
         sys.exit(resume_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times the float64 polyfit kernel (K3) against variants of itself.
 
-The kernel (``wtracker_tpu_torch/csrc/polyfit_f64.cu``) runs a weighting's
-serial setup (the 12-sweep Jacobi) in warp 0 beside the column work of
-warps 1-7, then solves and stores its columns.  This script builds a copy
+The kernel's register form (``wtracker_tpu_torch/csrc/polyfit_f64.cu``,
+the form deg 2 takes at these shapes) runs a weighting's serial setup (the
+12-sweep Jacobi) in warp 0 beside the column work of warps 1-7, then solves
+and stores its columns.  This script builds a copy
 of the source for each variant below, with one change each, loads it with
 the shipped entry point's C signature, and times it beside the shipped
 kernel at the polyfit replay's shape (one weighting of N=5 samples, deg 2,
@@ -27,6 +28,21 @@ M=2) and the particle swarm's (P=100 weightings of N=8, deg 2, M=6,170):
 - ``timeline``: the shipped kernel with clock stamps at the ends of its
   phases (held bit for bit), read after one launch: where a block's time
   goes.
+
+Then the general form (deg >= 7) at deg 8, at the polyfit replay's shape
+with 11 sample times (P=1, M=2) and the swarm's (P=100 weightings of
+them, M=5,728, the WeightEvaluator's columns at those times), beside
+``no_jacobi`` and these variants of it:
+
+- ``general_min2``: 2 blocks an SM (at most 128 registers a thread: no
+  spills; the kernel has 4);
+- ``general_serial``: lane 0 alone updates the rows, columns and
+  eigenvectors of a rotation (the kernel: lane j updates entry j);
+- ``general_lane0``: lane 0 alone computes a rotation's scalars and
+  corners and passes them on with shuffles (the kernel: every lane
+  computes them); these three are held bit for bit;
+- ``general_no_rhs``: warps 1-7 form no right-hand side beside the
+  Jacobi (a timing ablation).
 
 Each time is a median of 50 calls, each after a spin and an L2 flush
 (``chip_smoke.time_ms``), shipped first and last.  With ``--parent DIR``
@@ -132,9 +148,67 @@ extern "C" int polyfit_stamps(void* dst, int count) {
 }
 """),
 ]
+ROTATION = """        const bool rotate = fabs(apq) > DBL_MIN;
+        const double safe_apq = rotate ? apq : 1.0;
+        const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
+        const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
+        const double sgn = sign_of(tau);
+        const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
+        const double t = sgn < 0.0 ? -r : r;
+        const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
+        const double s = mul(t, c_rot);
+        const double c = rotate ? c_rot : 1.0;
+        const double s_sel = rotate ? s : 0.0;
+        const double ms_p = mul(s_sel, -1.0), ms_q = mul(s_sel, 1.0);  // (-s, s)
+        // where rows and columns p and q cross: the rows' update, then the columns', then the pair zeroed
+        const double rpp = add(mul(c, app), mul(ms_p, aqp)), rpq = add(mul(c, apq), mul(ms_p, aqq));
+        const double rqp = add(mul(c, aqp), mul(ms_q, app)), rqq = add(mul(c, aqq), mul(ms_q, apq));
+        const double npp = add(mul(c, rpp), mul(ms_p, rpq)), nqq = add(mul(c, rqq), mul(ms_q, rqp));
+        __syncwarp();  // every lane has read the pivot's entries before any is written
+        if (lane == 0) {
+          a[p * k + p] = npp;
+          a[q * k + q] = nqq;
+          a[p * k + q] = 0.0;
+          a[q * k + p] = 0.0;
+        }
+"""
+ROTATION_LANE0 = """        double c = 1.0, ms_p = 0.0, ms_q = 0.0;
+        if (lane == 0) {
+          const bool rotate = fabs(apq) > DBL_MIN;
+          const double safe_apq = rotate ? apq : 1.0;
+          const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
+          const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
+          const double sgn = sign_of(tau);
+          const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
+          const double t = sgn < 0.0 ? -r : r;
+          const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
+          const double s = mul(t, c_rot);
+          c = rotate ? c_rot : 1.0;
+          const double s_sel = rotate ? s : 0.0;
+          ms_p = mul(s_sel, -1.0);
+          ms_q = mul(s_sel, 1.0);
+          const double rpp = add(mul(c, app), mul(ms_p, aqp)), rpq = add(mul(c, apq), mul(ms_p, aqq));
+          const double rqp = add(mul(c, aqp), mul(ms_q, app)), rqq = add(mul(c, aqq), mul(ms_q, apq));
+          a[p * k + p] = add(mul(c, rpp), mul(ms_p, rpq));
+          a[q * k + q] = add(mul(c, rqq), mul(ms_q, rqp));
+          a[p * k + q] = 0.0;
+          a[q * k + p] = 0.0;
+        }
+        c = __shfl_sync(0xffffffffu, c, 0);
+        ms_p = __shfl_sync(0xffffffffu, ms_p, 0);
+        ms_q = __shfl_sync(0xffffffffu, ms_q, 0);
+"""
+GENERAL_VARIANTS = {  # name: (substitutions, the general form's blocks an SM or None, checked)
+    "general_min2": ([("constexpr int kGeneralMinBlocks = 4;", "constexpr int kGeneralMinBlocks = 2;")], 2, True),
+    "general_serial": ([("        for (int j = lane; j < k; j += 32) {\n          if (j != p && j != q) {",
+                         "        if (lane == 0) for (int j = 0; j < k; ++j) {\n          if (j != p && j != q) {")], None, True),
+    "general_lane0": ([(ROTATION, ROTATION_LANE0)], None, True),
+    "general_no_rhs": ([("    for (int c = tid - 32; c < cols; c += kColThreads) {",
+                         "    for (int c = tid - 32; c < 0; c += kColThreads) {")], None, False),
+}
 VARIANTS = {  # name: (substitutions, blocks an SM for deg <= 2 or None, checked against the plain version)
-    "per_sm2": ([("constexpr int kMinBlocks[9] = {1, 4, 4, 4,", "constexpr int kMinBlocks[9] = {1, 2, 2, 2,")], 2, True),
-    "per_sm3": ([("constexpr int kMinBlocks[9] = {1, 4, 4, 4,", "constexpr int kMinBlocks[9] = {1, 3, 3, 3,")], 3, True),
+    "per_sm2": ([("constexpr int kMinBlocks[8] = {1, 4, 4, 4,", "constexpr int kMinBlocks[8] = {1, 2, 2, 2,")], 2, True),
+    "per_sm3": ([("constexpr int kMinBlocks[8] = {1, 4, 4, 4,", "constexpr int kMinBlocks[8] = {1, 3, 3, 3,")], 3, True),
     "store16": ([(STORE, STORE16)], None, True),
     "no_jacobi": ([("constexpr int kSweeps = 12;", "constexpr int kSweeps = 0;")], None, False),
     "no_store": ([(STORE_LINE, "      if (res == 1.25e-300) ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);")], None, False),
@@ -168,29 +242,33 @@ def build_all(sources: dict, tmp: Path) -> dict:
 
 
 @contextlib.contextmanager
-def blocks_per_sm(tp, per_sm: int | None):
-    saved = tp.KERNEL_MIN_BLOCKS
-    if per_sm is not None:
-        tp.KERNEL_MIN_BLOCKS = (saved[0], per_sm, per_sm, per_sm, *saved[4:])
+def blocks_per_sm(tp, per_sm: int | None, deg: int):
+    """``plan`` sized for ``per_sm`` blocks an SM: the register form's for
+    deg <= 2, the general form's at deg >= 7."""
+    saved = tp.KERNEL_MIN_BLOCKS, tp.KERNEL_GENERAL_MIN_BLOCKS
+    if per_sm is not None and deg <= 2:
+        tp.KERNEL_MIN_BLOCKS = (saved[0][0], per_sm, per_sm, per_sm, *saved[0][4:])
+    elif per_sm is not None:
+        tp.KERNEL_GENERAL_MIN_BLOCKS = per_sm
     try:
         yield
     finally:
-        tp.KERNEL_MIN_BLOCKS = saved
+        tp.KERNEL_MIN_BLOCKS, tp.KERNEL_GENERAL_MIN_BLOCKS = saved
 
 
-def launcher(fn, tp, per_sm, x, y, w):
-    """The wrapper's launch of library ``fn`` at deg 2, its plan made once."""
-    n, m = x.shape[0], y.shape[1]
+def launcher(fn, tp, per_sm, x, y, w, deg: int = 2):
+    """The wrapper's launch of library ``fn`` at ``deg``, its plan made once."""
+    n, m, k = x.shape[0], y.shape[1], deg + 1
     w2 = w.reshape(-1, n)
-    with blocks_per_sm(tp, per_sm):
-        grid = tp.plan(w2.shape[0], n, 3, m, torch.cuda.get_device_properties(0).multi_processor_count)
-    out = torch.empty((w2.shape[0], 3, m), dtype=torch.float64, device="cuda")
+    with blocks_per_sm(tp, per_sm, deg):
+        grid = tp.plan(w2.shape[0], n, k, m, torch.cuda.get_device_properties(0).multi_processor_count)
+    out = torch.empty((w2.shape[0], k, m), dtype=torch.float64, device="cuda")
     eps = torch.finfo(torch.float64).eps
     cut = max((n * eps) ** 2, 16 * eps)
 
     def run():
-        err = fn(x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n, m, 3, grid.tile, grid.tiles,
-                 cut, torch.cuda.current_stream().cuda_stream)
+        err = fn(1 if grid.form == "register" else 2, x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                 w2.shape[0], n, m, k, grid.tile, grid.tiles, cut, None, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed with CUDA error {err}")
         return out
@@ -243,30 +321,38 @@ def main() -> int:
         return torch.from_numpy(180 + 2.5 * t[:, None] + 0.1 * t[:, None] ** 2 + rng.normal(0, 3, (len(t), m))).cuda()
 
     t5, t8 = np.array([-15.0, -10.0, -5.0, 0.0, 3.0]), np.array([-30.0, -25.0, -20.0, -15.0, -10.0, -5.0, 0.0, 3.0])
-    shapes = {
-        "replay": (torch.from_numpy(t5).cuda(), track(t5, 2), torch.ones(1, 5, dtype=torch.float64, device="cuda")),
-        "swarm": (torch.from_numpy(t8).cuda(), track(t8, 6170), torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 8))).cuda()),
+    t11 = np.arange(-40.0, 1.0, 4.0)
+    shapes = {  # name: (x, y, w, deg, the variants timed there)
+        "replay": (torch.from_numpy(t5).cuda(), track(t5, 2), torch.ones(1, 5, dtype=torch.float64, device="cuda"), 2,
+                   tuple(VARIANTS)),
+        "swarm": (torch.from_numpy(t8).cuda(), track(t8, 6170), torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 8))).cuda(),
+                  2, tuple(VARIANTS)),
+        "replay_deg8": (torch.from_numpy(t11).cuda(), track(t11, 2), torch.ones(1, 11, dtype=torch.float64, device="cuda"),
+                        8, ("no_jacobi", *GENERAL_VARIANTS)),
+        "swarm_deg8": (torch.from_numpy(t11).cuda(), track(t11, 5728),
+                       torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 11))).cuda(), 8, ("no_jacobi", *GENERAL_VARIANTS)),
     }
-    for sub in VARIANTS.values():
+    variants = {**VARIANTS, **GENERAL_VARIANTS}
+    for sub in variants.values():
         for old, _ in sub[0]:
             if source.count(old) != 1:
                 raise RuntimeError(f"the kernel source changed: {old!r} is not found once")
     results = {}
     with tempfile.TemporaryDirectory(prefix="sweep_polyfit_") as tmp:
         sources = {"shipped": source}
-        for name, (subs, _, _) in VARIANTS.items():
+        for name, (subs, _, _) in variants.items():
             sources[name] = source
             for old, new in subs:
                 sources[name] = sources[name].replace(old, new)
         fns = build_all(sources, Path(tmp))
-        libs = {"shipped": (fns["shipped"], None, True), **{k: (fns[k], v[1], v[2]) for k, v in VARIANTS.items()}}
+        libs = {"shipped": (fns["shipped"], None, True), **{k: (fns[k], v[1], v[2]) for k, v in variants.items()}}
         old_fit = parent_polyfit(parent, Path(tmp)) if parent is not None else None
-        for shape, (x, y, w) in shapes.items():
-            want = tp.polyfit_reference(x, y, 2, w)
+        for shape, (x, y, w, deg, timed) in shapes.items():
+            want = tp.polyfit_reference(x, y, deg, w)
             row = {}
-            for name in ("shipped", *VARIANTS, "shipped"):
+            for name in ("shipped", *timed, "shipped"):
                 fn, per_sm, checked = libs[name]
-                run, grid = launcher(fn, tp, per_sm, x, y, w)
+                run, grid = launcher(fn, tp, per_sm, x, y, w, deg)
                 got = run()
                 torch.cuda.synchronize()
                 same = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
@@ -276,7 +362,7 @@ def main() -> int:
                 entry["ms"].append(time_ms(run))
                 if name == "timeline":
                     entry["phases_us"] = timeline(Path(tmp), run, grid["blocks"])
-            if old_fit is not None:
+            if old_fit is not None and deg == 2:
                 row["parent"] = {"ms": [time_ms(lambda: old_fit(x, y, w))]}
             results[shape] = row
     print(card_line())

@@ -62,5 +62,8 @@ def test_a_sources_own_flags_name_only_its_library(tmp_path, monkeypatch):
 
 def test_polyfit_kernel_rounds_every_product_on_its_own():
     assert "--fmad=false" in _build.flags("polyfit_f64")
-    # x, y, w, out, then batch, n, m, k, the plan (tile, tiles), the cutoff factor (a double), the stream
-    assert _build.SIGNATURES["polyfit_f64"][0][10] is _build._D and len(_build.SIGNATURES["polyfit_f64"][0]) == 12
+    # the form, x, y, w, out, then batch, n, m, k, the plan (tile, tiles), the cutoff factor (a double), the
+    # general form's workspace, the stream
+    args = _build.SIGNATURES["polyfit_f64"][0]
+    assert args[0] is _build._I and args[11] is _build._D and len(args) == 14
+    assert 'extern "C" int polyfit_f64(int form,' in (_build.CSRC / "polyfit_f64.cu").read_text()

@@ -299,7 +299,8 @@ def test_conv_s8_refuses_what_it_cannot_take():
 
 # -- K3: the float64 polyfit ----------------------------------------------------
 
-POLYFIT_TIMES = {5: [-15.0, -10.0, -5.0, 0.0, 3.0], 8: [-30.0, -25.0, -20.0, -15.0, -10.0, -5.0, 0.0, 3.0]}
+POLYFIT_TIMES = {5: [-15.0, -10.0, -5.0, 0.0, 3.0], 8: [-30.0, -25.0, -20.0, -15.0, -10.0, -5.0, 0.0, 3.0],
+                 11: list(np.arange(-40.0, 1.0, 4.0)), 16: list(np.arange(-60.0, 1.0, 4.0))}
 
 
 def _polyfit_data(name: str, deg: int, n: int, m: int = 2, p: int = 0):
@@ -370,9 +371,10 @@ def test_polyfit_on_the_card_never_runs_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(tp, "polyfit_reference", refuse)
     x, y, w = _polyfit_data("y_2d", 2, 5)
+    before = tp.polyfit.launches
     tp.polyfit(x, y, 2, w)
-    with pytest.raises(ValueError, match="deg 0-7"):
-        tp.polyfit(x, y, 8, w)
+    assert tp.polyfit(x, y, 8, w).shape == (9, 2) and tp.polyfit(x, y, 12, w).shape == (13, 2)  # K3's general form
+    assert tp.polyfit.launches == before + 3
     with pytest.raises(ValueError, match="w must be"):
         tp.polyfit(x, y, 2, w[:4])
     torch.cuda.synchronize()
@@ -445,3 +447,81 @@ def test_polyfit_kernel_edge_cases_over_several_tiles_bit_for_bit(name):
     x, y, w = _polyfit_data(name, 2, 8, m=2000, p=4)
     assert _polyfit_plan(4, 8, 2, 2000).tiles > 1
     _check_polyfit(x, y, 2, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [11, 16])
+@pytest.mark.parametrize("deg", range(8, 16))
+@pytest.mark.parametrize("name", ["y_2d", "y_1d", "zero_weights", "all_masked", "rank_deficient"])
+def test_polyfit_general_form_equals_plain_version_bit_for_bit(name, deg, n):
+    """deg 8-15 (the general form), 11 and 16 samples: full rank, fewer
+    samples than terms, zeroed, all masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.polyfit import plan
+
+    x, y, w = _polyfit_data(name, deg, n)
+    assert plan(1, n, deg + 1, 2).form == "general"
+    _check_polyfit(x, y, deg, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg, n, m, p", [(2, 20_000, 3, 2), (8, 1_000, 5, 3), (0, 7_000, 2, 1)])
+def test_polyfit_general_form_beyond_the_register_rows_bit_for_bit(deg, n, m, p):
+    """N·(deg + 1) beyond the register form's 6,144: integral sample times
+    around 0, the rows recomputed where they are read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.polyfit import KERNEL_GENERAL_ROWS
+
+    assert 8 * n * (deg + 2) > KERNEL_GENERAL_ROWS and _polyfit_plan(p, n, deg, m).form == "general"
+    rng = np.random.default_rng([deg, n])
+    t = np.arange(n, dtype=np.float64) - n // 2
+    y = 180 + 0.05 * t[:, None] + rng.normal(0, 3, (n, m))
+    w = rng.uniform(0.0, 1.0, (p, n))
+    w[-1, ::3] = 0.0
+    _check_polyfit(*(torch.from_numpy(a).cuda() for a in (t, y)), deg, torch.from_numpy(w).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workspace", [False, True], ids=["shared", "workspace"])
+@pytest.mark.parametrize("deg", [0, 2, 7, 8])
+def test_polyfit_forced_general_form_bit_for_bit(deg, workspace):
+    """The general form through the wrapper's internal entry at small K,
+    its matrices in shared memory or in the global workspace, at the
+    swarm's batch (P=100 over 2,000 columns) with every edge case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tp = importlib.import_module("wtracker_tpu_torch.ops.polyfit")
+
+    x, y, w = _polyfit_data("y_2d", deg, 8, m=2000, p=100)
+    w[1, [1, 3]] = 0.0
+    w[2] = 0.0
+    w[3, 2:] = 0.0
+    grid = tp.plan(100, 8, deg + 1, 2000, torch.cuda.get_device_properties(0).multi_processor_count, workspace)
+    assert grid.form == "general" and grid.tiles > 1 and (grid.workspace > 0) == workspace
+    before = tp.polyfit.launches
+    got = tp._polyfit_kernel(x, y, deg, w, workspace=workspace)
+    torch.cuda.synchronize()
+    assert tp.polyfit.launches == before + 1
+    assert _same_bits(got, tp.polyfit_reference(x, y, deg, w))
+    if tp.register_form(8, deg + 1):  # the register form, where polyfit routes it, on the same inputs: the same bits
+        assert _same_bits(tp.polyfit(x, y, deg, w), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg, n", [(40, 64), (71, 80)], ids=["k41_shared", "k72_workspace"])
+def test_polyfit_general_form_at_large_degrees_bit_for_bit(deg, n):
+    """K beyond a warp's 32 lanes: the Jacobi's lanes take several entries
+    each; at K = 72 the matrices leave shared memory for the workspace
+    without being asked to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng([deg, n])
+    t = np.arange(n, dtype=np.float64) - n // 2
+    y = 180 + 0.05 * t[:, None] + rng.normal(0, 3, (n, 3))
+    w = rng.uniform(0.2, 2.0, (2, n))
+    w[1, ::4] = 0.0
+    grid = _polyfit_plan(2, n, deg, 3)
+    assert grid.form == "general" and (grid.workspace > 0) == (deg + 1 == 72)
+    _check_polyfit(*(torch.from_numpy(a).cuda() for a in (t, y)), deg, torch.from_numpy(w).cuda())

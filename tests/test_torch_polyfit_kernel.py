@@ -144,12 +144,13 @@ def _covered(p: int, m: int, grid) -> np.ndarray:
     return edges.cumsum(axis=1)[:, :m]
 
 
-@pytest.mark.parametrize("n, k", [(8, 3), (5, 3), (768, 8), (6144, 1), (2048, 3)])
+@pytest.mark.parametrize("n, k", [(8, 3), (5, 3), (877, 7), (6144, 1), (2048, 3)])
 def test_plan_fits_every_weighting_and_column_once(n, k):
     rng = np.random.default_rng(k * 10_000 + n)
     pairs = [(p, m) for p in PLAN_P for m in PLAN_M] + list(zip(rng.integers(1, 1001, 40), rng.integers(1, 10_001, 40)))
     for p, m in pairs:
         grid = tp.plan(int(p), n, k, int(m), 132)
+        assert grid.form == "register", (p, m)
         assert grid.blocks == p * grid.tiles and grid.tile >= 1, (p, m)
         assert (_covered(int(p), int(m), grid) == 1).all(), (p, m)
         # the weighting, its rows, the tile's right-hand sides and the static arrays fit per_sm blocks on an SM
@@ -178,14 +179,21 @@ def test_plan_of_the_replay_is_one_block():
     assert (grid.blocks, grid.tiles, grid.tile) == (1, 1, 2)
 
 
-def test_plan_refuses_what_the_kernel_cannot_take():
-    """The wrapper's refusals (it checks the terms before it plans): deg 8
-    and up, and scaled rows beyond 48 KB; 48 KB itself is taken."""
-    for n, k in ((5, 9), (5, 0), (6145, 1), (2049, 3), (769, 8)):
-        with pytest.raises(ValueError, match="deg 0-7 and N\\*\\(deg\\+1\\) <= 6144"):
+@pytest.mark.parametrize("n, k, form", [
+    (5, 0, None), (5, 9, "general"), (6145, 1, "general"), (2049, 3, "general"), (769, 8, "general"),
+    (878, 7, "general"), (768, 8, "general"), (6144, 1, "register"), (2048, 3, "register"), (877, 7, "register"),
+])
+def test_plan_refuses_what_the_kernel_cannot_take(n, k, form):
+    """The one refusal is k = 0 (deg -1), which JAX cannot fit either.  The
+    old limits (deg 8 and up, scaled rows beyond 48 KB) plan the general
+    form, and so does deg 7 (K = 8: faster there at the swarm's batch);
+    48 KB itself stays in the register form up to deg 6."""
+    if form is None:
+        with pytest.raises(ValueError, match="deg >= 0"):
             tp.plan(1, n, k, 2, 132)
-    for n, k in ((6144, 1), (2048, 3), (768, 8)):
-        assert tp.plan(1, n, k, 2, 132).blocks == 1
+        return
+    grid = tp.plan(1, n, k, 2, 132)
+    assert (grid.form, grid.blocks, grid.workspace) == (form, 1, 0)
 
 
 def test_plan_constants_are_the_kernels():
@@ -193,5 +201,8 @@ def test_plan_constants_are_the_kernels():
     src = (Path(tp.__file__).resolve().parents[1] / "csrc" / "polyfit_f64.cu").read_text()
     assert re.findall(r"constexpr int kThreads = (\d+);", src) == [str(tp.KERNEL_THREADS)]
     assert re.findall(r"constexpr int kColThreads = kThreads - (\d+);", src) == [str(tp.KERNEL_THREADS - tp.KERNEL_COL_THREADS)]
-    found = re.search(r"constexpr int kMinBlocks\[9\] = \{([\d, ]+)\};", src)
+    found = re.search(r"constexpr int kMinBlocks\[8\] = \{([\d, ]+)\};", src)
     assert found and tuple(int(v) for v in found.group(1).split(",")) == tp.KERNEL_MIN_BLOCKS
+    assert re.findall(r"constexpr size_t kGeneralRows = (\d+)u << 10;", src) == [str(tp.KERNEL_GENERAL_ROWS >> 10)]
+    assert re.findall(r"constexpr int kGeneralMinBlocks = (\d+);", src) == [str(tp.KERNEL_GENERAL_MIN_BLOCKS)]
+    assert "return 2 * kk + 2 * kk * kk + kk * kThreads;" in src  # general_fixed

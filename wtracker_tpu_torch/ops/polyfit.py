@@ -2,10 +2,10 @@
 
 Port of :mod:`wtracker_tpu.ops.polyfit`: the column-scaled least-squares
 algorithm of ``numpy.polynomial.polyutils._fit``, solved through an
-eigendecomposition of the (tiny, ≤ 6×6) normal matrix by the JAX package's
-cyclic Jacobi rotations, rotation for rotation.  ``torch.linalg.eigh`` or
-``lstsq`` would compute another decomposition, and the replay engine's logs
-must equal the JAX engine's byte for byte.
+eigendecomposition of the (deg + 1)² normal matrix (3×3 for the deployed
+fits) by the JAX package's cyclic Jacobi rotations, rotation for rotation.
+``torch.linalg.eigh`` or ``lstsq`` would compute another decomposition, and
+the replay engine's logs must equal the JAX engine's byte for byte.
 
 Two rules keep the arithmetic the same on the CPU and on the card:
 
@@ -27,7 +27,10 @@ change of shape and no host sync.
 version's arithmetic and gives its bits; on the CPU it runs the plain
 version, :func:`polyfit_reference`, whose every step is an eager torch op
 (about 1,500 launches a degree-2 fit on the card, most in
-:func:`jacobi_eigh`).  :func:`plan` cuts a launch into blocks of columns.
+:func:`jacobi_eigh`).  The kernel has two forms, one launch either way: a
+register form for small degrees and sample counts, and a general form for
+every other ``deg ≥ 0`` and ``N ≥ 1``; :func:`plan` picks the form and cuts
+a launch into blocks of columns.
 """
 
 from __future__ import annotations
@@ -40,12 +43,13 @@ import torch
 
 __all__ = ["jacobi_eigh", "lstsq_minnorm", "polyvander", "polyfit", "polyfit_reference", "polyval", "fit_and_eval"]
 
-KERNEL_MAX_TERMS = 8  # deg + 1: the kernel's unrolled Jacobi
-KERNEL_MAX_SHARED = 48 << 10  # bytes of the kernel's (N, deg + 1) scaled Vandermonde rows
 # the kernel's constants (csrc/polyfit_f64.cu; a CPU test reads them back)
 KERNEL_THREADS = 256  # kThreads: warp 0 the setup, the other warps the columns' right-hand sides
 KERNEL_COL_THREADS = KERNEL_THREADS - 32
-KERNEL_MIN_BLOCKS = (1, 4, 4, 4, 2, 2, 1, 1, 1)  # kMinBlocks[deg + 1]: blocks resident on an SM
+KERNEL_MIN_BLOCKS = (1, 4, 4, 4, 2, 2, 1, 1)  # kMinBlocks[deg + 1]: the register form's blocks resident on an SM
+KERNEL_REGISTER_ROWS = 48 << 10  # bytes of (N, deg + 1) scaled Vandermonde rows plan sends to the register form
+KERNEL_GENERAL_ROWS = 48 << 10  # kGeneralRows: bytes of weighting and rows the general form keeps in shared memory
+KERNEL_GENERAL_MIN_BLOCKS = 4  # kGeneralMinBlocks: its blocks resident on an SM
 SMS = 132  # the H100's streaming multiprocessors
 SM_SHARED = 233_472  # shared memory an SM holds (228 KB)
 BLOCK_SHARED = 232_448  # shared memory a block may use (227 KB)
@@ -58,34 +62,60 @@ class Plan:
     ``tile`` columns (block ``b`` fits weighting ``b // tiles`` on columns
     ``(b % tiles) * tile`` up to the next tile or M), ``blocks`` in all,
     ``shared`` bytes of dynamic shared memory a block, ``per_sm`` blocks
-    resident on an SM."""
+    resident on an SM; ``form`` is ``"register"`` or ``"general"``, and
+    ``workspace`` the bytes of global memory the general form keeps its
+    blocks' matrices in (0: in shared memory)."""
 
     tile: int
     tiles: int
     blocks: int
     shared: int
     per_sm: int
+    form: str = "register"
+    workspace: int = 0
 
 
-def _check_terms(n: int, k: int) -> None:
-    if not (1 <= k <= KERNEL_MAX_TERMS and n * k * 8 <= KERNEL_MAX_SHARED):
-        raise ValueError(f"the polyfit kernel takes deg 0-{KERNEL_MAX_TERMS - 1} and N*(deg+1) <= "
-                         f"{KERNEL_MAX_SHARED // 8}, got deg {k - 1}, N {n}")
+def _check_terms(k: int) -> None:
+    if k < 1:
+        raise ValueError(f"polyfit needs deg >= 0, got deg {k - 1}")
 
 
-def plan(p: int, n: int, k: int, m: int, sms: int = SMS) -> Plan:
-    """The kernel's grid for P weightings of N samples, k = deg + 1 terms
-    and M columns on a card of ``sms`` SMs.
+def register_form(n: int, k: int) -> bool:
+    """Whether :func:`plan` sends N samples of k terms to the register form:
+    k ≤ 7 (deg ≤ 6; at k = 8 it spilled and timed slower at the swarm's
+    batch than the general form, ``PERF.md``) and rows within 48 KB."""
+    return k < len(KERNEL_MIN_BLOCKS) and n * k * 8 <= KERNEL_REGISTER_ROWS
 
-    Every block runs its weighting's serial setup (the Jacobi) beside its
-    columns, so the batch should fit in one wave of resident blocks: then
-    all the chains run at once.  The weightings' share of that wave sets the
-    tiles a weighting, never more than give each column thread a column.
-    A block's shared memory holds its weighting (N), the scaled rows (N·k)
-    and its columns' right-hand sides (k·tile), at most what lets the
-    kernel's ``per_sm`` blocks share an SM.  A batch larger than a wave
-    (P above it, or columns beyond shared memory) takes more waves."""
-    _check_terms(n, k)
+
+def general_fixed(k: int) -> int:
+    """Doubles of a general-form block's arrays besides the rows: scl and
+    inv, the matrix and its eigenvectors, each thread's scaled projection
+    (the ``.cu``'s ``general_fixed``)."""
+    return 2 * k + 2 * k * k + k * KERNEL_THREADS
+
+
+def plan(p: int, n: int, k: int, m: int, sms: int = SMS, workspace: bool | None = None) -> Plan:
+    """The kernel's form and grid for P weightings of N samples, k = deg +
+    1 terms and M columns on a card of ``sms`` SMs: the register form where
+    :func:`register_form` takes the call, else the general form.
+    ``workspace`` forces the general form, its block's matrices in the
+    global workspace (True) or in shared memory (False).
+
+    Every block runs its weighting's serial setup (the Jacobi) beside or
+    before its columns, so the batch should fit in one wave of resident
+    blocks: then all the chains run at once.  The weightings' share of that
+    wave sets the tiles a weighting, never more than give each column thread
+    a column.  In the register form a block's shared memory holds its
+    weighting (N), the scaled rows (N·k) and its columns' right-hand sides
+    (k·tile), at most what lets the kernel's ``per_sm`` blocks share an SM.
+    The general form's holds the weighting and rows while they fit
+    ``KERNEL_GENERAL_ROWS``, and the block's matrices and its threads'
+    arrays (:func:`general_fixed`) unless they go to the workspace, which
+    they do where the whole would not fit a block.  A batch larger than a
+    wave (P above it, or columns beyond shared memory) takes more waves."""
+    _check_terms(k)
+    if workspace is not None or not register_form(n, k):
+        return _plan_general(p, n, k, m, sms, workspace)
     fixed = 8 * (n * (k + 1) + 2 * k + 2 * k * k)  # weighting, rows; static scl, inv, evecs, ata
     per_sm = KERNEL_MIN_BLOCKS[k]
     while per_sm > 1 and fixed + 8 * k > SM_SHARED // per_sm - BLOCK_RESERVED:
@@ -95,6 +125,22 @@ def plan(p: int, n: int, k: int, m: int, sms: int = SMS) -> Plan:
     tile = max(1, min(-(-m // tiles), room // (8 * k)))
     tiles = max(1, -(-m // tile))
     return Plan(tile=tile, tiles=tiles, blocks=p * tiles, shared=8 * (n * (k + 1) + k * tile), per_sm=per_sm)
+
+
+def _plan_general(p: int, n: int, k: int, m: int, sms: int, workspace: bool | None) -> Plan:
+    rows = 8 * n * (k + 1) if 8 * n * (k + 1) <= KERNEL_GENERAL_ROWS else 0
+    fixed = 8 * general_fixed(k)
+    if workspace is None:
+        workspace = rows + fixed > BLOCK_SHARED
+    shared = rows + (0 if workspace else fixed)
+    per_sm = KERNEL_GENERAL_MIN_BLOCKS
+    while per_sm > 1 and shared > SM_SHARED // per_sm - BLOCK_RESERVED:
+        per_sm -= 1
+    tiles = max(1, min(sms * per_sm // max(p, 1), -(-m // KERNEL_THREADS)))
+    tile = max(1, -(-m // tiles))
+    tiles = max(1, -(-m // tile))
+    return Plan(tile=tile, tiles=tiles, blocks=p * tiles, shared=shared, per_sm=per_sm, form="general",
+                workspace=p * tiles * fixed if workspace else 0)
 
 
 @cache
@@ -120,7 +166,7 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
 def jacobi_eigh(a: torch.Tensor, sweeps: int = 12) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric eigendecomposition by cyclic Jacobi rotations.
 
-    For the tiny (k ≤ 8) normal matrices of polynomial fitting: ``sweeps ·
+    For the k × k normal matrices of polynomial fitting (k = deg + 1): ``sweeps ·
     k(k−1)/2`` Givens rotations, unrolled in Python, with the JAX package's
     float64 expressions (a rotation whose pivot is below ``tiny`` is the
     identity, selected with ``torch.where``, never by a branch on a value).
@@ -219,12 +265,20 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
 
     ``x`` on the card launches the kernel (one launch a call, counted in
     ``polyfit.launches``; ``y`` and ``w`` go to ``x``'s device); on the CPU
-    this is :func:`polyfit_reference`.  The kernel takes ``deg`` < 8 and N·(deg
-    + 1) ≤ 6,144, and raises otherwise; :func:`plan` sets its grid.
+    this is :func:`polyfit_reference`.  The kernel takes every ``deg`` ≥ 0
+    and N ≥ 1; :func:`plan` picks its form and sets its grid.
     """
     x = torch.as_tensor(x, dtype=torch.float64)
     if x.device.type == "cpu":
         return polyfit_reference(x, y, deg, w)
+    return _polyfit_kernel(x, y, deg, w)
+
+
+def _polyfit_kernel(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None = None,
+                    workspace: bool | None = None) -> torch.Tensor:
+    """:func:`polyfit` on the card; ``workspace`` forces the general form
+    as :func:`plan` takes it (tests reach the general form at small
+    degrees, and its global workspace, through it)."""
     if not x.is_cuda:
         raise ValueError(f"no kernel for device {x.device}")
     from wtracker_tpu_torch.ops import _build
@@ -233,7 +287,7 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     if x.ndim != 1 or y.ndim not in (1, 2) or y.shape[0] != x.shape[0] or x.shape[0] == 0:
         raise ValueError(f"x must be (N,) and y (N,) or (N, M) with N > 0, got {tuple(x.shape)} and {tuple(y.shape)}")
     n, k = x.shape[0], deg + 1
-    _check_terms(n, k)
+    _check_terms(k)
     if w is None:
         w = torch.ones(n, dtype=torch.float64, device=x.device)  # x * 1.0 is x: the plain version's unweighted bits
     w = torch.as_tensor(w, dtype=torch.float64, device=x.device)
@@ -247,12 +301,14 @@ def polyfit(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor | None =
     eps = torch.finfo(torch.float64).eps
     cut_factor = max((n * eps) ** 2, 16 * eps)  # lstsq_minnorm's, with polyfit's rcond
     if w.shape[0]:
-        grid = plan(w.shape[0], n, k, m, _sms(x.device))
+        grid = plan(w.shape[0], n, k, m, _sms(x.device), workspace)
+        scratch = torch.empty(grid.workspace // 8, dtype=torch.float64, device=x.device) if grid.workspace else None
+        lib = _build.load("polyfit_f64")
         with torch.cuda.device(x.device):
-            err = _build.load("polyfit_f64").polyfit_f64(
-                x.data_ptr(), rhs.data_ptr(), w.data_ptr(), out.data_ptr(), w.shape[0], n, m, k, grid.tile,
-                grid.tiles, cut_factor, torch.cuda.current_stream(x.device).cuda_stream,
-            )
+            err = lib.polyfit_f64(1 if grid.form == "register" else 2, x.data_ptr(), rhs.data_ptr(), w.data_ptr(),
+                                  out.data_ptr(), w.shape[0], n, m, k, grid.tile, grid.tiles, cut_factor,
+                                  None if scratch is None else scratch.data_ptr(),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"polyfit kernel launch failed with CUDA error {err}")
         polyfit.launches += 1
