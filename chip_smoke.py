@@ -202,17 +202,19 @@ live loop over many streams, at full width:
     7,993 columns, P=1,000 x 2, deg 0-7 at the 48 KB limit, the edge cases
     over several tiles, N beyond the register form's rows at deg 2 and 8,
     the general form forced at deg 2, 7 and 8 in shared memory and in its
-    workspace); reports each K3 kernel's registers, shared memory and
-    spills from ``-Xptxas -v``; times K3, the plain version,
-    ``torch.linalg.eigh`` of the same normal matrices,
-    ``torch.linalg.lstsq`` of the same scaled systems (the whole fit, for
-    full-rank inputs only; deg 2) and an empty kernel at the replay's shape
-    and the swarm's, at deg 2 and deg 8, beside the bound, and K3 alone at
-    deg 3-7; with ``--k3-parent DIR`` (the parent commit's tree, unpacked
-    by ``git archive``) also the parent's K3, built from it and timed with
-    this one in turns; then the polyfit replay at deg 8 over 200 cycles of
-    phase 14's log (the card's text = the CPU's, which a child process
-    computes beside the phase's checks; K3 once a cycle) beside the
+    workspace, the wave form below deg 7 over several tiles); reports each
+    K3 kernel's registers, shared memory and spills from ``-Xptxas -v``;
+    times K3, the plain version, ``torch.linalg.eigh`` of the same normal
+    matrices, ``torch.linalg.lstsq`` of the same scaled systems (the whole
+    fit, for full-rank inputs only) and an empty kernel at the replay's
+    shape and the swarm's, at deg 2 and deg 8, beside the bound, and K3
+    alone beside its bound at deg 3-7; with ``--k3-parent DIR`` (the
+    parent commit's tree, unpacked by ``git archive``) also the parent's
+    K3, built from it and timed with this one in turns, and ``eigh``,
+    ``lstsq`` and the empty kernel at deg 3-7; then the polyfit replay at
+    deg 8 over 200 cycles of phase 14's log (the card's text = the CPU's,
+    which a child process computes beside the phase's checks; K3 once a
+    cycle) beside the
     ``polyfit_optimizer --degree 8`` command on the card (K3 once an
     epoch);
 42. (in a child process, beside phases 27-29) kills and resumes the
@@ -300,6 +302,7 @@ HIGH_DEG = 8
 HIGH_DEG_TIMES = tuple(range(-40, 1, 4))
 HIGH_DEG_CYCLES = 200
 HIGH_DEG_EPOCHS = 3
+LSTSQ_REPS = 7  # torch.linalg.lstsq calls a timing (gels takes 17-54 ms at the swarm's shape)
 LONG_TIMES = tuple(range(-60, 1, 4))
 PROFILE_REPLAY_CYCLES = 200
 SWEEP_STREAMS = 96
@@ -1275,7 +1278,7 @@ def polyfit_work(p: int, n: int, k: int, m: int, sweeps: int = 12) -> tuple[int,
 
 
 def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator) -> list:
-    """Seeded (name, x, y, deg, w, form) cases on the card: deg 1-5, y (N,)
+    """Seeded (name, x, y, deg, w, workspace) cases on the card: deg 1-5, y (N,)
     and (N, M), w (N,) and (100, N), zero weights, an all-masked fit
     (weights and samples zeroed, as the engine zeroes a cycle without
     detections) and a rank-deficient one, at the engine's and the swarm's
@@ -1285,11 +1288,14 @@ def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator)
     P=1,000 over 2, deg 0-7 with N at the 48 KB limit, and the zeroed,
     all-masked (signed zeros in y) and rank-deficient weightings at P=100
     over several tiles; N beyond the register form's rows at deg 2
-    (20,000) and 8 (1,000); and deg 2, 7 and 8 at the swarm's batch forced
-    into the general form in shared memory and in its global workspace.
-    ``workspace`` is None (the routing of ``polyfit``) or what
-    ``ops/polyfit.py::_polyfit_kernel`` takes to force the general form."""
-    from wtracker_tpu_torch.ops.polyfit import KERNEL_COL_THREADS
+    (20,000), 8 (1,000) and 12 (500); deg 2, 7 and 8 at the swarm's batch
+    forced into the general form in shared memory and in its global
+    workspace; the wave form below deg 7 with every edge case, deg 4-6 at
+    the swarm's batch and deg 0, 2 and 3 with N just beyond the register
+    form's rows.  ``workspace`` is None (the routing of ``polyfit``) or
+    what ``ops/polyfit.py::_polyfit_kernel`` takes to force the general
+    form."""
+    from wtracker_tpu_torch.ops.polyfit import KERNEL_COL_THREADS, KERNEL_REGISTER_ROWS
 
     cases = []
     x11, x16 = (torch.tensor(t, dtype=torch.float64, device="cuda") for t in (HIGH_DEG_TIMES, LONG_TIMES))
@@ -1348,20 +1354,38 @@ def _polyfit_cases(x5: torch.Tensor, x8: torch.Tensor, rng: np.random.Generator)
         for workspace in (False, True):
             cases.append((f"deg{deg}_p100_m2000_general_{'workspace' if workspace else 'shared'}", x8, y, deg, w,
                           workspace))
+    for deg in (4, 5, 6):  # the wave form below deg 7 at the swarm's batch
+        y = masked_y.clone()
+        y[:, 1:] = track(x8, 1999)
+        cases.append((f"deg{deg}_p100_m2000_wave", x8, y, deg, w))
+    for deg in (0, 2, 3):  # and below deg 4, where plan routes it: rows beyond the register form's
+        n = KERNEL_REGISTER_ROWS // (8 * (deg + 1)) + 1
+        x = torch.arange(n, dtype=torch.float64, device="cuda") - n // 2
+        y = 180 + 0.05 * x[:, None] + torch.from_numpy(rng.normal(0, 3, (n, 500))).cuda()
+        y[::2, 0] = -0.0
+        wn = weightings(4, n)
+        wn[1, ::3] = 0.0
+        wn[2] = 0.0
+        wn[3, 2:] = 0.0
+        cases.append((f"deg{deg}_n{n}_m500_wave", x, y, deg, wn))
+    x = torch.arange(500, dtype=torch.float64, device="cuda") - 250  # deg 12's rows beyond 48 KB: recomputed
+    y = 180 + 0.05 * x[:, None] + torch.from_numpy(rng.normal(0, 3, (500, 4))).cuda()
+    cases.append(("deg12_n500_rows_recomputed", x, y, 12, weightings(3, 500)))
     return [case if len(case) == 6 else (*case, None) for case in cases]
 
 
 def k3_ptxas(report: str) -> list[dict]:
     """Registers, static shared memory and spills of each K3 kernel, from
-    ``nvcc -Xptxas -v``'s report of its build: the register form's
-    instantiations (``"k"``: K = deg + 1) and the general form (``"k"``:
-    ``"general"``)."""
+    ``nvcc -Xptxas -v``'s report of its build: the register form's and the
+    wave form's instantiations (``"k"``: K = deg + 1) and the general form
+    (``"k"``: None), each with its ``"form"``."""
     found, current = {}, None
     for line in report.splitlines():
         name = re.search(r"Function properties for (\S+)", line)
         if name:
-            k = re.search(r"polyfit_kernelILi(\d+)E", name.group(1))
-            current = int(k.group(1)) if k else "general" if "polyfit_general" in name.group(1) else None
+            k = re.search(r"polyfit_(kernel|wave)ILi(\d+)E", name.group(1))
+            current = (("register" if k.group(1) == "kernel" else "wave", int(k.group(2))) if k
+                       else ("general", None) if "polyfit_general" in name.group(1) else None)
             continue
         if current is None:
             continue
@@ -1373,22 +1397,24 @@ def k3_ptxas(report: str) -> list[dict]:
             smem = re.search(r"(\d+) bytes smem", line)
             found.setdefault(current, {})["registers"] = int(used.group(1))
             found[current]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
-    general = found.pop("general", None)
-    return [{"k": k, **v} for k, v in sorted(found.items())] + ([{"k": "general", **general}] if general else [])
+    order = {"register": 0, "wave": 1, "general": 2}
+    keys = sorted(found, key=lambda key: (order[key[0]], key[1] or 0))
+    return [{"form": form, "k": k, **found[form, k]} for form, k in keys]
 
 
 def parent_polyfit(parent: Path, build_dir: Path):
     """The K3 of the parent commit's tree, unpacked at ``parent`` (``git
-    archive``): its one form, the register kernel, whose entry point takes
-    the grid but no workspace, built with K3's flags and called as its
-    wrapper called it, on the grid of ``plan``'s register form (which this
-    tree keeps as it was; the entry point now also takes the form and the
-    workspace).  Returns ``fit(x, y, w) -> (P, k, M)`` at deg 2,
-    for timing beside this tree's K3 in turns."""
+    archive``), built with K3's flags and called as its wrapper called it:
+    its entry point takes the form (1 the register form, 2 the general
+    form), the grid and a workspace, and its grid is this tree's ``plan``
+    for the register form and ``plan(..., workspace=False)`` (its general
+    form's plan, kept here as it was) for the general form, which it took
+    for deg >= 7.  Returns ``fit(x, y, w, deg) -> (P, k, M)``, for timing
+    beside this tree's K3 in turns."""
     import ctypes
 
     from wtracker_tpu_torch.ops import _build
-    from wtracker_tpu_torch.ops.polyfit import plan
+    from wtracker_tpu_torch.ops.polyfit import plan, register_form
 
     lib = build_dir / "libpolyfit_f64_parent.so"
     cmd = [_build._nvcc(), *_build.flags("polyfit_f64"), "-o", str(lib),
@@ -1397,19 +1423,21 @@ def parent_polyfit(parent: Path, build_dir: Path):
     if proc.returncode:
         raise AssertionError(f"the parent's K3 did not build:\n{proc.stdout}{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).polyfit_f64
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 6, ctypes.c_double, *[ctypes.c_void_p] * 2]
     fn.restype = ctypes.c_int
     eps = torch.finfo(torch.float64).eps
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def fit(x, y, w):
-        n, rhs = x.shape[0], (y if y.ndim > 1 else y[:, None]).contiguous()
+    def fit(x, y, w, deg=2):
+        n, k, rhs = x.shape[0], deg + 1, (y if y.ndim > 1 else y[:, None]).contiguous()
         w2 = w.reshape(-1, n).contiguous()
-        out = torch.empty((w2.shape[0], 3, rhs.shape[1]), dtype=torch.float64, device=x.device)
-        grid = plan(w2.shape[0], n, 3, rhs.shape[1], sms)
-        assert grid.form == "register"
-        err = fn(x.data_ptr(), rhs.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n, rhs.shape[1], 3,
-                 grid.tile, grid.tiles, max((n * eps) ** 2, 16 * eps), torch.cuda.current_stream().cuda_stream)
+        out = torch.empty((w2.shape[0], k, rhs.shape[1]), dtype=torch.float64, device=x.device)
+        register = register_form(n, k)
+        grid = plan(w2.shape[0], n, k, rhs.shape[1], sms, None if register else False)
+        assert grid.form == ("register" if register else "general") and not grid.workspace
+        err = fn(1 if register else 2, x.data_ptr(), rhs.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n,
+                 rhs.shape[1], k, grid.tile, grid.tiles, max((n * eps) ** 2, 16 * eps), None,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise AssertionError(f"the parent's K3 launch failed with CUDA error {err}")
         return out
@@ -1417,12 +1445,15 @@ def parent_polyfit(parent: Path, build_dir: Path):
     return fit
 
 
-def _k3_shape_times(x, y, w, deg: int, sms: int, plain_reps: int = 50, lstsq: bool = False) -> dict:
-    """K3 at one shape and degree beside the plain version (``plain_reps``
-    calls), ``torch.linalg.eigh`` of the same normal matrices, with
-    ``lstsq`` ``torch.linalg.lstsq`` of the same scaled systems, an empty
-    kernel and the bound, with its launch plan; checked bit for bit first."""
-    from wtracker_tpu_torch.ops.polyfit import plan, polyfit, polyfit_reference, polyvander
+def _k3_shape_times(x, y, w, deg: int, sms: int, plain_reps: int = 50, library: bool = True,
+                    plain: bool = True) -> dict:
+    """K3 at one shape and degree beside the bound and (``plain``) the
+    plain version (``plain_reps`` calls) and (``library``)
+    ``torch.linalg.eigh`` of the same normal matrices,
+    ``torch.linalg.lstsq`` of the same scaled systems and an empty kernel,
+    with its launch plan and, in the wave form, its rotations, steps and
+    rows; checked bit for bit first."""
+    from wtracker_tpu_torch.ops.polyfit import plan, polyfit, polyfit_reference, polyvander, wave_schedule
 
     def fit():
         return polyfit(x, y, deg, w)
@@ -1442,21 +1473,34 @@ def _k3_shape_times(x, y, w, deg: int, sms: int, plain_reps: int = 50, lstsq: bo
     out = {
         "p": p, "n": x.shape[0], "deg": deg, "m": y.shape[1],
         "plan": {"form": grid.form, "tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks,
-                 "per_sm": grid.per_sm, "shared_bytes": grid.shared, "workspace_bytes": grid.workspace, "sms": sms},
+                 "per_sm": grid.per_sm, "shared_bytes": grid.shared, "workspace_bytes": grid.workspace,
+                 "hold": grid.hold, "sms": sms},
         "ms": time_ms(fit),
-        "plain_ms": time_ms(lambda: polyfit_reference(x, y, deg, w), reps=plain_reps),
-        "library_ms": time_ms(lambda: torch.linalg.eigh(normal)),
-        "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
+        "plain_ms": time_ms(lambda: polyfit_reference(x, y, deg, w), reps=plain_reps) if plain else None,
+        "library_ms": time_ms(lambda: torch.linalg.eigh(normal)) if library else None,
+        "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)) if library else None,
         "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "operations": ops, "bytes": moved,
     }
-    if lstsq:
+    if grid.form == "wave":
+        sched = wave_schedule(k)
+        out["wave"] = {"rotations": len(sched.rotations), "steps": len(set(sched.scalar_row)), "rows": len(sched.rows)}
+    if library:
         rhs = (y if y.ndim > 1 else y[:, None]) * w[..., :, None]
-        out["lstsq_ms"] = time_ms(lambda: torch.linalg.lstsq(a, rhs, driver="gels"))
+        out["lstsq_ms"] = time_ms(lambda: torch.linalg.lstsq(a, rhs, driver="gels"), reps=LSTSQ_REPS)
     return {**out, "bound_share": out["bound_ms"] / out["ms"]}
 
 
-def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> dict:
+def _turns(this, other) -> dict:
+    """Medians of ``this`` and ``other`` timed in turns: this, other,
+    other, this."""
+    turns = {"this": [], "other": []}
+    for who in ("this", "other", "other", "this"):
+        turns[who].append(time_ms(this if who == "this" else other))
+    return turns
+
+
+def check_polyfit_kernel(fits: list, tmp: Path, old=None) -> dict:
     """Phase 41: K3 against its plain version on the card, 0 differing bits
     (signed zeros included) and one launch a call on the polyfit replay's
     first 20 fits (phase 14's warm-up) and on :func:`_polyfit_cases`; then
@@ -1467,15 +1511,16 @@ def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> d
     port calls neither) and an empty kernel, at the replay's shape (one
     weighting of N=5 samples, deg 2, M=2) and the swarm's (WeightEvaluator
     over phase 14's log, P=100 weightings of N=8, deg 2, M its columns),
-    beside each shape's bound.  The same at deg 8 (the general form; the
+    beside each shape's bound.  The same at deg 8 (the wave form; the
     plain version over 3 calls) at the replay's shape with the 11
     HIGH_DEG_TIMES (P=1, M=2) and the swarm's (P=100 weightings of them,
-    WeightEvaluator's columns at those times); K3 alone at deg 3-7 at those
-    two shapes.  With ``parent`` (the
-    parent commit's tree, ``--k3-parent DIR``) the parent's K3 is built
-    from it and timed with this one in turns at deg 2 (this, parent,
-    parent, this), its bits checked against this one's."""
-    from wtracker_tpu_torch.ops.polyfit import _polyfit_kernel, plan, polyfit, polyfit_reference, register_form
+    WeightEvaluator's columns at those times), and K3 alone beside its bound
+    at deg 3-7 at those two shapes.  With ``old`` (:func:`parent_polyfit`'s
+    fit of the parent commit's K3, ``--k3-parent DIR``) the parent's K3 is
+    timed with this one in turns (this, parent, parent, this) at deg 2, 7
+    and 8, its bits checked against this one's, and deg 3-7 also time
+    ``eigh``, ``lstsq`` and the empty kernel."""
+    from wtracker_tpu_torch.ops.polyfit import _polyfit_kernel, plan, polyfit, polyfit_reference
     from wtracker_tpu_torch.sim.config import TimingConfig
     from wtracker_tpu_torch.sim.controllers.polyfit import WeightEvaluator
 
@@ -1496,8 +1541,8 @@ def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> d
         bad = int((got.view(torch.int64) != want.view(torch.int64)).sum())
         differing, compared = differing + bad, compared + got.numel()
         max_err = max(max_err, float((got - want).abs().max()))
-        key = f"forced_general_{'workspace' if workspace else 'shared'}" if workspace is not None else (
-            "register" if register_form(x.shape[0], deg + 1) else "general")
+        key = f"forced_general_{'workspace' if workspace else 'shared'}" if workspace is not None else plan(
+            w.reshape(-1, x.shape[0]).shape[0], x.shape[0], deg + 1, y.reshape(x.shape[0], -1).shape[1]).form
         by_form[key] = by_form.get(key, 0) + 1
         if bad:
             raise AssertionError(f"K3 {name}: {bad} of {got.numel()} coefficients differ from the plain version "
@@ -1517,38 +1562,34 @@ def check_polyfit_kernel(fits: list, tmp: Path, parent: Path | None = None) -> d
             "swarm": (x11, y11, w11)}
     shapes = {"replay": fits[-1], "swarm": (*swarm, w_pop)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    times, times_deg8 = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_k3_parent_") as build_dir:
-        old = parent_polyfit(parent, Path(build_dir)) if parent is not None else None
-        for shape, (x, y, w) in shapes.items():
-            times[shape] = _k3_shape_times(x, y, w, 2, sms, lstsq=True)
-            if old is not None:
-                got = polyfit(x, y, 2, w).reshape(times[shape]["p"], 3, -1)
-                if not torch.equal(old(x, y, w).view(torch.int64), got.view(torch.int64)):
-                    raise AssertionError(f"the parent's K3 and this one differ at the {shape} shape")
-                turns = {"this": [], "parent": []}
-                for who in ("this", "parent", "parent", "this"):
-                    fn = (lambda: polyfit(x, y, 2, w)) if who == "this" else (lambda: old(x, y, w))
-                    turns[who].append(time_ms(fn))
-                times[shape]["turns_ms"] = turns
-    times_deg3_7 = {}
+    times, times_deg8, times_deg3_7 = {}, {}, {}
+
+    def against_parent(x, y, w, deg, into):  # the parent's K3, the same bits, in turns with this one
+        got = polyfit(x, y, deg, w).reshape(into["p"], deg + 1, -1)
+        if not torch.equal(old(x, y, w, deg).view(torch.int64), got.view(torch.int64)):
+            raise AssertionError(f"the parent's K3 and this one differ at deg {deg}, P {into['p']}")
+        into["turns_ms"] = _turns(lambda: polyfit(x, y, deg, w), lambda: old(x, y, w, deg))
+
+    for shape, (x, y, w) in shapes.items():
+        times[shape] = _k3_shape_times(x, y, w, 2, sms)
+        if old is not None:
+            against_parent(x, y, w, 2, times[shape])
     for shape, (x, y, w) in high.items():
         times_deg8[shape] = _k3_shape_times(x, y, w, HIGH_DEG, sms, plain_reps=3)
-        p = w.reshape(-1, x.shape[0]).shape[0]
-        for deg in range(3, 8):  # K3 alone, in the form polyfit routes to
-            ops, moved = polyfit_work(p, x.shape[0], deg + 1, y.shape[1])
-            times_deg3_7.setdefault(shape, {})[deg] = {
-                "form": plan(p, x.shape[0], deg + 1, y.shape[1], sms).form,
-                "ms": time_ms(lambda deg=deg: polyfit(x, y, deg, w)),
-                "bound_ms": max(ops / PEAK_F64_OPS_PER_S, moved / PEAK_BYTES_PER_S) * 1e3,
-            }
+        if old is not None:
+            against_parent(x, y, w, HIGH_DEG, times_deg8[shape])
+        for deg in range(3, 8):
+            row = times_deg3_7.setdefault(shape, {})[deg] = _k3_shape_times(x, y, w, deg, sms,
+                                                                            library=old is not None, plain=False)
+            if deg == 7 and old is not None:
+                against_parent(x, y, w, deg, row)
     return {"cases": n_cases, "cases_by_form": by_form, "coefficients_compared": compared, "differing_bits": differing,
             "max_abs_err": max_err, "replay_fits_checked": len(fits), "times": times, "times_deg8": times_deg8,
             "times_deg3_7": times_deg3_7}
 
 
-def polyfit_high_degree(tmp: Path, timing_path: Path, cpu_replay: subprocess.Popen) -> dict:
-    """Phase 41, the general form on the main paths: the polyfit replay at
+def polyfit_high_degree(tmp: Path, timing_path: Path, cpu_replay: subprocess.Popen, old=None) -> dict:
+    """Phase 41, the wave form on the main paths: the polyfit replay at
     deg HIGH_DEG over HIGH_DEG_TIMES for the first HIGH_DEG_CYCLES cycles of
     phase 14's log on the card (K3 once a cycle), whose ``bboxes.csv`` text
     must equal the CPU's (``cpu_replay``: :func:`start_cpu_polyfit`'s child
@@ -1556,7 +1597,10 @@ def polyfit_high_degree(tmp: Path, timing_path: Path, cpu_replay: subprocess.Pop
     ``polyfit_optimizer`` command at ``--degree`` HIGH_DEG on its default
     device, the card, for HIGH_DEG_EPOCHS epochs (K3 once for the baseline,
     once for the first scoring and once an epoch; the written config's
-    degree)."""
+    degree).  With ``old`` (:func:`parent_polyfit`'s fit) the replay then
+    runs again, once to warm up and then in turns with the engine's fit
+    through this K3 and the parent's (this, parent, parent, this, this,
+    parent), each run's text checked and its cycles/s kept."""
     from wtracker_tpu_torch.sim import engine as te
     from wtracker_tpu_torch.sim.controllers.polyfit import PolyfitConfig
 
@@ -1564,15 +1608,19 @@ def polyfit_high_degree(tmp: Path, timing_path: Path, cpu_replay: subprocess.Pop
     times = np.array(HIGH_DEG_TIMES, dtype=np.float64)
     args = ["--timing-config", timing_path, "--logs", tmp / "worm.csv", "--output", tmp / "polyfit_deg8.json",
             "--degree", HIGH_DEG, "--pop", PSO_POP, "--epochs", HIGH_DEG_EPOCHS]
-    with ThreadPoolExecutor(1) as pool:
-        tuned = pool.submit(run_cli, "polyfit_optimizer", args)
+
+    def replay_run():
         params, _ = build("csv", "cuda")
         ctl = te.polyfit_controller(table, params, times, np.ones(len(times)), HIGH_DEG, device="cuda")
-        zero_hand_kernel_launches()
         t0 = time.perf_counter()
         logs = te.run_engine(params, ctl, exp.init_position, HIGH_DEG_CYCLES, device="cuda")
         cuda_sync("cuda")
-        wall = time.perf_counter() - t0
+        return params, logs, HIGH_DEG_CYCLES / (time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(1) as pool:
+        tuned = pool.submit(run_cli, "polyfit_optimizer", args)
+        zero_hand_kernel_launches()
+        params, logs, rate = replay_run()
         launches = check_no_hand_kernel(f"the deg {HIGH_DEG} polyfit replay on the card", expect=("polyfit",))
         if launches["polyfit"] != HIGH_DEG_CYCLES:
             raise AssertionError(f"the deg {HIGH_DEG} replay on the card launched K3 {launches['polyfit']} times")
@@ -1586,11 +1634,30 @@ def polyfit_high_degree(tmp: Path, timing_path: Path, cpu_replay: subprocess.Pop
     cfg = PolyfitConfig.load_json(str(tmp / "polyfit_deg8.json"))
     if cfg.degree != HIGH_DEG or cmd_launches["polyfit"] != HIGH_DEG_EPOCHS + 2 or not np.isfinite(cfg.weights).all():
         raise AssertionError(f"polyfit_optimizer --degree {HIGH_DEG}: degree {cfg.degree}, K3 {cmd_launches}")
+    turns = None
+    if old is not None:
+        this_fit = te.polyfit
+
+        def parent_fit(x, y, deg, w=None):  # the replay's one weighting
+            return old(x, y, w, deg)[0]
+
+        turns = {"this": [], "parent": []}
+        try:
+            replay_run()  # a warm-up: the first run after the command is the slowest
+            for who in ("this", "parent", "parent", "this", "this", "parent"):
+                te.polyfit = this_fit if who == "this" else parent_fit
+                _, other_logs, other_rate = replay_run()
+                if te.logs_to_frame(params, other_logs).to_csv(index=False) != text:
+                    raise AssertionError(f"the deg {HIGH_DEG} replay through {who}'s K3 wrote other text")
+                turns[who].append(other_rate)
+        finally:
+            te.polyfit = this_fit
     return {"deg": HIGH_DEG, "sample_times": list(HIGH_DEG_TIMES), "cycles": HIGH_DEG_CYCLES,
-            "card_cycles_per_s": HIGH_DEG_CYCLES / wall, "cpu_cycles_per_s": ran["cycles"] / ran["seconds"],
+            "card_cycles_per_s": rate, "cpu_cycles_per_s": ran["cycles"] / ran["seconds"],
             "cpu_child_waited_s": waited, "text_equal": True, "k3_launches_replay": launches["polyfit"],
             "command_wall_s": cmd_wall, "command_epochs": HIGH_DEG_EPOCHS, "command_k3_launches": cmd_launches["polyfit"],
-            "command_mae": re.search(r"MAE uniform (\S+) -> tuned (\S+)", stdout).groups()}
+            "command_mae": re.search(r"MAE uniform (\S+) -> tuned (\S+)", stdout).groups(),
+            "turns_cycles_per_s": turns}
 
 
 def sweep(tmp: Path, device: str = "cuda") -> dict:
@@ -4105,6 +4172,9 @@ def main() -> int:
     log_nvcc(k3_log)
     k3_regs = k3_ptxas(k3_log.get("polyfit_f64", ""))
     log(f"built K3 in {k3_build_s:.1f} s, beside phases 3-13; ptxas: {k3_regs}")
+    k3_spills = [r for r in k3_regs if r["form"] != "general" and (r["spill_stores"] or r["spill_loads"])]
+    if k3_spills:  # the register and the wave form's instantiations spill nothing (the general form is not held to it)
+        raise AssertionError(f"K3 instantiations spill: {k3_spills}")
     k3_before_replay = hand_kernel_launches()["polyfit"]
     if k3_before_replay:
         raise AssertionError(f"phases 1-13 launched K3 {k3_before_replay} times")
@@ -4115,16 +4185,22 @@ def main() -> int:
     # -- 41. K3 against its plain version, and its times -------------------------
     k3_parent = Path(sys.argv[sys.argv.index("--k3-parent") + 1]) if "--k3-parent" in sys.argv else None
     cpu_deg8 = start_cpu_polyfit(replay_tmp, high_deg=True)  # the deg 8 replay's CPU side, beside the checks
+    parent_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_k3_parent_")
     try:
-        k3 = check_polyfit_kernel(fits, replay_tmp, k3_parent)
+        old_k3 = parent_polyfit(k3_parent, Path(parent_dir.name)) if k3_parent is not None else None
+        k3 = check_polyfit_kernel(fits, replay_tmp, old_k3)
         del fits
         log(f"K3: {k3['cases']} cases {k3['cases_by_form']}, {k3['differing_bits']} differing of "
             f"{k3['coefficients_compared']}; " + str({
-                f"{k}{deg}": {m: v.get(m) for m in ('ms', 'plain_ms', 'library_ms', 'lstsq_ms', 'bound_ms', 'turns_ms')}
-                for deg, t in ((2, k3['times']), (HIGH_DEG, k3['times_deg8'])) for k, v in t.items()}))
-        k3_high = polyfit_high_degree(replay_tmp, ROOT / "configs" / "timing_config.json", cpu_deg8)
+                f"{k}{deg}": {m: v.get(m) for m in ('ms', 'plain_ms', 'library_ms', 'lstsq_ms', 'bound_ms', 'turns_ms',
+                                                    'wave')}
+                for deg, t in ((2, k3['times']), (HIGH_DEG, k3['times_deg8'])) for k, v in t.items()}
+                | {f"{k}{deg}": {m: v.get(m) for m in ('ms', 'library_ms', 'lstsq_ms', 'bound_ms', 'turns_ms')}
+                   for k, t in k3['times_deg3_7'].items() for deg, v in t.items()}))
+        k3_high = polyfit_high_degree(replay_tmp, ROOT / "configs" / "timing_config.json", cpu_deg8, old_k3)
     finally:
         stop_child(cpu_deg8)
+        parent_dir.cleanup()
     log(f"deg {HIGH_DEG}: {k3_high}")
     zero_hand_kernel_launches()
 
@@ -4425,7 +4501,7 @@ def main() -> int:
                 "library_ms_swarm": k3s["library_ms"],
                 "bound_ms_swarm": k3s["bound_ms"],
                 "swarm_shape": {k: k3s[k] for k in ("p", "n", "deg", "m")},
-                # deg 8: K3's general form at the replay's shape (11 sample times) and the swarm's
+                # deg 8: K3's wave form at the replay's shape (11 sample times) and the swarm's
                 "ms_deg8": k3r8["ms"],
                 "plain_ms_deg8": k3r8["plain_ms"],
                 "library_ms_deg8": k3r8["library_ms"],
@@ -4435,6 +4511,12 @@ def main() -> int:
                 "library_ms_swarm_deg8": k3s8["library_ms"],
                 "bound_ms_swarm_deg8": k3s8["bound_ms"],
                 "swarm_shape_deg8": {k: k3s8[k] for k in ("p", "n", "deg", "m")},
+                "lstsq_ms_deg8": k3r8["lstsq_ms"],
+                "lstsq_ms_swarm_deg8": k3s8["lstsq_ms"],
+                "turns_ms_deg8": k3r8.get("turns_ms"),
+                "turns_ms_swarm_deg8": k3s8.get("turns_ms"),
+                "wave_deg8": k3r8.get("wave"),
+                "plan_swarm_deg8": k3s8["plan"],
                 "cases_by_form": k3["cases_by_form"],
                 "launches_deg8_replay": k3_high["k3_launches_replay"],
                 "launches_deg8_command": k3_high["command_k3_launches"],

@@ -29,20 +29,22 @@ M=2) and the particle swarm's (P=100 weightings of N=8, deg 2, M=6,170):
   phases (held bit for bit), read after one launch: where a block's time
   goes.
 
-Then the general form (deg >= 7) at deg 8, at the polyfit replay's shape
+Then the wave form (deg 4-15) at deg 8, at the polyfit replay's shape
 with 11 sample times (P=1, M=2) and the swarm's (P=100 weightings of
 them, M=5,728, the WeightEvaluator's columns at those times), beside
-``no_jacobi`` and these variants of it:
+these variants of it:
 
-- ``general_min2``: 2 blocks an SM (at most 128 registers a thread: no
-  spills; the kernel has 4);
-- ``general_serial``: lane 0 alone updates the rows, columns and
-  eigenvectors of a rotation (the kernel: lane j updates entry j);
-- ``general_lane0``: lane 0 alone computes a rotation's scalars and
-  corners and passes them on with shuffles (the kernel: every lane
-  computes them); these three are held bit for bit;
-- ``general_no_rhs``: warps 1-7 form no right-hand side beside the
-  Jacobi (a timing ablation).
+- ``wave_min2``: 2 blocks an SM (the kernel has 4 at K = 9);
+- ``wave_no_hold``: no right-hand side formed beside the Jacobi (each
+  column's formed and solved after it); these two are held bit for bit;
+- ``wave_timeline``: the shipped kernel with clock stamps at each row of
+  warp 0's program and at the ends of the eigenvectors and the columns
+  (held bit for bit), read after one launch (block 0);
+- ``wave_no_jacobi``: the Jacobi's program not run (the rows count 0);
+  ``wave_no_scalars``: each rotation's scalars replaced by c = 1, s = 0
+  (no quotient, root or reciprocal); ``wave_no_updates``: the rows of
+  updates run, but update nothing; ``wave_no_vectors``: no eigenvector
+  row rotated.  These are timing ablations, not checked.
 
 Each time is a median of 50 calls, each after a spin and an L2 flush
 (``chip_smoke.time_ms``), shipped first and last.  With ``--parent DIR``
@@ -148,67 +150,55 @@ extern "C" int polyfit_stamps(void* dst, int count) {
 }
 """),
 ]
-ROTATION = """        const bool rotate = fabs(apq) > DBL_MIN;
-        const double safe_apq = rotate ? apq : 1.0;
-        const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
-        const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
-        const double sgn = sign_of(tau);
-        const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
-        const double t = sgn < 0.0 ? -r : r;
-        const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
-        const double s = mul(t, c_rot);
-        const double c = rotate ? c_rot : 1.0;
-        const double s_sel = rotate ? s : 0.0;
-        const double ms_p = mul(s_sel, -1.0), ms_q = mul(s_sel, 1.0);  // (-s, s)
-        // where rows and columns p and q cross: the rows' update, then the columns', then the pair zeroed
-        const double rpp = add(mul(c, app), mul(ms_p, aqp)), rpq = add(mul(c, apq), mul(ms_p, aqq));
-        const double rqp = add(mul(c, aqp), mul(ms_q, app)), rqq = add(mul(c, aqq), mul(ms_q, apq));
-        const double npp = add(mul(c, rpp), mul(ms_p, rpq)), nqq = add(mul(c, rqq), mul(ms_q, rqp));
-        __syncwarp();  // every lane has read the pivot's entries before any is written
-        if (lane == 0) {
-          a[p * k + p] = npp;
-          a[q * k + q] = nqq;
-          a[p * k + q] = 0.0;
-          a[q * k + p] = 0.0;
-        }
-"""
-ROTATION_LANE0 = """        double c = 1.0, ms_p = 0.0, ms_q = 0.0;
-        if (lane == 0) {
-          const bool rotate = fabs(apq) > DBL_MIN;
-          const double safe_apq = rotate ? apq : 1.0;
-          const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
-          const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
-          const double sgn = sign_of(tau);
-          const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
-          const double t = sgn < 0.0 ? -r : r;
-          const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
-          const double s = mul(t, c_rot);
-          c = rotate ? c_rot : 1.0;
-          const double s_sel = rotate ? s : 0.0;
-          ms_p = mul(s_sel, -1.0);
-          ms_q = mul(s_sel, 1.0);
-          const double rpp = add(mul(c, app), mul(ms_p, aqp)), rpq = add(mul(c, apq), mul(ms_p, aqq));
-          const double rqp = add(mul(c, aqp), mul(ms_q, app)), rqq = add(mul(c, aqq), mul(ms_q, apq));
-          a[p * k + p] = add(mul(c, rpp), mul(ms_p, rpq));
-          a[q * k + q] = add(mul(c, rqq), mul(ms_q, rqp));
-          a[p * k + q] = 0.0;
-          a[q * k + p] = 0.0;
-        }
-        c = __shfl_sync(0xffffffffu, c, 0);
-        ms_p = __shfl_sync(0xffffffffu, ms_p, 0);
-        ms_q = __shfl_sync(0xffffffffu, ms_q, 0);
-"""
-GENERAL_VARIANTS = {  # name: (substitutions, the general form's blocks an SM or None, checked)
-    "general_min2": ([("constexpr int kGeneralMinBlocks = 4;", "constexpr int kGeneralMinBlocks = 2;")], 2, True),
-    "general_serial": ([("        for (int j = lane; j < k; j += 32) {\n          if (j != p && j != q) {",
-                         "        if (lane == 0) for (int j = 0; j < k; ++j) {\n          if (j != p && j != q) {")], None, True),
-    "general_lane0": ([(ROTATION, ROTATION_LANE0)], None, True),
-    "general_no_rhs": ([("    for (int c = tid - 32; c < cols; c += kColThreads) {",
-                         "    for (int c = tid - 32; c < 0; c += kColThreads) {")], None, False),
+# the wave form's timeline (block 0): warp 0's SM clock at the start of each row of its program and at
+# its end, warp 1's at the end of its eigenvector rows, thread 0's after the block's last column
+WAVE_TIMELINE = [
+    ("namespace {\n", """namespace {
+
+__device__ unsigned g_wave_stamps[4100];
+"""),
+    ("  __shared__ int rows_done;", "  __shared__ int rows_done;\n  __shared__ unsigned row_stamps[1024];"),
+    ("      unsigned s3 = row + 3 <= rows ? start[row + 3] : 0;\n      if (task & kScalars) {",
+     "      unsigned s3 = row + 3 <= rows ? start[row + 3] : 0;\n"
+     "      if (lane == 0 && row < 1024) row_stamps[row] = static_cast<unsigned>(clock64());\n      if (task & kScalars) {"),
+    ("        scalars = (s1 & kScalarsRow) != 0;\n        wave_update(a, rot, r, e1, e2);",
+     "        scalars = (s1 & kScalarsRow) != 0;\n"
+     "        if (lane == 0 && row < 1024) row_stamps[row] = static_cast<unsigned>(clock64());\n"
+     "        wave_update(a, rot, r, e1, e2);"),
+    ("    if (lane == 0) *static_cast<volatile int*>(&rows_done) = 0x7fffffff;",
+     "    if (lane == 0 && blockIdx.x == 0) {\n"
+     "      for (int i = 0; i < rows && i < 1024; ++i) g_wave_stamps[i] = row_stamps[i];\n"
+     "      g_wave_stamps[4096] = static_cast<unsigned>(clock64());\n    }\n"
+     "    if (lane == 0) *static_cast<volatile int*>(&rows_done) = 0x7fffffff;"),
+    ("      for (int r = 0, p = 0, q = 1; r < kRot; ++r) {",
+     "      for (int r = 0, p = 0, q = 1; r <= kRot; ++r) {\n"
+     "        if (r == kRot) {\n          if (lane == 0 && blockIdx.x == 0) g_wave_stamps[4097] = static_cast<unsigned>(clock64());\n"
+     "          break;\n        }"),
+    ("    column_solve<K>(b, evecs, inv, scl, ob + c, m);\n  }\n}",
+     "    column_solve<K>(b, evecs, inv, scl, ob + c, m);\n  }\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0 && blockIdx.x == 0) g_wave_stamps[4098] = static_cast<unsigned>(clock64());\n}"),
+    ("}  // namespace\n", """}  // namespace
+
+extern "C" int wave_stamps(void* dst) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_wave_stamps, sizeof(unsigned) * 4100));
+}
+"""),
+]
+WAVE_VARIANTS = {  # name: (substitutions, the wave form's blocks an SM at K = 9 or None, checked, launch overrides)
+    "wave_min2": ([("constexpr int kWaveMinBlocks[kWaveMaxK + 1] = {1, 4, 4, 4, 4, 4, 4, 3, 3, 4,",
+                    "constexpr int kWaveMinBlocks[kWaveMaxK + 1] = {1, 4, 4, 4, 4, 4, 4, 3, 3, 2,")], 2, True, {}),
+    "wave_no_hold": ([], None, True, {"hold": 0}),
+    "wave_no_jacobi": ([], None, False, {"rows": 0}),
+    "wave_no_scalars": ([("        const Rotation rt = rotation(a[p * K + p], apq, apq, a[q * K + q]);",
+                          "        const Rotation rt = {1.0, 0.0, a[p * K + p], a[q * K + q]};")], None, False, {}),
+    "wave_no_updates": ([("        wave_update(a, rot, r, e1, e2);\n", "")], None, False, {}),
+    "wave_no_vectors": ([("      for (int r = 0, p = 0, q = 1; r < kRot; ++r) {",
+                          "      for (int r = 0, p = 0, q = 1; r < 0; ++r) {")], None, False, {}),
+    "wave_timeline": (WAVE_TIMELINE, None, True, {}),
 }
 VARIANTS = {  # name: (substitutions, blocks an SM for deg <= 2 or None, checked against the plain version)
-    "per_sm2": ([("constexpr int kMinBlocks[8] = {1, 4, 4, 4,", "constexpr int kMinBlocks[8] = {1, 2, 2, 2,")], 2, True),
-    "per_sm3": ([("constexpr int kMinBlocks[8] = {1, 4, 4, 4,", "constexpr int kMinBlocks[8] = {1, 3, 3, 3,")], 3, True),
+    "per_sm2": ([("constexpr int kMinBlocks[5] = {1, 4, 4, 4,", "constexpr int kMinBlocks[5] = {1, 2, 2, 2,")], 2, True),
+    "per_sm3": ([("constexpr int kMinBlocks[5] = {1, 4, 4, 4,", "constexpr int kMinBlocks[5] = {1, 3, 3, 3,")], 3, True),
     "store16": ([(STORE, STORE16)], None, True),
     "no_jacobi": ([("constexpr int kSweeps = 12;", "constexpr int kSweeps = 0;")], None, False),
     "no_store": ([(STORE_LINE, "      if (res == 1.25e-300) ob[static_cast<size_t>(i) * m + c] = quo(res, scl[i]);")], None, False),
@@ -244,20 +234,21 @@ def build_all(sources: dict, tmp: Path) -> dict:
 @contextlib.contextmanager
 def blocks_per_sm(tp, per_sm: int | None, deg: int):
     """``plan`` sized for ``per_sm`` blocks an SM: the register form's for
-    deg <= 2, the general form's at deg >= 7."""
-    saved = tp.KERNEL_MIN_BLOCKS, tp.KERNEL_GENERAL_MIN_BLOCKS
+    deg <= 2, the wave form's at deg 8."""
+    saved = tp.KERNEL_MIN_BLOCKS, tp.KERNEL_WAVE_MIN_BLOCKS
     if per_sm is not None and deg <= 2:
         tp.KERNEL_MIN_BLOCKS = (saved[0][0], per_sm, per_sm, per_sm, *saved[0][4:])
     elif per_sm is not None:
-        tp.KERNEL_GENERAL_MIN_BLOCKS = per_sm
+        tp.KERNEL_WAVE_MIN_BLOCKS = tuple(per_sm if k == deg + 1 else v for k, v in enumerate(saved[1]))
     try:
         yield
     finally:
-        tp.KERNEL_MIN_BLOCKS, tp.KERNEL_GENERAL_MIN_BLOCKS = saved
+        tp.KERNEL_MIN_BLOCKS, tp.KERNEL_WAVE_MIN_BLOCKS = saved
 
 
-def launcher(fn, tp, per_sm, x, y, w, deg: int = 2):
-    """The wrapper's launch of library ``fn`` at ``deg``, its plan made once."""
+def launcher(fn, tp, per_sm, x, y, w, deg: int = 2, overrides: dict | None = None):
+    """The wrapper's launch of library ``fn`` at ``deg``, its plan made once
+    (``overrides`` replaces the wave form's ``rows`` or ``hold``)."""
     n, m, k = x.shape[0], y.shape[1], deg + 1
     w2 = w.reshape(-1, n)
     with blocks_per_sm(tp, per_sm, deg):
@@ -265,15 +256,18 @@ def launcher(fn, tp, per_sm, x, y, w, deg: int = 2):
     out = torch.empty((w2.shape[0], k, m), dtype=torch.float64, device="cuda")
     eps = torch.finfo(torch.float64).eps
     cut = max((n * eps) ** 2, 16 * eps)
+    table = tp._wave_table_on(x.device, k) if grid.form == "wave" else None
+    launch = {"rows": len(tp.wave_schedule(k).rows) if table is not None else 0, "hold": grid.hold, **(overrides or {})}
 
     def run():
-        err = fn(1 if grid.form == "register" else 2, x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(),
-                 w2.shape[0], n, m, k, grid.tile, grid.tiles, cut, None, torch.cuda.current_stream().cuda_stream)
+        err = fn(tp.FORMS[grid.form], x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(), w2.shape[0], n, m, k,
+                 grid.tile, grid.tiles, cut, None, None if table is None else table.data_ptr(), launch["rows"],
+                 0 if table is None else table.numel(), launch["hold"], torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed with CUDA error {err}")
         return out
 
-    return run, {"tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks, "per_sm": grid.per_sm}
+    return run, {"tile": grid.tile, "tiles": grid.tiles, "blocks": grid.blocks, "per_sm": grid.per_sm, **launch}
 
 
 def timeline(lib_dir: Path, run, blocks: int) -> dict:
@@ -305,6 +299,41 @@ def timeline(lib_dir: Path, run, blocks: int) -> dict:
     return out
 
 
+def wave_timeline(lib_dir: Path, run, tp, k: int) -> dict:
+    """One launch of the ``wave_timeline`` variant after an L2 flush and a
+    spin: block 0's cycles a row of scalars and a row of updates (median
+    and mean), the program's cycles in all, and the cycles from its end to
+    the eigenvector lanes' end and to the last column's."""
+    stamps = ctypes.CDLL(str(lib_dir / "wave_timeline.so")).wave_stamps
+    stamps.argtypes, stamps.restype = [ctypes.c_void_p], ctypes.c_int
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush.zero_()
+    torch.cuda._sleep(1_000_000)
+    run()
+    torch.cuda.synchronize()
+    host = np.zeros(4100, np.uint32)
+    if stamps(host.ctypes.data):
+        raise RuntimeError("could not read the wave timeline")
+    sched = tp.wave_schedule(k)
+    rows = len(sched.rows)
+    if rows > 1024:
+        raise ValueError(f"the wave timeline stamps 1,024 rows, not {rows}")
+    ends = np.append(host[:rows].astype(np.int64), int(host[4096]))
+    cycles = np.diff(ends) % (1 << 32)
+    scalars = np.array([row[0][1] < 0 for row in sched.rows])
+    return {"rows": rows, "scalar_rows": int(scalars.sum()), "program_cycles": int((ends[-1] - ends[0]) % (1 << 32)),
+            "scalar_row_cycles": {"median": float(np.median(cycles[scalars])), "mean": float(cycles[scalars].mean())},
+            "update_row_cycles": {"median": float(np.median(cycles[~scalars])), "mean": float(cycles[~scalars].mean())},
+            "vectors_end_after_program": _signed(int(host[4097]) - int(host[4096])),
+            "columns_end_after_program": _signed(int(host[4098]) - int(host[4096]))}
+
+
+def _signed(cycles: int) -> int:
+    """A difference of two 32-bit clock stamps."""
+    cycles %= 1 << 32
+    return cycles - (1 << 32) if cycles >= 1 << 31 else cycles
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_polyfit: no CUDA card is visible", file=sys.stderr)
@@ -328,11 +357,12 @@ def main() -> int:
         "swarm": (torch.from_numpy(t8).cuda(), track(t8, 6170), torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 8))).cuda(),
                   2, tuple(VARIANTS)),
         "replay_deg8": (torch.from_numpy(t11).cuda(), track(t11, 2), torch.ones(1, 11, dtype=torch.float64, device="cuda"),
-                        8, ("no_jacobi", *GENERAL_VARIANTS)),
+                        8, tuple(WAVE_VARIANTS)),
         "swarm_deg8": (torch.from_numpy(t11).cuda(), track(t11, 5728),
-                       torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 11))).cuda(), 8, ("no_jacobi", *GENERAL_VARIANTS)),
+                       torch.from_numpy(rng.uniform(1e-6, 5.0, (100, 11))).cuda(), 8,
+                       tuple(v for v in WAVE_VARIANTS if v != "wave_timeline")),  # its stamps' shared memory cuts residency
     }
-    variants = {**VARIANTS, **GENERAL_VARIANTS}
+    variants = {**{k: (*v, {}) for k, v in VARIANTS.items()}, **WAVE_VARIANTS}
     for sub in variants.values():
         for old, _ in sub[0]:
             if source.count(old) != 1:
@@ -340,19 +370,21 @@ def main() -> int:
     results = {}
     with tempfile.TemporaryDirectory(prefix="sweep_polyfit_") as tmp:
         sources = {"shipped": source}
-        for name, (subs, _, _) in variants.items():
-            sources[name] = source
-            for old, new in subs:
-                sources[name] = sources[name].replace(old, new)
+        for name, (subs, _, _, _) in variants.items():
+            if subs:
+                sources[name] = source
+                for old, new in subs:
+                    sources[name] = sources[name].replace(old, new)
         fns = build_all(sources, Path(tmp))
-        libs = {"shipped": (fns["shipped"], None, True), **{k: (fns[k], v[1], v[2]) for k, v in variants.items()}}
+        libs = {"shipped": (fns["shipped"], None, True, {}),
+                **{k: (fns.get(k, fns["shipped"]), v[1], v[2], v[3]) for k, v in variants.items()}}
         old_fit = parent_polyfit(parent, Path(tmp)) if parent is not None else None
         for shape, (x, y, w, deg, timed) in shapes.items():
             want = tp.polyfit_reference(x, y, deg, w)
             row = {}
             for name in ("shipped", *timed, "shipped"):
-                fn, per_sm, checked = libs[name]
-                run, grid = launcher(fn, tp, per_sm, x, y, w, deg)
+                fn, per_sm, checked, overrides = libs[name]
+                run, grid = launcher(fn, tp, per_sm, x, y, w, deg, overrides)
                 got = run()
                 torch.cuda.synchronize()
                 same = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
@@ -362,8 +394,10 @@ def main() -> int:
                 entry["ms"].append(time_ms(run))
                 if name == "timeline":
                     entry["phases_us"] = timeline(Path(tmp), run, grid["blocks"])
-            if old_fit is not None and deg == 2:
-                row["parent"] = {"ms": [time_ms(lambda: old_fit(x, y, w))]}
+                if name == "wave_timeline":
+                    entry["cycles"] = wave_timeline(Path(tmp), run, tp, deg + 1)
+            if old_fit is not None:
+                row["parent"] = {"ms": [time_ms(lambda: old_fit(x, y, w, deg))]}
             results[shape] = row
     print(card_line())
     print(json.dumps({"sweep_polyfit": results, "torch": torch.__version__}))

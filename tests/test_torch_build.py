@@ -63,7 +63,8 @@ def test_a_sources_own_flags_name_only_its_library(tmp_path, monkeypatch):
 def test_polyfit_kernel_rounds_every_product_on_its_own():
     assert "--fmad=false" in _build.flags("polyfit_f64")
     # the form, x, y, w, out, then batch, n, m, k, the plan (tile, tiles), the cutoff factor (a double), the
-    # general form's workspace, the stream
+    # general form's workspace, the wave form's table, its rows and entries and the held columns, the stream
     args = _build.SIGNATURES["polyfit_f64"][0]
-    assert args[0] is _build._I and args[11] is _build._D and len(args) == 14
+    assert args[0] is _build._I and args[11] is _build._D and len(args) == 18
+    assert args[12:14] == [_build._P] * 2 and args[14:17] == [_build._I] * 3 and args[17] is _build._P
     assert 'extern "C" int polyfit_f64(int form,' in (_build.CSRC / "polyfit_f64.cu").read_text()

@@ -373,7 +373,7 @@ def test_polyfit_on_the_card_never_runs_the_plain_version(monkeypatch):
     x, y, w = _polyfit_data("y_2d", 2, 5)
     before = tp.polyfit.launches
     tp.polyfit(x, y, 2, w)
-    assert tp.polyfit(x, y, 8, w).shape == (9, 2) and tp.polyfit(x, y, 12, w).shape == (13, 2)  # K3's general form
+    assert tp.polyfit(x, y, 8, w).shape == (9, 2) and tp.polyfit(x, y, 12, w).shape == (13, 2)  # K3's wave form
     assert tp.polyfit.launches == before + 3
     with pytest.raises(ValueError, match="w must be"):
         tp.polyfit(x, y, 2, w[:4])
@@ -454,27 +454,29 @@ def test_polyfit_kernel_edge_cases_over_several_tiles_bit_for_bit(name):
 @pytest.mark.parametrize("deg", range(8, 16))
 @pytest.mark.parametrize("name", ["y_2d", "y_1d", "zero_weights", "all_masked", "rank_deficient"])
 def test_polyfit_general_form_equals_plain_version_bit_for_bit(name, deg, n):
-    """deg 8-15 (the general form), 11 and 16 samples: full rank, fewer
-    samples than terms, zeroed, all masked."""
+    """deg 8-15 (the wave form since it took them from the general form),
+    11 and 16 samples: full rank, fewer samples than terms, zeroed, all
+    masked."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from wtracker_tpu_torch.ops.polyfit import plan
 
     x, y, w = _polyfit_data(name, deg, n)
-    assert plan(1, n, deg + 1, 2).form == "general"
+    assert plan(1, n, deg + 1, 2).form == "wave"
     _check_polyfit(x, y, deg, w)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("deg, n, m, p", [(2, 20_000, 3, 2), (8, 1_000, 5, 3), (0, 7_000, 2, 1)])
 def test_polyfit_general_form_beyond_the_register_rows_bit_for_bit(deg, n, m, p):
-    """N·(deg + 1) beyond the register form's 6,144: integral sample times
-    around 0, the rows recomputed where they are read."""
+    """N·(deg + 1) beyond the register form's 6,144 (the wave form takes
+    them): integral sample times around 0, the rows recomputed where they
+    are read, each thread's sums in shared memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from wtracker_tpu_torch.ops.polyfit import KERNEL_GENERAL_ROWS
 
-    assert 8 * n * (deg + 2) > KERNEL_GENERAL_ROWS and _polyfit_plan(p, n, deg, m).form == "general"
+    assert 8 * n * (deg + 2) > KERNEL_GENERAL_ROWS and _polyfit_plan(p, n, deg, m).form == "wave"
     rng = np.random.default_rng([deg, n])
     t = np.arange(n, dtype=np.float64) - n // 2
     y = 180 + 0.05 * t[:, None] + rng.normal(0, 3, (n, m))
@@ -507,6 +509,52 @@ def test_polyfit_forced_general_form_bit_for_bit(deg, workspace):
     assert _same_bits(got, tp.polyfit_reference(x, y, deg, w))
     if tp.register_form(8, deg + 1):  # the register form, where polyfit routes it, on the same inputs: the same bits
         assert _same_bits(tp.polyfit(x, y, deg, w), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", range(8))
+def test_polyfit_wave_form_below_deg_8_bit_for_bit(deg):
+    """The wave form below deg 8 over 2,000 columns (their right-hand sides
+    held beside the Jacobi) with every edge case: deg 4-7 at the swarm's
+    batch (P=100 of N=8), deg 0-3 with N just beyond the register form's
+    48 KB of rows (P=4), where ``plan`` routes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tp = importlib.import_module("wtracker_tpu_torch.ops.polyfit")
+
+    if deg >= 4:
+        x, y, w = _polyfit_data("y_2d", deg, 8, m=2000, p=100)
+    else:
+        n = tp.KERNEL_REGISTER_ROWS // (8 * (deg + 1)) + 1
+        rng = np.random.default_rng([deg, n])
+        x = torch.arange(n, dtype=torch.float64, device="cuda") - n // 2
+        y = 180 + 0.05 * x[:, None] + torch.from_numpy(rng.normal(0, 3, (n, 2000))).cuda()
+        w = torch.from_numpy(rng.uniform(0.0, 1.0, (4, n))).cuda()
+    w[1, [1, 3]] = 0.0
+    w[2] = 0.0
+    w[3, 2:] = 0.0
+    y[::2, :7] = -0.0
+    p = w.shape[0]
+    grid = tp.plan(p, x.shape[0], deg + 1, 2000, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert grid.form == "wave" and grid.tiles > 1 and 0 < grid.hold <= grid.tile
+    before = tp.polyfit.launches
+    got = tp.polyfit(x, y, deg, w)
+    torch.cuda.synchronize()
+    assert tp.polyfit.launches == before + 1
+    assert _same_bits(got, tp.polyfit_reference(x, y, deg, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [8, 12])
+def test_polyfit_wave_form_beyond_its_held_columns_bit_for_bit(deg):
+    """P=100 over 7,993 columns: a block holds the right-hand sides of only
+    its first columns beside the Jacobi and forms the rest after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, y, w = _polyfit_data("zero_weights", deg, 16, m=7993, p=100)
+    grid = _polyfit_plan(100, 16, deg, 7993)
+    assert grid.form == "wave" and 0 < grid.hold < grid.tile
+    _check_polyfit(x, y, deg, w)
 
 
 @pytest.mark.cuda

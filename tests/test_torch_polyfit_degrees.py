@@ -118,37 +118,46 @@ def test_the_kernels_entry_never_runs_the_plain_version_on_the_cpu():
 @pytest.mark.parametrize("n, k", [(11, k) for k in range(9, 17)] + [(40, 33), (684, 9), (2049, 3), (20_000, 3),
                                                                      (6145, 1), (11, 80), (5_000, 40)])
 def test_plan_places_every_weighting_and_column_once(n, k):
-    """K = 9-16 and 33, N beyond the register form's 6,144 / K, and K whose
-    arrays leave shared memory for the workspace: every (weighting,
-    column) once, a block's shared memory within what an SM holds for
-    ``per_sm`` of them, one wave where the columns allow."""
+    """K = 9-16 (the wave form) and 33, N beyond the register form's 6,144 /
+    K, and K whose arrays leave shared memory for the workspace (the general
+    form): every (weighting, column) once, a block's shared memory within
+    what an SM holds for ``per_sm`` of them, one wave where the columns
+    allow."""
     rng = np.random.default_rng(k * 100_000 + n)
     rows = 8 * n * (k + 1) if 8 * n * (k + 1) <= tp.KERNEL_GENERAL_ROWS else 0
-    fixed = 8 * tp.general_fixed(k)
+    wave = k <= tp.KERNEL_WAVE_MAX_K
+    fixed = tp.wave_static(k) if wave else 8 * tp.general_fixed(k)
+    table = 2 * tp.wave_table(k).size if wave else 0
     pairs = [(p, m) for p in PLAN_P[::2] for m in PLAN_M[::2]] + list(zip(rng.integers(1, 1001, 20),
                                                                        rng.integers(1, 10_001, 20)))
     for p, m in pairs:
         grid = tp.plan(int(p), n, k, int(m), 132)
-        assert grid.form == "general" and grid.blocks == p * grid.tiles and grid.tile >= 1, (p, m)
+        assert grid.form == ("wave" if wave else "general") and grid.blocks == p * grid.tiles and grid.tile >= 1
         assert (_covered(int(p), int(m), grid) == 1).all(), (p, m)
-        in_shared = rows + fixed <= tp.BLOCK_SHARED
-        assert grid.shared == rows + (fixed if in_shared else 0) <= tp.BLOCK_SHARED, (p, m)
+        in_shared = wave or rows + fixed <= tp.BLOCK_SHARED
+        held = 8 * k * grid.hold if wave else 0
+        sums = 8 * k * tp.KERNEL_THREADS if wave and not rows else 0  # each thread's sums where the rows do not fit
+        assert grid.shared == rows + sums + table + held + (fixed if in_shared and not wave else 0) <= tp.BLOCK_SHARED
+        assert grid.hold <= grid.tile and (wave or grid.hold == 0)
         assert grid.workspace == (0 if in_shared else grid.blocks * fixed), (p, m)
-        assert 1 <= grid.per_sm <= tp.KERNEL_GENERAL_MIN_BLOCKS
-        assert grid.per_sm * (grid.shared + tp.BLOCK_RESERVED) <= tp.SM_SHARED, (p, m)
-        if p * -(-m // tp.KERNEL_THREADS) <= 132 * grid.per_sm:  # a wave at a column a thread or more
+        assert 1 <= grid.per_sm <= (tp.KERNEL_WAVE_MIN_BLOCKS[k] if wave else tp.KERNEL_GENERAL_MIN_BLOCKS)
+        assert grid.per_sm * (grid.shared + (fixed if wave else 0) + tp.BLOCK_RESERVED) <= tp.SM_SHARED, (p, m)
+        threads = tp.KERNEL_WAVE_COL_THREADS if wave else tp.KERNEL_THREADS
+        if p * -(-m // threads) <= 132 * grid.per_sm:  # a wave at a column a thread or more
             assert grid.blocks <= 132 * grid.per_sm, (p, m)
     if k <= 33:
         assert tp.plan(1, n, k, 2, 132).workspace == 0  # K = 33's matrices still fit a block
     forced = tp.plan(100, n, k, 6170, 132, workspace=True)
-    assert forced.shared == rows and forced.workspace == forced.blocks * fixed
+    general_rows = 8 * n * (k + 1) if 8 * n * (k + 1) <= tp.KERNEL_GENERAL_ROWS else 0
+    assert forced.form == "general" and forced.shared == general_rows
+    assert forced.workspace == forced.blocks * 8 * tp.general_fixed(k)
 
 
 def test_plan_of_the_swarm_at_deg_8_is_one_wave():
     """The swarm's batch at deg 8 (P=100 weightings of 11 samples, M=6,170)
-    fills one wave at 4 blocks an SM, its matrices in shared memory."""
+    fills one wave at 4 blocks an SM in the wave form."""
     grid = tp.plan(100, 11, 9, 6170, 132)
-    assert (grid.form, grid.per_sm, grid.workspace) == ("general", 4, 0)
+    assert (grid.form, grid.per_sm, grid.workspace) == ("wave", 4, 0)
     assert 132 * 4 // 2 < grid.blocks <= 132 * 4
     assert tp.plan(1, 11, 9, 2, 132).blocks == 1  # the replay's fit: one block
 
@@ -172,8 +181,9 @@ def test_polyfit_optimizer_command_at_deg_8(tmp_path):
 
 def test_chip_smokes_ptxas_report_reads_every_form():
     """``chip_smoke.py::k3_ptxas`` reads each K3 kernel of ``nvcc -Xptxas
-    -v``'s report: a register-form instantiation of any K (two digits too)
-    and the general form, whose line has no static shared memory."""
+    -v``'s report: a register-form and a wave-form instantiation of any K
+    (two digits too) and the general form, whose line has no static shared
+    memory."""
     from chip_smoke import k3_ptxas
 
     name = "_ZN47_GLOBAL__N__acf5827d_14_polyfit_f64_cu_8bcedaec"
@@ -181,6 +191,12 @@ def test_chip_smokes_ptxas_report_reads_every_form():
         f"ptxas info    : Function properties for {name}14polyfit_kernelILi3EEEvPKdS2_S2_Pdiiiid",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 64 registers, used 1 barriers, 192 bytes smem",
+        f"ptxas info    : Function properties for {name}12polyfit_waveILi12EEEvPKdS2_S2_PdiiiidPKtii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 15176 bytes smem",
+        f"ptxas info    : Function properties for {name}12polyfit_waveILi9EEEvPKdS2_S2_PdiiiidPKtii",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 8360 bytes smem",
         f"ptxas info    : Function properties for {name}14polyfit_kernelILi12EEEvPKdS2_S2_Pdiiiid",
         "    8 bytes stack frame, 696 bytes spill stores, 724 bytes spill loads",
         "ptxas info    : Used 255 registers, used 1 barriers, 2400 bytes smem",
@@ -189,7 +205,10 @@ def test_chip_smokes_ptxas_report_reads_every_form():
         "ptxas info    : Used 64 registers, used 1 barriers, 48 bytes cumulative stack size",
     ])
     assert k3_ptxas(report) == [
-        {"k": 3, "spill_stores": 0, "spill_loads": 0, "registers": 64, "static_smem_bytes": 192},
-        {"k": 12, "spill_stores": 696, "spill_loads": 724, "registers": 255, "static_smem_bytes": 2400},
-        {"k": "general", "spill_stores": 36, "spill_loads": 60, "registers": 64, "static_smem_bytes": 0},
+        {"form": "register", "k": 3, "spill_stores": 0, "spill_loads": 0, "registers": 64, "static_smem_bytes": 192},
+        {"form": "register", "k": 12, "spill_stores": 696, "spill_loads": 724, "registers": 255,
+         "static_smem_bytes": 2400},
+        {"form": "wave", "k": 9, "spill_stores": 4, "spill_loads": 4, "registers": 64, "static_smem_bytes": 8360},
+        {"form": "wave", "k": 12, "spill_stores": 0, "spill_loads": 0, "registers": 80, "static_smem_bytes": 15176},
+        {"form": "general", "k": None, "spill_stores": 36, "spill_loads": 60, "registers": 64, "static_smem_bytes": 0},
     ]

@@ -144,8 +144,10 @@ def _covered(p: int, m: int, grid) -> np.ndarray:
     return edges.cumsum(axis=1)[:, :m]
 
 
-@pytest.mark.parametrize("n, k", [(8, 3), (5, 3), (877, 7), (6144, 1), (2048, 3)])
+@pytest.mark.parametrize("n, k", [(8, 3), (5, 3), (1536, 4), (6144, 1), (2048, 3)])
 def test_plan_fits_every_weighting_and_column_once(n, k):
+    """The register form's plan (where ``plan`` routes deg <= 3) places
+    every (weighting, column) once."""
     rng = np.random.default_rng(k * 10_000 + n)
     pairs = [(p, m) for p in PLAN_P for m in PLAN_M] + list(zip(rng.integers(1, 1001, 40), rng.integers(1, 10_001, 40)))
     for p, m in pairs:
@@ -180,20 +182,23 @@ def test_plan_of_the_replay_is_one_block():
 
 
 @pytest.mark.parametrize("n, k, form", [
-    (5, 0, None), (5, 9, "general"), (6145, 1, "general"), (2049, 3, "general"), (769, 8, "general"),
-    (878, 7, "general"), (768, 8, "general"), (6144, 1, "register"), (2048, 3, "register"), (877, 7, "register"),
+    (5, 0, None), (5, 9, "wave"), (6145, 1, "wave"), (2049, 3, "wave"), (769, 8, "wave"), (878, 7, "wave"),
+    (768, 8, "wave"), (6144, 1, "register"), (2048, 3, "register"), (877, 7, "wave"), (11, 17, "general"),
+    (1536, 4, "register"), (11, 5, "wave"),
 ])
 def test_plan_refuses_what_the_kernel_cannot_take(n, k, form):
     """The one refusal is k = 0 (deg -1), which JAX cannot fit either.  The
-    old limits (deg 8 and up, scaled rows beyond 48 KB) plan the general
-    form, and so does deg 7 (K = 8: faster there at the swarm's batch);
-    48 KB itself stays in the register form up to deg 6."""
+    old limits (deg 8 and up, scaled rows beyond 48 KB) plan the wave form
+    up to deg 15 and the general form beyond, and so do deg 4-7 (the wave
+    form timed faster there); 48 KB itself stays in the register form up
+    to deg 3."""
     if form is None:
         with pytest.raises(ValueError, match="deg >= 0"):
             tp.plan(1, n, k, 2, 132)
         return
     grid = tp.plan(1, n, k, 2, 132)
     assert (grid.form, grid.blocks, grid.workspace) == (form, 1, 0)
+    assert tp.register_form(n, k) == (form == "register")
 
 
 def test_plan_constants_are_the_kernels():
@@ -201,8 +206,14 @@ def test_plan_constants_are_the_kernels():
     src = (Path(tp.__file__).resolve().parents[1] / "csrc" / "polyfit_f64.cu").read_text()
     assert re.findall(r"constexpr int kThreads = (\d+);", src) == [str(tp.KERNEL_THREADS)]
     assert re.findall(r"constexpr int kColThreads = kThreads - (\d+);", src) == [str(tp.KERNEL_THREADS - tp.KERNEL_COL_THREADS)]
-    found = re.search(r"constexpr int kMinBlocks\[8\] = \{([\d, ]+)\};", src)
+    found = re.search(r"constexpr int kMinBlocks\[5\] = \{([\d, ]+)\};", src)
     assert found and tuple(int(v) for v in found.group(1).split(",")) == tp.KERNEL_MIN_BLOCKS
     assert re.findall(r"constexpr size_t kGeneralRows = (\d+)u << 10;", src) == [str(tp.KERNEL_GENERAL_ROWS >> 10)]
     assert re.findall(r"constexpr int kGeneralMinBlocks = (\d+);", src) == [str(tp.KERNEL_GENERAL_MIN_BLOCKS)]
     assert "return 2 * kk + 2 * kk * kk + kk * kThreads;" in src  # general_fixed
+    assert re.findall(r"constexpr int kWaveMaxK = (\d+);", src) == [str(tp.KERNEL_WAVE_MAX_K)]
+    found = re.search(r"constexpr int kWaveMinBlocks\[kWaveMaxK \+ 1\] = \{([\d, ]+)\};", src)
+    assert found and tuple(int(v) for v in found.group(1).split(",")) == tp.KERNEL_WAVE_MIN_BLOCKS
+    assert re.findall(r"constexpr int kWaveColThreads = kThreads - (\d+);", src) == [
+        str(tp.KERNEL_THREADS - tp.KERNEL_WAVE_COL_THREADS)]
+    assert re.findall(r"constexpr int kSweeps = (\d+);", src) == [str(tp.SWEEPS)]

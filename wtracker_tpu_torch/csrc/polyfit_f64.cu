@@ -16,10 +16,11 @@
 // What bounds it on the H100.  A call has two parts of different shapes.
 // * The setup of a weighting (its scaled Vandermonde rows, the k x k normal
 //   matrix, 12 Jacobi sweeps, the cutoff) is a few thousand operations in
-//   one serial chain: each rotation waits for the one before, and holds a
-//   quotient, two square roots and two reciprocals, each tens of cycles
-//   deep.  At deg 2 its 36 rotations take ~13 us on one lane, whatever the
-//   thread count.
+//   one serial chain: a rotation's scalars wait for the rotations before it
+//   that share an index, and hold a quotient, two square roots and two
+//   reciprocals, each tens of cycles deep.  At deg 2 its 36 rotations take
+//   ~13 us on one lane, whatever the thread count; at deg 8 the wave form
+//   below runs its 432 in 114 steps.
 // * The columns (right-hand side, projection, solve, unscaling) are
 //   independent of each other: at the particle swarm's shape (100
 //   weightings, N=8, 6,170 columns) ~60 M float64 operations and the
@@ -27,8 +28,8 @@
 //   (chip_smoke.py::polyfit_work counts both).
 // So the chain bounds the kernel at both shapes: at the replay's (1
 // weighting, N=5, 2 columns) it is the kernel beside the launch; at the
-// swarm's the right-hand sides run beside it and only the solve and the
-// write (~2 us) come after it (sweep_polyfit.py's timeline and ablations).
+// swarm's the right-hand sides run beside it and the solve and the write
+// come after it (sweep_polyfit.py's timelines and ablations, PERF.md).
 //
 // The design.
 // * The grid is weightings x column tiles, flattened: block b fits
@@ -68,34 +69,52 @@
 // selected away as torch.where does, after the same arithmetic, and rows
 // and columns update as c*x + (-+s)*x_flipped.
 //
-// Two forms, one entry point that takes the form as its first argument;
+// Three forms, one entry point that takes the form as its first argument;
 // ops/polyfit.py :: plan picks it.  The register form above
 // (polyfit_kernel<K>) holds lane 0's Jacobi and each column's K sums in
-// registers, so it takes K <= 7 only (at K = 8 it spilled, and timed slower
-// at the swarm's batch than the general form: PERF.md), and rows that fit
-// 48 KB.  Every other call goes to the general form (polyfit_general),
-// whose K is a runtime argument:
-// * warp 0 runs the Jacobi on the k x k matrix and its eigenvectors in
-//   shared memory: every lane computes the rotation's scalars and the four
-//   entries where rows and columns p and q cross (the rows' update, then
-//   the columns', then the pivot pair zeroed, as the plain version orders
-//   them) from the pivot's four entries, which lane 0 then stores, while
-//   lane j updates column j of rows p and q, row j of columns p and q and
-//   row j of the eigenvectors (j outside p and q touches no entry another
-//   lane reads);
-// * the normal matrix is an entry a thread; while warp 0 runs the Jacobi,
-//   warps 1-7 form their columns' right-hand sides into the block's output
-//   columns, which the solve later overwrites; after the Jacobi every
-//   thread projects and solves its columns; each works a kChunk of terms at
-//   a time, each sum still one chain in order, the projection through k
-//   doubles of the thread's own;
-// * the weighting and the scaled rows stay in shared memory while they fit
+// registers; it takes K <= 4 (deg <= 3: deg 2 is the deployed fit; from deg
+// 4 the wave form timed faster) and rows that fit 48 KB.  The wave form
+// (polyfit_wave<K>, K <= 16) takes every other call up to deg 15:
+// * Its Jacobi is an exact wavefront of the plain version's cyclic order.
+//   Rotation (p, q) reads only a[p][p], a[p][q] and a[q][q], so its scalars
+//   can run once the rotations before it that share p or q are applied,
+//   while others go on: for K >= 3 the rotations of one anti-diagonal,
+//   step s K + p + q - 1 of sweep s, share no index and run together, 13K -
+//   3 steps for 12 sweeps (114 at K = 9, against 432 rotations).  Each
+//   matrix entry still takes its own updates in the plain version's order,
+//   from the same values, so every rounded operation is the one
+//   jacobi_eigh does.  ops/polyfit.py :: wave_schedule lays the steps out
+//   as rows of tasks, one to a lane of warp 0 and a __syncwarp after each:
+//   a row of scalars (each lane a rotation's c, s and new diagonal, as
+//   jacobi_warp computes them), then the rows of pair updates (a[p][j],
+//   a[q][j]) that the next step's scalars need, each in the first row
+//   after everything it follows; wave_table packs them, and the block
+//   copies the table to shared memory.  The plain version keeps the matrix
+//   bitwise symmetric after every rotation, so only the upper triangle is
+//   stored.  The rows of updates run in a loop of their own with no
+//   branch (an idle lane updates a spare entry by a spare rotation), each
+//   lane reading and decoding its next task while it runs this one's.
+// * The eigenvectors are off the chain: each rotation's c, -s and s are
+//   kept, and warp 1's lane i rotates row i of v in cyclic order beside the
+//   Jacobi, each rotation once warp 0 has published its scalars' row.
+// * The columns go in one pass: while warp 0 runs the Jacobi, warps 2-7
+//   form the right-hand sides of the block's first `hold` columns (as many
+//   as the SM's shared memory holds) into shared memory; after it every
+//   thread takes its columns, forms the rest's right-hand sides, projects,
+//   solves and unscales each over all K terms in registers.
+// * The weighting and the scaled rows stay in shared memory while they fit
 //   kGeneralRows; beyond it each entry is recomputed where it is read, as
 //   the same chain of rounded operations (x^j as j products, times w, over
-//   scl[j]), so it has the stored bits;
-// * where the matrices and the threads' arrays do not fit a block's shared
-//   memory, they live in a global workspace that the wrapper allocates.
-// So every k >= 1 and n >= 1 fits, in one launch, with the same bits.
+//   scl[j]), so it has the stored bits, and each thread's sums then wait in
+//   its slice of shared memory across the quotients.
+// The general form (polyfit_general, K a runtime argument) takes deg >= 16:
+// warp 0 runs the rotations one after another on the k x k matrix in shared
+// memory (every lane computes the rotation's scalars, lane j updates entry j
+// of rows and columns p and q), warps 1-7 form right-hand sides into the
+// output's columns meanwhile, and each thread solves its columns a kChunk of
+// terms at a time; its matrices live in a global workspace where they do not
+// fit a block's shared memory.  So every k >= 1 and n >= 1 fits, in one
+// launch, with the same bits.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -107,14 +126,20 @@ constexpr int kColThreads = kThreads - 32;
 constexpr int kRows = 8;  // y rows whose loads a column thread issues together
 constexpr int kSweeps = 12;  // jacobi_eigh's default
 // blocks of kThreads resident on an SM, by K = deg + 1 (__launch_bounds__:
-// at most 64 registers a thread for K <= 3, 128 for K <= 5; lane 0 holds
+// at most 64 registers a thread for K <= 3, 128 for K = 4; lane 0 holds
 // the Jacobi's 2 K^2 doubles)
-constexpr int kMinBlocks[8] = {1, 4, 4, 4, 2, 2, 1, 1};
+constexpr int kMinBlocks[5] = {1, 4, 4, 4, 2};
 // the general form: terms a thread sums at once, the bytes of weighting and
 // scaled rows it keeps in shared memory, blocks resident on an SM
 constexpr int kChunk = 8;
 constexpr size_t kGeneralRows = 48u << 10;
 constexpr int kGeneralMinBlocks = 4;
+// the wave form: its largest K (deg 15), its blocks resident on an SM by K (at
+// most 64, 85 or 128 registers a thread: the most blocks whose build spills
+// nothing), the threads that form right-hand sides beside the Jacobi (warps 2-7)
+constexpr int kWaveMaxK = 16;
+constexpr int kWaveMinBlocks[kWaveMaxK + 1] = {1, 4, 4, 4, 4, 4, 4, 3, 3, 4, 3, 2, 2, 2, 2, 2, 2};
+constexpr int kWaveColThreads = kThreads - 64;
 
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
@@ -352,6 +377,43 @@ __device__ __forceinline__ double power_from(double van, double xi, int from, in
   return van;
 }
 
+// One rotation's scalars from its pivot entries app = a[p][p], apq = a[p][q],
+// aqp = a[q][p] and aqq = a[q][q], as ops/polyfit.py :: jacobi_eigh computes
+// them: c, the selected s (0 where the pivot is below DBL_MIN, after the same
+// arithmetic), and the new a[p][p] and a[q][q] (where rows and columns p and
+// q cross: the rows' update, then the columns'; a[p][q] and a[q][p] are then
+// zeroed).
+struct Rotation {
+  double c, s, npp, nqq;
+};
+
+__device__ __forceinline__ Rotation rotation(double app, double apq, double aqp, double aqq) {
+  const bool rotate = fabs(apq) > DBL_MIN;
+  const double safe_apq = rotate ? apq : 1.0;
+  const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
+  const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
+  const double sgn = sign_of(tau);
+  const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
+  const double t = sgn < 0.0 ? -r : r;
+  const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
+  const double s = mul(t, c_rot);
+  const double c = rotate ? c_rot : 1.0;
+  const double s_sel = rotate ? s : 0.0;
+  const double ms_p = mul(s_sel, -1.0), ms_q = mul(s_sel, 1.0);  // (-s, s)
+  const double rpp = add(mul(c, app), mul(ms_p, aqp)), rpq = add(mul(c, apq), mul(ms_p, aqq));
+  const double rqp = add(mul(c, aqp), mul(ms_q, app)), rqq = add(mul(c, aqq), mul(ms_q, apq));
+  return {c, s_sel, add(mul(c, rpp), mul(ms_p, rpq)), add(mul(c, rqq), mul(ms_q, rqp))};
+}
+
+// (xp, xq) <- (c xp - s xq, c xq + s xp) as the plain version rounds it:
+// c * x + (-s, s) * x_flipped
+__device__ __forceinline__ void rotate_pair(double c, double s, double& xp, double& xq) {
+  const double ms_p = mul(s, -1.0), ms_q = mul(s, 1.0);
+  const double p = xp, q = xq;
+  xp = add(mul(c, p), mul(ms_p, q));
+  xq = add(mul(c, q), mul(ms_q, p));
+}
+
 // Warp 0's Jacobi on the k x k a (row-major, in place: its diagonal ends as
 // the eigenvalues) with the eigenvectors in v's columns (v starts as the
 // identity), as ops/polyfit.py :: jacobi_eigh rotation for rotation.
@@ -359,42 +421,20 @@ __device__ void jacobi_warp(double* a, double* v, int k, int lane) {
   for (int sweep = 0; sweep < kSweeps; ++sweep) {
     for (int p = 0; p < k - 1; ++p) {
       for (int q = p + 1; q < k; ++q) {
-        const double app = a[p * k + p], apq = a[p * k + q], aqp = a[q * k + p], aqq = a[q * k + q];
-        const bool rotate = fabs(apq) > DBL_MIN;
-        const double safe_apq = rotate ? apq : 1.0;
-        const double tau = quo(sub(aqq, app), mul(2.0, safe_apq));
-        const double root = __dsqrt_rn(add(mul(tau, tau), 1.0));
-        const double sgn = sign_of(tau);
-        const double r = rcp(sgn == 0.0 ? add(tau, root) : add(fabs(tau), root));
-        const double t = sgn < 0.0 ? -r : r;
-        const double c_rot = rcp(__dsqrt_rn(add(mul(t, t), 1.0)));
-        const double s = mul(t, c_rot);
-        const double c = rotate ? c_rot : 1.0;
-        const double s_sel = rotate ? s : 0.0;
-        const double ms_p = mul(s_sel, -1.0), ms_q = mul(s_sel, 1.0);  // (-s, s)
-        // where rows and columns p and q cross: the rows' update, then the columns', then the pair zeroed
-        const double rpp = add(mul(c, app), mul(ms_p, aqp)), rpq = add(mul(c, apq), mul(ms_p, aqq));
-        const double rqp = add(mul(c, aqp), mul(ms_q, app)), rqq = add(mul(c, aqq), mul(ms_q, apq));
-        const double npp = add(mul(c, rpp), mul(ms_p, rpq)), nqq = add(mul(c, rqq), mul(ms_q, rqp));
+        const Rotation rot = rotation(a[p * k + p], a[p * k + q], a[q * k + p], a[q * k + q]);
         __syncwarp();  // every lane has read the pivot's entries before any is written
         if (lane == 0) {
-          a[p * k + p] = npp;
-          a[q * k + q] = nqq;
+          a[p * k + p] = rot.npp;
+          a[q * k + q] = rot.nqq;
           a[p * k + q] = 0.0;
           a[q * k + p] = 0.0;
         }
         for (int j = lane; j < k; j += 32) {
           if (j != p && j != q) {
-            const double xp = a[p * k + j], xq = a[q * k + j];  // rows p and q at column j
-            a[p * k + j] = add(mul(c, xp), mul(ms_p, xq));
-            a[q * k + j] = add(mul(c, xq), mul(ms_q, xp));
-            const double yp = a[j * k + p], yq = a[j * k + q];  // columns p and q at row j
-            a[j * k + p] = add(mul(c, yp), mul(ms_p, yq));
-            a[j * k + q] = add(mul(c, yq), mul(ms_q, yp));
+            rotate_pair(rot.c, rot.s, a[p * k + j], a[q * k + j]);  // rows p and q at column j
+            rotate_pair(rot.c, rot.s, a[j * k + p], a[j * k + q]);  // columns p and q at row j
           }
-          const double vp = v[j * k + p], vq = v[j * k + q];
-          v[j * k + p] = add(mul(c, vp), mul(ms_p, vq));
-          v[j * k + q] = add(mul(c, vq), mul(ms_q, vp));
+          rotate_pair(rot.c, rot.s, v[j * k + p], v[j * k + q]);
         }
         __syncwarp();
       }
@@ -584,33 +624,360 @@ int launch_general(const double* x, const double* y, const double* w, double* ou
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- the wave form -------------------------------------------------------------
+
+// y rows of column yc, weighted, times the scaled rows: b = A^T (w y), each
+// term summed over the samples in order in this thread; the rows from shared
+// memory (lhs, ws), y loads issued kRows at a time, or, beyond it, recomputed
+// as the same chain of rounded operations (x^j as j products from 1, times
+// w, over scl[j]), the sums kept in the thread's slice of shared memory
+// (acc[j * kThreads]) across the quotients, whose slow paths are calls
+template <int K>
+__device__ __forceinline__ void column_rhs(double (&b)[K], const double* yc, int n, int m, bool rows,
+                                           const volatile double* ws, const volatile double* lhs, const double* x,
+                                           const double* wb, const double* scl, volatile double* acc) {
+  if (rows) {
+    double ys[kRows];
+    for (int i0 = 0; i0 < n; i0 += kRows) {
+      load_rows(ys, yc, i0, n, m);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r;
+        if (i >= n) break;
+        const double rhs = mul(ys[r], ws[i]);
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const double term = mul(lhs[i * K + j], rhs);
+          b[j] = i == 0 ? term : add(b[j], term);
+        }
+      }
+    }
+    return;
+  }
+  double y_next = __ldg(yc);
+  for (int i = 0; i < n; ++i) {
+    const double xi = x[i], wi = wb[i];
+    const double rhs = mul(y_next, wi);
+    if (i + 1 < n) y_next = __ldg(yc + static_cast<size_t>(i + 1) * m);
+    double van = 1.0;
+    for (int j = 0; j < K; ++j) {
+      if (j > 0) van = mul(van, xi);
+      const double term = mul(quo(mul(van, wi), scl[j]), rhs);
+      acc[j * kThreads] = i == 0 ? term : add(acc[j * kThreads], term);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) b[j] = acc[j * kThreads];
+}
+
+// one column's solution from its right-hand sides b: evecs (inv * (evecs^T b)),
+// unscaled, stored at oc[i * m].  Each sum runs in the plain version's order;
+// the projection takes a row of evecs at a time (the volatile reads keep the
+// compiler from hoisting all K^2 of them into registers), and each result
+// is divided and stored as soon as it is summed.
+template <int K>
+__device__ __forceinline__ void column_solve(const double (&b)[K], const volatile double* evecs, const double* inv,
+                                             const double* scl, double* oc, int m) {
+  double sc[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {  // sc[j] = sum over i of evecs[i][j] b[i]
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const double term = mul(evecs[i * K + j], b[i]);
+      sc[j] = i == 0 ? term : add(sc[j], term);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) sc[j] = mul(inv[j], sc[j]);
+#pragma unroll
+  for (int i = 0; i < K; ++i) {  // sum over j of evecs[i][j] sc[j], over scl[i]
+    double res = mul(evecs[i * K], sc[0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) res = add(res, mul(evecs[i * K + j], sc[j]));
+    oc[static_cast<size_t>(i) * m] = quo(res, scl[i]);
+  }
+}
+
+// The wave form's program (ops/polyfit.py :: wave_table): rows of 32-bit
+// tasks, one to a lane.  A rotation's scalars are 1 << 31 | r << 18 | p << 9 | q;
+// its update of the stored entries e1 = (p, j) and e2 = (q, j) of the upper
+// triangle is r << 18 | e1 << 9 | e2.  A row's first task sits at
+// start[row] & 0x7fff, and bit 15 marks a row of scalars.
+constexpr unsigned kScalars = 1u << 31;
+constexpr unsigned kScalarsRow = 0x8000u;
+constexpr int kPublish = 4;  // rows of scalars between two publications of their rotations' c and s
+
+// rotation r's stored c, -s and s applied to a[e1] and a[e2] (an idle lane's
+// task names the spare rotation kRot, c = 1 and s = 0, and the spare entry)
+__device__ __forceinline__ void wave_update(double* a, const double* rot, int r, int e1, int e2) {
+  const double c = rot[3 * r], ms_p = rot[3 * r + 1], ms_q = rot[3 * r + 2];
+  const double xp = a[e1], xq = a[e2];
+  a[e1] = add(mul(c, xp), mul(ms_p, xq));
+  a[e2] = add(mul(c, xq), mul(ms_q, xp));
+}
+
+// bytes of the wave form's static shared memory (ops/polyfit.py :: wave_static)
+__host__ __device__ constexpr size_t wave_static(int k) {
+  return sizeof(double) * (2 * k + 2 * k * k + 1 + 3 * (kSweeps * k * (k - 1) / 2 + 1)) + 16;
+}
+
+// The whole fit for K = deg + 1 <= kWaveMaxK: x (n,), y (n, m), w (P, n) ->
+// out (P, K, m), the grid as polyfit_kernel<K> lays it out.  `table` is
+// ops/polyfit.py :: wave_table(K), `rows` its rows and `table_len` its
+// uint16 entries (a multiple of 4); the block copies it to shared memory
+// after its weighting and rows and the right-hand sides of its first `hold`
+// columns, which warps 2-7 form beside the Jacobi.
+template <int K>
+__global__ void __launch_bounds__(kThreads, kWaveMinBlocks[K])
+    polyfit_wave(const double* __restrict__ x, const double* __restrict__ y, const double* __restrict__ w,
+                 double* __restrict__ out, int n, int m, int tile, int tiles, double cut_factor,
+                 const unsigned short* __restrict__ table, int rows, int table_len, int hold) {
+  constexpr int kRot = kSweeps * K * (K - 1) / 2;
+  extern __shared__ double smem[];
+  // the matrix's upper triangle (a[K * K] a spare entry), and each rotation's c, -s and s (rotation kRot a spare)
+  __shared__ double scl[K], inv[K], a[K * K + 1], evecs[K * K], rot[3 * (kRot + 1)];
+  __shared__ int rows_done;  // rows of warp 0's program run, published every kPublish rows of scalars
+  const bool in_smem = general_rows(n, K);
+  double* ws = smem;     // (n,): the weighting, when in_smem
+  double* lhs = ws + n;  // (n, K): the weighted Vandermonde rows, then scaled, when in_smem
+  volatile double* acc = smem + threadIdx.x;  // (K, kThreads): each thread's sums, when not in_smem
+  double* atb = smem + (in_smem ? static_cast<size_t>(n) * (K + 1) : static_cast<size_t>(K) * kThreads);  // (K, hold)
+  unsigned short* tbl = reinterpret_cast<unsigned short*>(atb + static_cast<size_t>(K) * hold);
+  const int fit = blockIdx.x / tiles;
+  const int col0 = (blockIdx.x - fit * tiles) * tile;
+  const int cols = min(tile, m - col0);
+  const double* wb = w + static_cast<size_t>(fit) * n;
+  const double* yb = y + col0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < table_len / 4; i += kThreads) {
+    reinterpret_cast<uint2*>(tbl)[i] = __ldg(reinterpret_cast<const uint2*>(table) + i);
+  }
+  if (tid == 0) {
+    rows_done = 0;
+    rot[3 * kRot] = 1.0;
+    rot[3 * kRot + 1] = 0.0;
+    rot[3 * kRot + 2] = 0.0;
+  }
+  if (in_smem) {
+    for (int i = tid; i < n; i += kThreads) ws[i] = wb[i];
+    for (int e = tid; e < n * K; e += kThreads) {
+      const int i = e / K, j = e - i * K;
+      lhs[e] = mul(power_from(1.0, x[i], 0, j), wb[i]);
+    }
+    __syncthreads();
+  }
+  if (tid < K) {  // column scaling, as numpy's polyutils._fit
+    const int j = tid;
+    double ss = 0.0;
+    for (int i = 0; i < n; ++i) {
+      const double l = in_smem ? lhs[i * K + j] : mul(power_from(1.0, x[i], 0, j), wb[i]);
+      const double sq = mul(l, l);
+      ss = i == 0 ? sq : add(ss, sq);
+    }
+    const double r = __dsqrt_rn(ss);
+    scl[j] = r == 0.0 ? 1.0 : r;
+  }
+  __syncthreads();
+  if (in_smem) {
+    for (int e = tid; e < n * K; e += kThreads) lhs[e] = quo(lhs[e], scl[e % K]);
+    __syncthreads();
+  }
+  // the normal matrix's upper triangle (the plain version keeps it symmetric
+  // bit for bit), an entry a thread, summed over the samples in order
+  if (tid < K * K) {
+    const int p = tid / K, q = tid - p * K;
+    if (p <= q) {
+      double acc = 0.0;
+      for (int i = 0; i < n; ++i) {
+        double lp, lq;
+        if (in_smem) {
+          lp = lhs[i * K + p];
+          lq = lhs[i * K + q];
+        } else {
+          const double xi = x[i], wi = wb[i];
+          const double vp = power_from(1.0, xi, 0, p), vq = power_from(vp, xi, p, q);
+          lp = quo(mul(vp, wi), scl[p]);
+          lq = quo(mul(vq, wi), scl[q]);
+        }
+        const double term = mul(lp, lq);
+        acc = i == 0 ? term : add(acc, term);
+      }
+      a[tid] = acc;
+    }
+  }
+  __syncthreads();
+
+  const unsigned short* ready = tbl;          // (kRot,): the row that computes the rotation's scalars, + 1
+  const unsigned short* start = ready + kRot;  // (rows + 1,): each row's first task, bit 15 on a row of scalars
+  const unsigned* tasks = reinterpret_cast<const unsigned*>(tbl + ((kRot + rows + 2) & ~1));
+  if (warp == 0) {
+    // the wavefront: each step is a row of rotations' scalars (their c and
+    // s published every kPublish such rows, behind a fence that costs the
+    // warp ~60 cycles) and the rows of updates that the next step's scalars
+    // wait for, in a loop of their own with no branch.  A lane reads and
+    // decodes its task of the next row (and the row after that's start)
+    // while it runs this one's.
+    constexpr unsigned kIdle = static_cast<unsigned>(kRot) << 18 | (K * K) << 9 | (K * K);
+    unsigned s1 = rows >= 1 ? start[1] : 0, s2 = rows >= 2 ? start[2] : 0;
+    const int first = rows >= 1 ? start[0] & 0x7fff : 0;
+    unsigned task = lane < static_cast<int>(s1 & 0x7fff) - first ? tasks[first + lane] : kIdle;
+    int scalar_rows = 0;
+    for (int row = 0; row < rows;) {
+      unsigned next = row + 1 < rows && lane < static_cast<int>((s2 & 0x7fff) - (s1 & 0x7fff))
+                          ? tasks[(s1 & 0x7fff) + lane] : kIdle;
+      unsigned s3 = row + 3 <= rows ? start[row + 3] : 0;
+      if (task & kScalars) {
+        const int r = (task >> 18) & 0x1fff, p = (task >> 9) & 0x1ff, q = task & 0x1ff;
+        const double apq = a[p * K + q];
+        const Rotation rt = rotation(a[p * K + p], apq, apq, a[q * K + q]);
+        a[p * K + p] = rt.npp;
+        a[q * K + q] = rt.nqq;
+        a[p * K + q] = 0.0;
+        rot[3 * r] = rt.c;
+        rot[3 * r + 1] = mul(rt.s, -1.0);
+        rot[3 * r + 2] = mul(rt.s, 1.0);
+      }
+      // the next row's update, decoded off the rows' chain (unused if it is a row of scalars)
+      int r = (next >> 18) & 0x1fff, e1 = (next >> 9) & 0x1ff, e2 = next & 0x1ff;
+      __syncwarp();
+      if (lane == 0 && ++scalar_rows % kPublish == 0) {
+        asm volatile("fence.acq_rel.cta;" ::: "memory");  // c and s before the count that publishes them
+        *static_cast<volatile int*>(&rows_done) = row + 1;
+      }
+      for (bool scalars = (s1 & kScalarsRow) != 0; ++row < rows && !scalars;) {
+        s1 = s2;
+        s2 = s3;
+        next = row + 1 < rows && lane < static_cast<int>((s2 & 0x7fff) - (s1 & 0x7fff)) ? tasks[(s1 & 0x7fff) + lane]
+                                                                                         : kIdle;
+        s3 = row + 3 <= rows ? start[row + 3] : 0;
+        scalars = (s1 & kScalarsRow) != 0;
+        wave_update(a, rot, r, e1, e2);
+        r = (next >> 18) & 0x1fff;
+        e1 = (next >> 9) & 0x1ff;
+        e2 = next & 0x1ff;
+        __syncwarp();
+      }
+      task = next;
+      s1 = s2;
+      s2 = s3;
+    }
+    if (lane == 0) *static_cast<volatile int*>(&rows_done) = 0x7fffffff;
+    double top = 0.0;  // amax of the eigenvalues clamped at 0: a NaN wins
+    for (int j = 0; j < K; ++j) {
+      const double ev = is_nan(a[j * K + j]) ? a[j * K + j] : fmax(a[j * K + j], 0.0);
+      if (j == 0 || (!is_nan(top) && (is_nan(ev) || ev > top))) top = ev;
+    }
+    const double cutoff = mul(top, cut_factor);
+    if (lane < K) {
+      const double ev = is_nan(a[lane * K + lane]) ? a[lane * K + lane] : fmax(a[lane * K + lane], 0.0);
+      inv[lane] = ev > cutoff ? rcp(ev) : 0.0;
+    }
+  } else if (warp == 1) {
+    // the eigenvectors off the chain: lane i rotates row i, rotation after
+    // rotation in cyclic order, each once its scalars are out
+    if (lane < K) {
+      double* vr = evecs + lane * K;
+      for (int j = 0; j < K; ++j) vr[j] = j == lane ? 1.0 : 0.0;
+      int seen = 0;
+      for (int r = 0, p = 0, q = 1; r < kRot; ++r) {
+        if (seen < ready[r]) {
+          while (seen < ready[r]) seen = *static_cast<volatile int*>(&rows_done);
+          asm volatile("fence.acq_rel.cta;" ::: "memory");
+        }
+        const volatile double* cs = rot + 3 * r;
+        const double vp = vr[p], vq = vr[q];
+        vr[p] = add(mul(cs[0], vp), mul(cs[1], vq));
+        vr[q] = add(mul(cs[0], vq), mul(cs[2], vp));
+        if (++q == K) {  // the next (p, q) in cyclic order
+          q = ++p + 1;
+          if (q == K) p = 0, q = 1;
+        }
+      }
+    }
+  } else {  // warps 2-7: the first `hold` columns' right-hand sides, beside the Jacobi
+    for (int c = tid - 64; c < min(hold, cols); c += kWaveColThreads) {
+      double b[K];
+      column_rhs<K>(b, yb + c, n, m, in_smem, ws, lhs, x, wb, scl, acc);
+#pragma unroll
+      for (int j = 0; j < K; ++j) atb[j * hold + c] = b[j];
+    }
+  }
+  __syncthreads();
+
+  double* ob = out + static_cast<size_t>(fit) * K * m + col0;
+  for (int c = tid; c < cols; c += kThreads) {  // each column in one pass
+    double b[K];
+    if (c < hold) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) b[j] = atb[j * hold + c];
+    } else {
+      column_rhs<K>(b, yb + c, n, m, in_smem, ws, lhs, x, wb, scl, acc);
+    }
+    column_solve<K>(b, evecs, inv, scl, ob + c, m);
+  }
+}
+
+template <int K>
+int launch_wave(const double* x, const double* y, const double* w, double* out, int batch, int n, int m, int tile,
+                int tiles, double cut_factor, const unsigned short* table, int rows, int table_len, int hold,
+                cudaStream_t stream) {
+  if (table == nullptr || table_len % 4 != 0 || hold < 0 || hold > tile) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared = sizeof(double) * ((general_rows(n, K) ? static_cast<size_t>(n) * (K + 1)
+                                                                : static_cast<size_t>(K) * kThreads) +
+                                          static_cast<size_t>(K) * hold) +
+                        sizeof(unsigned short) * static_cast<size_t>(table_len);
+  if (shared + wave_static(K) > (48u << 10)) {  // the default limit counts static shared memory too
+    const cudaError_t err =
+        cudaFuncSetAttribute(polyfit_wave<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = static_cast<long long>(batch) * tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  polyfit_wave<K><<<static_cast<unsigned>(blocks), kThreads, shared, stream>>>(x, y, w, out, n, m, tile, tiles,
+                                                                              cut_factor, table, rows, table_len, hold);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// The C entry point: `form` 1 the register form (k = deg + 1 in [1, 7], its
+// The C entry point: `form` 1 the register form (k = deg + 1 in [1, 4], its
 // n * (k + 1) + k * tile doubles of shared memory within a block's), 2 the
 // general form (any k >= 1 and n >= 1; `workspace` null or general_fixed(k)
-// doubles a block); `tile` columns a block and `tiles` blocks a weighting,
-// all from ops/polyfit.py :: plan (the wrapper checks the rest); returns
-// the launch's CUDA error code.
+// doubles a block), 3 the wave form (k in [1, kWaveMaxK], any n >= 1;
+// `table` ops/polyfit.py :: wave_table(k), of `rows` rows and `table_len`
+// uint16 entries; the right-hand sides of a block's first `hold` columns in
+// shared memory); `tile` columns a block and `tiles` blocks a weighting,
+// all from ops/polyfit.py :: plan (the wrapper checks the rest); returns the
+// launch's CUDA error code.
 extern "C" int polyfit_f64(int form, const void* x, const void* y, const void* w, void* out, int batch, int n, int m,
-                           int k, int tile, int tiles, double cut_factor, void* workspace, void* stream) {
+                           int k, int tile, int tiles, double cut_factor, void* workspace, const void* table, int rows,
+                           int table_len, int hold, void* stream) {
   const auto* xd = static_cast<const double*>(x);
   const auto* yd = static_cast<const double*>(y);
   const auto* wd = static_cast<const double*>(w);
   auto* od = static_cast<double*>(out);
+  const auto* td = static_cast<const unsigned short*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile < 1 || tiles < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (form == 2) return launch_general(xd, yd, wd, od, batch, n, m, k, tile, tiles, cut_factor,
                                        static_cast<double*>(workspace), s);
+  if (form == 3) {
+    switch (k) {
+#define WAVE(K) \
+  case K: return launch_wave<K>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, td, rows, table_len, hold, s);
+      WAVE(1) WAVE(2) WAVE(3) WAVE(4) WAVE(5) WAVE(6) WAVE(7) WAVE(8)
+      WAVE(9) WAVE(10) WAVE(11) WAVE(12) WAVE(13) WAVE(14) WAVE(15) WAVE(16)
+#undef WAVE
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (form != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
     case 1: return launch<1>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
     case 2: return launch<2>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
     case 3: return launch<3>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
     case 4: return launch<4>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
-    case 5: return launch<5>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
-    case 6: return launch<6>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
-    case 7: return launch<7>(xd, yd, wd, od, batch, n, m, tile, tiles, cut_factor, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,7 +33,7 @@ _D = ctypes.c_double
 SIGNATURES = {
     "crop_letterbox": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "conv_s8": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
-    "polyfit_f64": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _P], _I),
+    "polyfit_f64": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _P, _I, _I, _I, _P], _I),
 }
 
 NVCC_FLAGS = [
