@@ -4,7 +4,9 @@ Reference: ``wtracker_tpu/utils/profiling.py``.  ``StageTimer`` keeps the
 same fields, ``report()`` text layout and ``reset()``: given the same
 recorded times, both packages' reports are the same text.
 ``device_trace`` writes a ``torch.profiler`` trace (Chrome trace JSON)
-under its directory, holding the traced block's operators.
+under its directory, holding the traced block's operators, and names the
+file; without a directory it writes nothing, and the program's spans
+(``span``) come on inside it.
 """
 
 import json
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from wtracker_tpu.utils.profiling import StageTimer as JaxStageTimer
-from wtracker_tpu_torch.utils.profiling import StageTimer, device_trace
+from wtracker_tpu_torch.utils.profiling import StageTimer, device_trace, span
 
 
 @pytest.mark.parametrize("sync", [True, False])
@@ -49,6 +51,16 @@ def test_device_trace_writes_a_trace(tmp_path):
     with device_trace(str(tmp_path / "trace")) as prof:
         torch.ones(32, 32).mm(torch.ones(32, 32))
     files = list((tmp_path / "trace").glob("trace_*.json"))
-    assert len(files) == 1 and prof is not None
+    assert len(files) == 1 and prof is not None and prof.trace_path == str(files[0])
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+
+
+def test_device_trace_without_a_directory_records_spans(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with device_trace() as prof:
+        with span("wt.cycle"):
+            torch.ones(8, 8).mm(torch.ones(8, 8))
+    assert prof.trace_path is None and list(tmp_path.iterdir()) == []
+    names = [e.name for e in prof.events()]
+    assert names.count("wt.cycle") == 1 and "aten::mm" in names

@@ -56,10 +56,34 @@ def test_trace_profile_lists_operators_on_the_cpu(tmp_path, nano, capsys):
     assert out["device_events"] == 0 and out["device_busy_s"] == 0.0 and out["top_kernels"] == []
     names = [r["name"] for r in out["top_ops"]]
     assert names and any(n.startswith("aten::") for n in names) and all(r["cpu_ms"] > 0 for r in out["top_ops"])
+    # the program's spans: one run of one cycle (two step calls: the fused loop logs a cycle late)
+    calls = {r["name"]: r["calls"] for r in out["layers"]}
+    assert calls["wt.run"] == 1 and calls["wt.cycle"] == 2 and calls["wt.detect"] == calls["wt.detector"] >= 2
+    assert {"wt.render", "wt.preprocess", "wt.decode", "wt.predict", "wt.motor"} <= set(calls)
+    assert all(r["device_ms"] == r["self_device_ms"] == 0.0 < r["host_ms"] for r in out["layers"])
     assert os.path.isfile(out["trace"])
     trace = trace_profile.load_trace(str(tmp_path))  # the newest trace of the directory
     assert trace["kernels"] == {} and trace["device_ms"] == 0.0 and trace["ops"]
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["streams"] == 2
+
+
+def test_busy_union_leaves_out_annotation_ranges():
+    """A span's device-side range covers the gaps between its kernels: the
+    busy time is the kernels', copies' and fills' union alone."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def ev(name, s, e, device=DeviceType.CUDA, annotation=False):
+        return SimpleNamespace(name=name, device_type=device, time_range=SimpleNamespace(start=s, end=e),
+                               is_user_annotation=annotation)
+
+    kernels = [ev("k1", 0.0, 10.0), ev("k2", 5.0, 15.0), ev("Memcpy DtoH", 40.0, 50.0)]
+    others = [ev("wt.detector", 0.0, 50.0, annotation=True), ev("Command Buffer Full", 20.0, 30.0),
+              ev("wt.detector", 0.0, 60.0, device=DeviceType.CPU)]
+    assert trace_profile.device_intervals(kernels + others) == sorted((e.time_range.start, e.time_range.end)
+                                                                      for e in kernels)
+    assert trace_profile.union_us(trace_profile.device_intervals(kernels + others)) == 25.0
 
 
 def test_load_trace_without_a_trace_raises(tmp_path):

@@ -34,6 +34,7 @@ from wtracker_tpu_torch.models.batchnorm import flax_batch_norm
 from wtracker_tpu_torch.ops.image import _interp_matrix, letterbox
 from wtracker_tpu_torch.utils import flax_init
 from wtracker_tpu_torch.utils.device import resolve_device
+from wtracker_tpu_torch.utils.profiling import span
 
 # scale presets: (depth_multiple, width_multiple, max_channels)
 SCALES = {
@@ -244,24 +245,25 @@ class YoloV8(nn.Module):
         """``external_stem=True``: ``x`` is the NHWC output of ``b0`` (the
         folded stem, :func:`make_folded_detect`), and the graph starts at
         ``b1``; the JAX package's ``YoloV8(external_stem=True)``."""
-        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        if not external_stem:
-            x = self.b0(x)
-        x = self.b2(self.b1(x))
-        p3 = self.b4(self.b3(x))
-        p4 = self.b6(self.b5(p3))
-        p5 = self.b9(self.b8(self.b7(p4)))
+        with span("wt.detector"):
+            x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+            if not external_stem:
+                x = self.b0(x)
+            x = self.b2(self.b1(x))
+            p3 = self.b4(self.b3(x))
+            p4 = self.b6(self.b5(p3))
+            p5 = self.b9(self.b8(self.b7(p4)))
 
-        def up2(t):  # x2 nearest: output pixel i reads input pixel i // 2
-            return F.interpolate(t, scale_factor=2, mode="nearest")
+            def up2(t):  # x2 nearest: output pixel i reads input pixel i // 2
+                return F.interpolate(t, scale_factor=2, mode="nearest")
 
-        n4 = self.n12(torch.cat([up2(p5), p4], dim=1))
-        n3 = self.n15(torch.cat([up2(n4), p3], dim=1))  # /8 out
-        n4out = self.n18(torch.cat([self.n16(n3), n4], dim=1))  # /16 out
-        n5out = self.n21(torch.cat([self.n19(n4out), p5], dim=1))  # /32 out
-        box, cls = self.head([n3, n4out, n5out])
-        nhwc = [t.permute(0, 2, 3, 1) for t in box], [t.permute(0, 2, 3, 1) for t in cls]
-        return nhwc
+            n4 = self.n12(torch.cat([up2(p5), p4], dim=1))
+            n3 = self.n15(torch.cat([up2(n4), p3], dim=1))  # /8 out
+            n4out = self.n18(torch.cat([self.n16(n3), n4], dim=1))  # /16 out
+            n5out = self.n21(torch.cat([self.n19(n4out), p5], dim=1))  # /32 out
+            box, cls = self.head([n3, n4out, n5out])
+            nhwc = [t.permute(0, 2, 3, 1) for t in box], [t.permute(0, 2, 3, 1) for t in cls]
+            return nhwc
 
 
 # ---------------------------------------------------------------------------
@@ -408,14 +410,15 @@ def top1_source_boxes(
     xywh in source pixels, NaN rows below ``conf``.  ``geometry`` is the
     letterbox ``(scale, pad_top, pad_left)``: numbers shared by the batch, or
     (B,) float32 tensors, one geometry a view (mixed-geometry batches)."""
-    scale, pad_top, pad_left = geometry
-    best_box, best_score = decode_top1(box_logits, cls_logits, imgsz, reg_max)
-    if isinstance(scale, torch.Tensor):
-        scale = scale[:, None]
-    xy = torch.stack([best_box[:, 0] - pad_left, best_box[:, 1] - pad_top], dim=-1) / scale
-    wh = (best_box[:, 2:] - best_box[:, :2]) / scale
-    out = torch.cat([xy, wh], dim=-1)
-    return torch.where((best_score >= conf)[:, None], out, torch.nan)
+    with span("wt.decode"):
+        scale, pad_top, pad_left = geometry
+        best_box, best_score = decode_top1(box_logits, cls_logits, imgsz, reg_max)
+        if isinstance(scale, torch.Tensor):
+            scale = scale[:, None]
+        xy = torch.stack([best_box[:, 0] - pad_left, best_box[:, 1] - pad_top], dim=-1) / scale
+        wh = (best_box[:, 2:] - best_box[:, :2]) / scale
+        out = torch.cat([xy, wh], dim=-1)
+        return torch.where((best_score >= conf)[:, None], out, torch.nan)
 
 
 def stem_weff(stem_weight: torch.Tensor) -> torch.Tensor:
@@ -541,15 +544,16 @@ def stem_apply_weff(folded: FoldedStem, weff: torch.Tensor, bias: torch.Tensor, 
     products, float32 sums: the JAX package's einsums with
     ``preferred_element_type=float32``).
     """
-    if views.ndim == 4:  # tolerate a trailing singleton channel
-        views = views[..., 0]
-    dt = folded.by.dtype
-    v = views.to(dt).float()
-    u = torch.einsum("pyh,bhw->pbyw", folded.by.float(), v).to(dt).float()
-    t = torch.einsum("pbyw,qxw->byxpq", u, folded.bx.float()).to(dt).float()
-    b, h, w = t.shape[:3]
-    z = torch.matmul(t.reshape(b, h, w, 9), weff.to(dt).float())
-    return _silu((z + bias.float()).to(dt))
+    with span("wt.preprocess"):
+        if views.ndim == 4:  # tolerate a trailing singleton channel
+            views = views[..., 0]
+        dt = folded.by.dtype
+        v = views.to(dt).float()
+        u = torch.einsum("pyh,bhw->pbyw", folded.by.float(), v).to(dt).float()
+        t = torch.einsum("pbyw,qxw->byxpq", u, folded.bx.float()).to(dt).float()
+        b, h, w = t.shape[:3]
+        z = torch.matmul(t.reshape(b, h, w, 9), weff.to(dt).float())
+        return _silu((z + bias.float()).to(dt))
 
 
 def stem_apply(folded: FoldedStem, stem_params: dict, views: torch.Tensor) -> torch.Tensor:

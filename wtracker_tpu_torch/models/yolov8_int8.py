@@ -55,6 +55,7 @@ from wtracker_tpu_torch.models.yolov8 import (
 from wtracker_tpu_torch.ops.conv_s8 import conv_s8, pack_weights
 from wtracker_tpu_torch.ops.conv_s8 import quant as _quant
 from wtracker_tpu_torch.utils.device import resolve_device
+from wtracker_tpu_torch.utils.profiling import span
 
 
 def _conv_bf16(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -442,7 +443,8 @@ class QuantizedYolo:
     def apply(self, qw: dict, x: torch.Tensor) -> tuple[list, list]:
         """int8 forward; ``x`` is the preprocessed (B, H, W, 3) batch in
         [0, 1] (any float dtype), ``qw`` = :meth:`device_weights` output."""
-        return _forward(self._apply_ops(qw), x.to(torch.bfloat16), self.nc, self.scale)
+        with span("wt.detector"):
+            return _forward(self._apply_ops(qw), x.to(torch.bfloat16), self.nc, self.scale)
 
     @torch.inference_mode()
     def apply_folded(self, qw: dict, views: torch.Tensor, folded) -> tuple[list, list]:
@@ -454,10 +456,11 @@ class QuantizedYolo:
         calibrated activation scale, and the int8 graph continues from b1.
         """
         ops = self._apply_ops(qw)
-        z = stem_apply_weff(folded, self.stem_weff(qw), qw["b0"]["b"], views)
-        s_b0 = ops._scale_of("b0")
-        xq = _QT(_quant(z, s_b0), np.full(z.shape[-1], s_b0))
-        return _forward_from_b0(ops, xq, self.nc, self.scale)
+        z = stem_apply_weff(folded, self.stem_weff(qw), qw["b0"]["b"], views)  # a wt.preprocess span
+        with span("wt.detector"):
+            s_b0 = ops._scale_of("b0")
+            xq = _QT(_quant(z, s_b0), np.full(z.shape[-1], s_b0))
+            return _forward_from_b0(ops, xq, self.nc, self.scale)
 
     def stem_weff(self, qw: dict) -> torch.Tensor:
         """Channel-summed (9, out_ch) float32 stem kernel rebuilt from the

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from wtracker_tpu_torch.utils.device import resolve_device
+from wtracker_tpu_torch.utils.profiling import span
 
 
 @lru_cache(maxsize=64)
@@ -86,33 +87,34 @@ def letterbox(
     to 3 after padding, and the row pass is rounded to ``dtype`` before the
     column pass.
     """
-    gray = frames.ndim == 3 or frames.shape[-1] == 1
-    if frames.ndim == 4 and frames.shape[-1] == 1:
-        frames = frames[..., 0]
+    with span("wt.preprocess"):
+        gray = frames.ndim == 3 or frames.shape[-1] == 1
+        if frames.ndim == 4 and frames.shape[-1] == 1:
+            frames = frames[..., 0]
 
-    sh, sw = frames.shape[1:3]
-    dh, dw = imgsz
-    scale = min(dh / sh, dw / sw)
-    new_h, new_w = round(sh * scale), round(sw * scale)
-    pad_top = (dh - new_h) // 2
-    pad_left = (dw - new_w) // 2
-    pad_lrtb = (pad_left, dw - new_w - pad_left, pad_top, dh - new_h - pad_top)
+        sh, sw = frames.shape[1:3]
+        dh, dw = imgsz
+        scale = min(dh / sh, dw / sw)
+        new_h, new_w = round(sh * scale), round(sw * scale)
+        pad_top = (dh - new_h) // 2
+        pad_left = (dw - new_w) // 2
+        pad_lrtb = (pad_left, dw - new_w - pad_left, pad_top, dh - new_h - pad_top)
 
-    dev = frames.device
-    a_h = _matrix(sh, new_h, dev, dtype, factor=1.0 / 255.0).to(torch.float32)
-    a_w = _matrix(sw, new_w, dev, dtype).to(torch.float32)
-    src = frames.to(dtype).to(torch.float32)
+        dev = frames.device
+        a_h = _matrix(sh, new_h, dev, dtype, factor=1.0 / 255.0).to(torch.float32)
+        a_w = _matrix(sw, new_w, dev, dtype).to(torch.float32)
+        src = frames.to(dtype).to(torch.float32)
 
-    if gray:
-        y = torch.einsum("oh,bhw->bow", a_h, src).to(dtype).to(torch.float32)
-        y = torch.einsum("pw,bow->bop", a_w, y).to(dtype)
-        y = F.pad(y, pad_lrtb, value=pad_value)
-        x = y[..., None].expand(*y.shape, 3)
-    else:
-        y = torch.einsum("oh,bhwc->bowc", a_h, src).to(dtype).to(torch.float32)
-        y = torch.einsum("pw,bowc->bopc", a_w, y).to(dtype)
-        x = F.pad(y, (0, 0, *pad_lrtb), value=pad_value)
-    return x, (scale, pad_top, pad_left)
+        if gray:
+            y = torch.einsum("oh,bhw->bow", a_h, src).to(dtype).to(torch.float32)
+            y = torch.einsum("pw,bow->bop", a_w, y).to(dtype)
+            y = F.pad(y, pad_lrtb, value=pad_value)
+            x = y[..., None].expand(*y.shape, 3)
+        else:
+            y = torch.einsum("oh,bhwc->bowc", a_h, src).to(dtype).to(torch.float32)
+            y = torch.einsum("pw,bowc->bopc", a_w, y).to(dtype)
+            x = F.pad(y, (0, 0, *pad_lrtb), value=pad_value)
+        return x, (scale, pad_top, pad_left)
 
 
 def crop_views(
@@ -221,14 +223,15 @@ def letterbox_indexed(
     is exact in float32), rounded to ``dtype`` after each pass; the fill term
     is rounded to ``dtype`` and added in ``dtype``, as in the JAX package.
     """
-    a_h = mat_y[geom_ids].to(torch.float32)  # (B, dh, ch)
-    a_w = mat_x[geom_ids].to(torch.float32)  # (B, dw, cw)
-    src = views.to(dtype).to(torch.float32)
-    y = torch.bmm(a_h, src).to(dtype).to(torch.float32)
-    y = torch.bmm(y, a_w.transpose(1, 2))
-    fill = 1.0 - cov_y[geom_ids][:, :, None] * cov_x[geom_ids][:, None, :]
-    y = y.to(dtype) + (fill * pad_value).to(dtype)
-    return y[..., None].expand(*y.shape, 3)
+    with span("wt.preprocess"):
+        a_h = mat_y[geom_ids].to(torch.float32)  # (B, dh, ch)
+        a_w = mat_x[geom_ids].to(torch.float32)  # (B, dw, cw)
+        src = views.to(dtype).to(torch.float32)
+        y = torch.bmm(a_h, src).to(dtype).to(torch.float32)
+        y = torch.bmm(y, a_w.transpose(1, 2))
+        fill = 1.0 - cov_y[geom_ids][:, :, None] * cov_x[geom_ids][:, None, :]
+        y = y.to(dtype) + (fill * pad_value).to(dtype)
+        return y[..., None].expand(*y.shape, 3)
 
 
 def replicate_pad(frame: torch.Tensor, pad_xy: tuple[int, int]) -> torch.Tensor:

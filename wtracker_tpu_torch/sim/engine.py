@@ -41,6 +41,7 @@ from wtracker_tpu_torch.ops.polyfit import polyfit, polyval
 from wtracker_tpu_torch.sim.config import TimingConfig
 from wtracker_tpu_torch.sim.motor import integer_motor_steps, sine_step_weights, step_weights
 from wtracker_tpu_torch.utils.device import resolve_device
+from wtracker_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -158,13 +159,14 @@ def _move(params: EngineParams, pos: torch.Tensor, dxdy: torch.Tensor, clamp) ->
     residual-carrying integer rounding in float64 over the (small) moving
     phase, with ``clamp`` after every step.  Returns the final position and
     the cycle's per-frame positions (..., cycle_n, 2)."""
-    moving_positions = []
-    p = pos
-    for s in integer_motor_steps(params.motor_weights, dxdy).unbind(0):
-        moving_positions.append(p)  # logged before this step's move
-        p = clamp(p + s.to(pos.dtype))
-    imaging = pos.unsqueeze(-2).expand(*pos.shape[:-1], params.imaging_n, 2)
-    return p, torch.cat([imaging, torch.stack(moving_positions, dim=-2)], dim=-2)
+    with span("wt.motor"):
+        moving_positions = []
+        p = pos
+        for s in integer_motor_steps(params.motor_weights, dxdy).unbind(0):
+            moving_positions.append(p)  # logged before this step's move
+            p = clamp(p + s.to(pos.dtype))
+        imaging = pos.unsqueeze(-2).expand(*pos.shape[:-1], params.imaging_n, 2)
+        return p, torch.cat([imaging, torch.stack(moving_positions, dim=-2)], dim=-2)
 
 
 def make_cycle_step(params: EngineParams, controller: CycleController):
@@ -217,20 +219,23 @@ def run_engine(
     Returns stacked logs with leading axes ``(n_cycles, cycle_n)``, on the
     controller's device (and the final carry when requested).
     """
-    if carry is None:
-        carry = init_carry(params, controller, init_position, device)
-    step = make_cycle_step(params, controller)
-    carry, logs = _scan(step, controller.consts, carry, range(start_cycle, start_cycle + n_cycles))
+    with span("wt.run"):
+        if carry is None:
+            carry = init_carry(params, controller, init_position, device)
+        step = make_cycle_step(params, controller)
+        carry, logs = _scan(step, controller.consts, carry, range(start_cycle, start_cycle + n_cycles))
     return (logs, carry) if return_carry else logs
 
 
 def _scan(step, consts, carry, cycles) -> tuple[tuple, CycleLog]:
     """``step`` over ``cycles`` from ``carry``: the final carry and the logs
-    stacked along a new leading axis."""
+    stacked along a new leading axis.  Each step call is one ``wt.cycle``
+    span."""
     positions, bboxes = [], []
     with torch.inference_mode():
         for cycle in cycles:
-            carry, log = step(consts, carry, cycle)
+            with span("wt.cycle"):
+                carry, log = step(consts, carry, cycle)
             positions.append(log.positions)
             bboxes.append(log.worm_bboxes)
     return carry, CycleLog(positions=torch.stack(positions), worm_bboxes=torch.stack(bboxes))
@@ -384,8 +389,9 @@ def run_engine_streams(
         step = make_batched_cycle_step(params, controller)
     else:
         step = _make_per_stream_step(params, controller)
-    carry = init_stream_carry(params, controller, init_positions, device)
-    _, logs = _scan(step, controller.consts, carry, range(n_cycles + 1) if delayed_log else range(n_cycles))
+    with span("wt.run"):
+        carry = init_stream_carry(params, controller, init_positions, device)
+        _, logs = _scan(step, controller.consts, carry, range(n_cycles + 1) if delayed_log else range(n_cycles))
     if delayed_log:  # the first row is cycle −1's
         logs = CycleLog(positions=logs.positions[1:], worm_bboxes=logs.worm_bboxes[1:])
     return logs

@@ -48,6 +48,7 @@ from wtracker_tpu_torch.sim.engine_live import (
     _sub_batches,
 )
 from wtracker_tpu_torch.utils.device import resolve_device
+from wtracker_tpu_torch.utils.profiling import span
 
 
 class StreamGeometry(NamedTuple):
@@ -279,14 +280,16 @@ def yolo_mlp_controller_hetero(
     arange_mv = torch.arange(MV, device=dev)
 
     def render_detect(worm_xy, cam_tls, fidx, gids, content_whs):
-        views = scene.render_views(worm_xy, cam_tls.to(torch.float32), canvas_hw, fidx, content_whs=content_whs)
-        x = letterbox_indexed(views, gids, mat_y, mat_x, cov_y, cov_x, dtype=detector_model.compute_dtype)
-        box_logits, cls_logits = forward(x)
-        pad = pads[gids]
-        out = top1_source_boxes(
-            box_logits, cls_logits, config.imgsz, detector_model.reg_max, (scales[gids], pad[:, 1], pad[:, 0]), config.conf
-        )
-        return _shift_boxes(out, cam_tls)
+        with span("wt.detect"):
+            views = scene.render_views(worm_xy, cam_tls.to(torch.float32), canvas_hw, fidx, content_whs=content_whs)
+            x = letterbox_indexed(views, gids, mat_y, mat_x, cov_y, cov_x, dtype=detector_model.compute_dtype)
+            box_logits, cls_logits = forward(x)
+            pad = pads[gids]
+            out = top1_source_boxes(
+                box_logits, cls_logits, config.imgsz, detector_model.reg_max, (scales[gids], pad[:, 1], pad[:, 0]),
+                config.conf,
+            )
+            return _shift_boxes(out, cam_tls)
 
     def detect_flat(idx, cam_tls, gt, views):
         n_streams, n = gt.shape[0], idx.shape[0]
@@ -305,15 +308,15 @@ def yolo_mlp_controller_hetero(
         cam_tl = ctx.position - consts["cam_half"]  # (S, 2)
         boxes = detect_flat(idx, cam_tl.repeat_interleave(IM, dim=0), state["gt"], _flat_views(consts["views_im"]))
         boxes = boxes.reshape(-1, IM, 4)
-        ring = _ring_set(state["ring"], idx % R, boxes)
-
-        kickoff = ctx.cycle * L + IM - params.pred_n
-        f_in = kickoff + input_frames
-        feats_abs = torch.where((f_in >= 0)[None, :, None], ring[:, f_in % R, :], torch.nan)
-        cam_center = cam_tl.to(torch.float32) + consts["cam_mid"]
-        dxdy = _batched_move_from_history(
-            mlp_model, feats_abs, ring[:, kickoff % R, :], cam_center, config.max_dist_per_pred
-        )
+        with span("wt.predict"):
+            ring = _ring_set(state["ring"], idx % R, boxes)
+            kickoff = ctx.cycle * L + IM - params.pred_n
+            f_in = kickoff + input_frames
+            feats_abs = torch.where((f_in >= 0)[None, :, None], ring[:, f_in % R, :], torch.nan)
+            cam_center = cam_tl.to(torch.float32) + consts["cam_mid"]
+            dxdy = _batched_move_from_history(
+                mlp_model, feats_abs, ring[:, kickoff % R, :], cam_center, config.max_dist_per_pred
+            )
         return {"ring": ring, "stash": boxes, "gt": state["gt"]}, dxdy
 
     def predict_all(consts, state, cycle_idx, positions):

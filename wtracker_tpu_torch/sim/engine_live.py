@@ -36,6 +36,7 @@ from wtracker_tpu_torch.models.yolov8 import YoloV8, can_fold_stem, detect_top1,
 from wtracker_tpu_torch.sim.engine import CycleController, DecideCtx, EngineParams
 from wtracker_tpu_torch.sim.synthetic import SyntheticScene
 from wtracker_tpu_torch.utils.device import resolve_device
+from wtracker_tpu_torch.utils.profiling import span
 
 
 def _resolve_detect(detect_fn, config: "LiveLoopConfig", detector_model: YoloV8, view_hw: tuple[int, int]):
@@ -176,11 +177,12 @@ def make_decision_step(
     def decide(views: torch.Tensor, cam_tl: torch.Tensor) -> torch.Tensor:
         S = views.shape[0]
         boxes = _detect(detector_model, views.reshape(S * k, H, W), config.imgsz, config.conf)
-        feats_abs = _shift_boxes(boxes, cam_tl.repeat_interleave(k, dim=0)).reshape(S, k, 4).to(torch.float32)
-        cam_center = cam_tl.to(torch.float32) + cam_mid
-        return _batched_move_from_history(
-            mlp_model, feats_abs, feats_abs[:, 0, :], cam_center, config.max_dist_per_pred
-        )
+        with span("wt.predict"):
+            feats_abs = _shift_boxes(boxes, cam_tl.repeat_interleave(k, dim=0)).reshape(S, k, 4).to(torch.float32)
+            cam_center = cam_tl.to(torch.float32) + cam_mid
+            return _batched_move_from_history(
+                mlp_model, feats_abs, feats_abs[:, 0, :], cam_center, config.max_dist_per_pred
+            )
 
     return decide
 
@@ -206,10 +208,12 @@ class _LoopParts:
 
     def render_detect(self, worm_xy: torch.Tensor, cam_tls: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
         """(N, 2) worms, (N, 2) int32 camera top-lefts, (N,) frames → (N, 4)
-        arena-coordinate boxes (NaN rows: no detection)."""
-        views = self.scene.render_views(worm_xy, cam_tls.to(torch.float32), self.view_hw, fidx)
-        boxes = self.detect(self.detector_model, views, self.config.imgsz, self.config.conf)
-        return _shift_boxes(boxes, cam_tls)
+        arena-coordinate boxes (NaN rows: no detection).  One ``wt.detect``
+        span."""
+        with span("wt.detect"):
+            views = self.scene.render_views(worm_xy, cam_tls.to(torch.float32), self.view_hw, fidx)
+            boxes = self.detect(self.detector_model, views, self.config.imgsz, self.config.conf)
+            return _shift_boxes(boxes, cam_tls)
 
     def detect_flat(self, worm_xy: torch.Tensor, cam_tls: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
         """:meth:`render_detect` in ``detect_chunks`` sequential sub-batches."""
@@ -293,9 +297,10 @@ def _single_stream_fns(params: EngineParams, config: LiveLoopConfig, parts: _Loo
         cam_tl = ctx.position - parts.cam_half
         worm_xy = state["gt"][idx.clamp(0, state["gt"].shape[0] - 1)]
         boxes_abs = parts.render_detect(worm_xy, cam_tl.expand(IM, 2), idx)
-        ring = _ring_set(state["ring"][None], idx % R, boxes_abs[None])
-        kickoff = ctx.cycle * L + IM - params.pred_n
-        dxdy = parts.move(ring, kickoff, cam_tl[None])[0]
+        with span("wt.predict"):
+            ring = _ring_set(state["ring"][None], idx % R, boxes_abs[None])
+            kickoff = ctx.cycle * L + IM - params.pred_n
+            dxdy = parts.move(ring, kickoff, cam_tl[None])[0]
         return {"ring": ring[0], "stash": boxes_abs, "gt": state["gt"]}, dxdy
 
     def predict_all(consts, state, cycle_idx, positions):
@@ -376,8 +381,9 @@ def make_stream_batch_flat(
         worm_xy = gt[:, idx.clamp(0, gt.shape[1] - 1), :].reshape(S * IM, 2)
         cam_tl = ctx.position - parts.cam_half  # (S, 2)
         boxes = parts.detect_flat(worm_xy, cam_tl.repeat_interleave(IM, dim=0), idx.repeat(S)).reshape(S, IM, 4)
-        ring = _ring_set(state["ring"], idx % R, boxes)
-        dxdy = parts.move(ring, ctx.cycle * L + IM - params.pred_n, cam_tl)
+        with span("wt.predict"):
+            ring = _ring_set(state["ring"], idx % R, boxes)
+            dxdy = parts.move(ring, ctx.cycle * L + IM - params.pred_n, cam_tl)
         return {"ring": ring, "stash": boxes, "gt": gt}, dxdy
 
     def predict_all(consts, state, cycle_idx, positions):
@@ -452,8 +458,9 @@ def make_stream_batch_fused(
         else:
             log_rows = torch.cat([state["img_stash"], torch.full_like(mov_boxes, torch.nan)], dim=1)
 
-        ring = _ring_set(state["ring"], img_idx % R, img_boxes)
-        dxdy = parts.move(ring, ctx.cycle * L + IM - params.pred_n, img_tl)
+        with span("wt.predict"):
+            ring = _ring_set(state["ring"], img_idx % R, img_boxes)
+            dxdy = parts.move(ring, ctx.cycle * L + IM - params.pred_n, img_tl)
         return {"ring": ring, "log_rows": log_rows, "img_stash": img_boxes, "gt": gt}, dxdy
 
     def predict_all(consts, state, cycle_idx, prev_positions):

@@ -16,6 +16,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from wtracker_tpu_torch.utils.profiling import span
+
 
 def make_trajectory(
     num_frames: int,
@@ -124,42 +126,43 @@ class SyntheticScene:
         ``content_whs`` (N, 2) optionally gives each view its own content
         extent inside the shared canvas (mixed-geometry batches).
         """
-        h, w = view_hw
-        n = worm_xys.shape[0]
-        dev = worm_xys.device
-        cam_tls = cam_tls.to(torch.float32)
-        ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] + cam_tls[:, 1, None, None]
-        xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :] + cam_tls[:, 0, None, None]
-        bg = self._texture(xs, ys)  # (N, h, w)
+        with span("wt.render"):
+            h, w = view_hw
+            n = worm_xys.shape[0]
+            dev = worm_xys.device
+            cam_tls = cam_tls.to(torch.float32)
+            ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] + cam_tls[:, 1, None, None]
+            xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :] + cam_tls[:, 0, None, None]
+            bg = self._texture(xs, ys)  # (N, h, w)
 
-        win = min(self.worm_window, h, w)
-        if content_whs is None:
-            clamp_w = torch.full((n,), w - win, dtype=torch.int32, device=dev)
-            clamp_h = torch.full((n,), h - win, dtype=torch.int32, device=dev)
-        else:
-            clamp_w = (content_whs[:, 0] - win).clamp_min(0).to(torch.int32)
-            clamp_h = (content_whs[:, 1] - win).clamp_min(0).to(torch.int32)
-        # patch top-left in view coords, clamped inside the view; the Gaussian
-        # is ≤1e-9·intensity beyond the patch, invisible at image scale
-        wx = worm_xys[:, 0] - cam_tls[:, 0]
-        wy = worm_xys[:, 1] - cam_tls[:, 1]
-        # round half to even, like jnp.round
-        tx = torch.minimum((torch.round(wx).to(torch.int32) - win // 2).clamp_min(0), clamp_w)
-        ty = torch.minimum((torch.round(wy).to(torch.int32) - win // 2).clamp_min(0), clamp_h)
+            win = min(self.worm_window, h, w)
+            if content_whs is None:
+                clamp_w = torch.full((n,), w - win, dtype=torch.int32, device=dev)
+                clamp_h = torch.full((n,), h - win, dtype=torch.int32, device=dev)
+            else:
+                clamp_w = (content_whs[:, 0] - win).clamp_min(0).to(torch.int32)
+                clamp_h = (content_whs[:, 1] - win).clamp_min(0).to(torch.int32)
+            # patch top-left in view coords, clamped inside the view; the Gaussian
+            # is ≤1e-9·intensity beyond the patch, invisible at image scale
+            wx = worm_xys[:, 0] - cam_tls[:, 0]
+            wy = worm_xys[:, 1] - cam_tls[:, 1]
+            # round half to even, like jnp.round
+            tx = torch.minimum((torch.round(wx).to(torch.int32) - win // 2).clamp_min(0), clamp_w)
+            ty = torch.minimum((torch.round(wy).to(torch.int32) - win // 2).clamp_min(0), clamp_h)
 
-        k = torch.arange(win, device=dev)
-        pys = (k.to(torch.float32)[None, :] + ty.to(torch.float32)[:, None]) - wy[:, None]  # (N, win)
-        pxs = (k.to(torch.float32)[None, :] + tx.to(torch.float32)[:, None]) - wx[:, None]
-        blob = self._worm_blob(pxs[:, None, :], pys[:, :, None], frame_idx[:, None, None])  # (N, win, win)
+            k = torch.arange(win, device=dev)
+            pys = (k.to(torch.float32)[None, :] + ty.to(torch.float32)[:, None]) - wy[:, None]  # (N, win)
+            pxs = (k.to(torch.float32)[None, :] + tx.to(torch.float32)[:, None]) - wx[:, None]
+            blob = self._worm_blob(pxs[:, None, :], pys[:, :, None], frame_idx[:, None, None])  # (N, win, win)
 
-        # the JAX package places the patch with two 0/1 selection matmuls
-        # (one exact product per output cell); a scatter into zeros gives
-        # the same floats
-        rows = (ty[:, None] + k)[:, :, None]
-        cols = (tx[:, None] + k)[:, None, :]
-        views = torch.arange(n, device=dev)[:, None, None]
-        placed = torch.zeros((n, h, w), dtype=torch.float32, device=dev).index_put_((views, rows, cols), blob)
-        return (bg + placed).clamp(0, 255)
+            # the JAX package places the patch with two 0/1 selection matmuls
+            # (one exact product per output cell); a scatter into zeros gives
+            # the same floats
+            rows = (ty[:, None] + k)[:, :, None]
+            cols = (tx[:, None] + k)[:, None, :]
+            views = torch.arange(n, device=dev)[:, None, None]
+            placed = torch.zeros((n, h, w), dtype=torch.float32, device=dev).index_put_((views, rows, cols), blob)
+            return (bg + placed).clamp(0, 255)
 
     def gt_bboxes(self, worm_xys: torch.Tensor, k_sigma: float = 2.0) -> torch.Tensor:
         """Ground-truth xywh boxes implied by the worm blob extent."""

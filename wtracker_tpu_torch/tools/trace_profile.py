@@ -8,8 +8,12 @@ reference's ResMLP or a seeded one), runs one window to warm up and one
 under the profiler, and reports
 
 - the device's busy share of the window's wall time and its busy ms per
-  cycle (the union of the intervals of kernels, copies and fills), and
-- the top operators and kernels by device time,
+  cycle (the union of the intervals of kernels, copies and fills),
+- the top operators and kernels by device time, and
+- ``layers``: for each span name of the program (``wt.cycle``,
+  ``wt.detector``, ...; :func:`wtracker_tpu_torch.utils.profiling.span`),
+  its calls, host ms, and the device ms of the operations enqueued inside
+  it, in total and self (with no inner span),
 
 for the ``bf16`` loop or the ``int8`` serving path (folded-stem int8
 detector, the int8 convolution kernel).  ``--trace-dir`` also exports the
@@ -29,6 +33,7 @@ import argparse
 import glob
 import json
 import os
+import re
 import time
 
 import torch
@@ -36,26 +41,89 @@ import torch
 from wtracker_tpu_torch.tools import CHECKPOINT
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")  # device events of an exported trace
+SPAN_PREFIX = "wt."
+# host calls that enqueue device work: a device operation carries its call's correlation id
+ENQUEUE = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|Memcpy|Memset)")
+
+
+def device_intervals(events) -> list[tuple[float, float]]:
+    """Sorted (start, end) µs of the device operations among a profiler's
+    ``events()``: kernels, copies and fills, not the device-side ranges of
+    annotations (a span's range covers its gaps) nor CUPTI's
+    ``Command Buffer Full``."""
+    from torch.autograd import DeviceType
+
+    return sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in events
+        if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"
+        and not getattr(e, "is_user_annotation", False)
+    )
+
+
+def union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of sorted intervals: overlaps once, gaps never."""
+    busy_us, end = 0.0, float("-inf")
+    for s, e in intervals:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return busy_us
+
+
+def span_layers(prof) -> list[dict]:
+    """For each span name of a profiled run (``wt.*``): its calls, summed
+    host ms, and the summed device ms of the operations enqueued inside its
+    spans (``device_ms``) and inside them with no inner span
+    (``self_device_ms``), each operation found by the correlation id of the
+    host call that enqueued it.  Sorted by self device time, then name."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    spans, enqueued, ops = [], {}, []
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name.startswith(SPAN_PREFIX):
+                spans.append((e.start_ns(), -e.end_ns(), name))
+            elif ENQUEUE.match(name):
+                enqueued.setdefault(e.correlation_id(), e.start_ns())
+        elif not e.is_user_annotation() and name != "Command Buffer Full":
+            ops.append((e.correlation_id(), e.end_ns() - e.start_ns()))
+    rows = {name: {"name": name, "calls": 0, "host_ms": 0.0, "device_ms": 0.0, "self_device_ms": 0.0}
+            for _, _, name in spans}
+    for s, neg_e, name in spans:
+        rows[name]["calls"] += 1
+        rows[name]["host_ms"] += (-neg_e - s) * 1e-6
+    timed = sorted((enqueued[corr], dur) for corr, dur in ops if corr in enqueued)
+    spans.sort()
+    stack, i = [], 0
+    for t, dur in timed:  # the spans open at each enqueue call, innermost last
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and -stack[-1][1] <= spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and -stack[-1][1] <= t:
+            stack.pop()
+        if stack:
+            rows[stack[-1][2]]["self_device_ms"] += dur * 1e-6
+            for name in {sp[2] for sp in stack}:
+                rows[name]["device_ms"] += dur * 1e-6
+    return sorted(rows.values(), key=lambda r: (-r["self_device_ms"], r["name"]))
 
 
 def summarize(prof, wall_s: float, top: int = 12) -> dict:
     """A profiled run's summary: the device's busy time, the union of the
     intervals of its kernels, copies and fills (each counted once: the
     operators' own device-time totals repeat their kernels' time), its share
-    of ``wall_s``, and the operators and kernels that take the most device
-    time.  A trace without device events lists operators by CPU time."""
+    of ``wall_s``, the operators and kernels that take the most device
+    time, and the program's spans (:func:`span_layers`).  A trace without
+    device events lists operators by CPU time."""
     from torch.autograd import DeviceType
 
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"
-    )
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
+    spans = device_intervals(prof.events())
+    busy_us = union_us(spans)
     rows = list(prof.key_averages())
     on_device = any(e.self_device_time_total > 0 for e in rows)
 
@@ -75,24 +143,23 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
         "device_busy_share": busy_us * 1e-6 / wall_s,
         "top_ops": listing(DeviceType.CPU),
         "top_kernels": listing(DeviceType.CUDA),
+        "layers": span_layers(prof),
     }
 
 
 def profile_run(run, top: int = 12, trace_dir: str | None = None) -> dict:
     """One more run of a loop (``run()`` returns its wall seconds) under
-    ``torch.profiler``, CPU and, where a card is visible, CUDA activities;
-    :func:`summarize`\\ d, and exported as a Chrome trace into ``trace_dir``
-    when given (``"trace"`` in the result)."""
-    from torch.profiler import ProfilerActivity, profile
+    :func:`~wtracker_tpu_torch.utils.profiling.device_trace` (CPU and, where
+    a card is visible, CUDA activities); :func:`summarize`\\ d, and exported
+    as a Chrome trace into ``trace_dir`` when given (``"trace"`` in the
+    result)."""
+    from wtracker_tpu_torch.utils.profiling import device_trace
 
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=activities, acc_events=True) as prof:
+    with device_trace(trace_dir or None) as prof:
         wall_s = run()
     out = summarize(prof, wall_s, top)
-    if trace_dir:
-        os.makedirs(trace_dir, exist_ok=True)
-        out["trace"] = os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-        prof.export_chrome_trace(out["trace"])
+    if prof.trace_path:
+        out["trace"] = prof.trace_path
     return out
 
 
@@ -171,6 +238,10 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"\ntop {len(rows)} {title} by {column}:")
         for r in rows:
             print(f"  {r[column]:9.3f} ms  {r[column] / total * 100:5.1f}%  x{r['calls']:<6d} {r['name']}")
+    print("\nspans: device ms self / total, host ms")
+    for r in out["layers"]:
+        print(f"  {r['self_device_ms']:9.3f} / {r['device_ms']:9.3f} ms  {r['host_ms']:9.3f} ms  x{r['calls']:<6d} "
+              f"{r['name']}")
     print(json.dumps(out))
     return out
 

@@ -5,6 +5,11 @@ Port of :mod:`wtracker_tpu.utils.profiling`: :func:`device_trace`, a
 (open it in Perfetto or ``chrome://tracing``), and :class:`StageTimer`, a
 host-side stage breakdown whose stages end only once the work they queued
 on the card has finished.
+
+:func:`span` names a stretch of the program (``wt.cycle``, ``wt.detector``,
+...) in the trace of any ``torch.profiler`` session, on the clock of the
+device operations it enqueues; with no session running it costs one flag
+read.
 """
 
 from __future__ import annotations
@@ -15,22 +20,45 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager naming the enclosed stretch of the program
+    ``name`` in the trace: ``torch.profiler.record_function(name)`` while a
+    ``torch.profiler`` session runs (any session: :func:`device_trace`,
+    ``tools/trace_profile.py``, a benchmark's traced run), so the stretch
+    and the device operations enqueued inside it share the trace's clock,
+    and nested spans name their parent.  Otherwise one shared null context:
+    no allocation, no dispatcher call.  A span never synchronises the card
+    or reads a device value."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str):
+def device_trace(log_dir: str | None = None):
     """Profile the block with ``torch.profiler`` (CPU and, where a card is
-    visible, CUDA activities) and write its trace to
-    ``log_dir/trace_<pid>_<ns>.json``; yields the profiler."""
+    visible, CUDA activities) and, with ``log_dir``, write its trace to
+    ``log_dir/trace_<pid>_<ns>.json``.  Yields the profiler, whose
+    ``trace_path`` names the file written once the block has ended (None
+    without ``log_dir``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, acc_events=True) as prof:
+        prof.trace_path = None
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    if log_dir is not None:
+        prof.trace_path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(prof.trace_path)
 
 
 def _synchronize_used_devices() -> None:
