@@ -6,7 +6,8 @@ live loop over many streams, at full width:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every hand-written kernel from ``wtracker_tpu_torch/csrc`` (K1,
-   K2 and the float64 polyfit K3; one ``nvcc`` per source, all started
+   K2, the float64 polyfit K3 and the bias + SiLU pass K4; one ``nvcc`` per
+   source, all started
    together; K3's, first needed in phase 14, finishes beside phases 3-13),
    prints the compiler's
    register report, and counts the int8 convolution's tensor-core
@@ -21,7 +22,7 @@ live loop over many streams, at full width:
 5. runs ``run_video_live`` over a seeded 1430x1671 recording (40 cycles of
    12 imaging + 3 moving frames, chunks of 16 cycles) through the crop +
    letterbox kernel, with the launch counters set to 0 just before and read
-   just after;
+   just after (K4, the bias + SiLU pass, 57 launches a forward);
 6. runs the same loop through the plain crop -> letterbox -> detect branch,
    then both branches again with a float32 detector, and holds kernel loop
    against plain loop (float32: positions exact, boxes to 1e-2 px;
@@ -34,17 +35,19 @@ live loop over many streams, at full width:
    float32 detector: IoU >= 0.9) and times both at one sub-batch of the
    synthetic loop;
 8. runs the video loop at the default ``fold_stem=None``, which folds the
-   stem for the BN-fused detector and so launches the kernel 0 times;
+   stem for the BN-fused detector and so launches the kernel 0 times (K4
+   56 times a forward: b0 is the folded stem's);
 9. runs the synthetic flagship loop as the bench builds it
    (``tools/bench.py::build_flagship``, the port of the JAX package's
    ``bench.py``: S=96 streams, 360 px camera, 4 detect sub-batches a
-   cycle), cut to 12 cycles: one warm-up and three timed runs, held to the
-   trained-tracking bar; and in float32 at S=4 the folded and standard
+   cycle), cut to 12 cycles: one warm-up (K4 56 launches a forward) and
+   three timed runs, held to the trained-tracking bar; and in float32 at S=4 the folded and standard
    stems give the same tracks;
 10. times the standalone 40 ms decision (``make_decision_step``, the
     bench's ``measure_decision_latency``) at S=1 and S=4, 30 decisions
     each, host until the move is on the host, then each of 30 more
-    decisions' card busy time from a ``torch.profiler`` trace;
+    decisions' card busy time from a ``torch.profiler`` trace (K4 57
+    launches a standard forward, 56 a folded one);
 11. runs ROI streaming (``roi_window``) over the same recording at 480 and
     364 px (4 px of slack: chunks replay), through the kernel in bfloat16
     and float32 and at the default ``fold_stem=None``: each run bit-identical
@@ -76,7 +79,8 @@ live loop over many streams, at full width:
     deployment configuration in one batch (stream-cycles/s);
 16. runs the live YOLOv8s@416 + ResMLP loop over 30 streams of exp0-exp4's
     three camera sizes (``yolo_mlp_controller_hetero``, 12 cycles): steps/s,
-    0 K1 launches, every stream held to the tracking bar, and in float32 the
+    0 K1 launches, K4 57 a forward (the warm-up's, counted), every stream
+    held to the tracking bar, and in float32 the
     mixed run against each camera size's streams alone;
 17. runs ``python -m wtracker_tpu_torch.workflows.quantize_detector`` on
     phase 12's BMPs (64 calibration views at the initial camera window): the
@@ -89,11 +93,12 @@ live loop over many streams, at full width:
     them by class (3x3 stride 1, 3x3 stride 2, 1x1, head logits);
 19. runs the video loop with the int8 detector over the recording, folded
     (``track_video``'s route: 0 K1 launches, 62 K2 a forward) and through K1
-    (2 K1 launches a cycle, 63 K2 a forward), each held to the tracking bar;
+    (2 K1 launches a cycle, 63 K2 a forward), no K4, each held to the
+    tracking bar;
 20. measures the int8 folded detector's top-1 drift from the bf16 one on 48
     held-out views (median <= 1 px, >= 75 % within 8 px);
 21. runs phase 9's synthetic loop with the int8 folded detect (steps/s beside
-    phase 9's bf16 steps/s; 62 K2 launches a forward), and holds K2 against
+    phase 9's bf16 steps/s; 62 K2 launches a forward, no K4), and holds K2 against
     its plain version at every convolution shape of one of its 360-view
     forwards, as phase 18 does at 12 views;
 22. runs ``track_video`` with the int8 artifact on the BMPs, held to the
@@ -107,7 +112,8 @@ live loop over many streams, at full width:
 24. runs the live host loop, ``Simulator`` + ``LoggingController(
     YoloController)``, over phase 12's BMPs with the trained YOLOv8s@416 in
     float32 on the card: >= 95 % of decisions detected, the tracking bar,
-    cycles/s, 0 launches of either hand kernel;
+    cycles/s, 0 launches of every hand kernel (the controller's detector is
+    not BN-fused, so not even K4);
 25. writes the trained checkpoint as an ultralytics-layout ``.pt`` and
     loads it back (state dict and 12-view logits identical to the ``.npz``
     load's), runs ``track_video --detector X.pt`` on phase 12's BMPs (phase
@@ -133,7 +139,7 @@ live loop over many streams, at full width:
     ``analyzed.csv``), ``DataAnalyzer.calc_precise_error(batched=True)``
     over phase 14's log (rows/s, card = CPU) and ``visualize
     --save-frames`` over 30 frames (``VLC.render_frame``'s pixels), the
-    three commands at once.  Phases 26-29 launch neither hand kernel (asserted: each command runs
+    three commands at once.  Phases 26-29 launch no hand kernel (asserted: each command runs
     in a child process that reports its own launch counts);
 30. trains the ResMLP at ``predictor_training``'s defaults over phase 14's
     log: the first epoch's per-batch losses on the card against the CPU's,
@@ -156,8 +162,8 @@ live loop over many streams, at full width:
     memory; one step from the same weights on the card and on the CPU
     (augmentation off), in float32 and float64, agrees, gradients
     included; one recipe step runs under ``torch.profiler``;
-33. phases 30-32 launch neither K1 nor K2, and K3 only in phase 31's swarm
-    (each command counted in its own process);
+33. phases 30-32 launch neither K1, K2 nor K4, and K3 only in phase 31's
+    swarm (each command counted in its own process);
 34. runs ``run_video_live_sharded`` over phase 13's recordings on a mesh of
     two slots on the card (``parallel/mesh.py``; each slot's slice of a
     chunk uploaded to its own device), through K1 (``fold_stem=False``: 2
@@ -177,23 +183,24 @@ live loop over many streams, at full width:
     statistics), float32 at batch 72 for 3 steps within phase 32's float32
     bounds; then the same two processes run ``yolo_training --dp
     --dp-ranks 2`` for one epoch, each as a rank that the command's
-    launcher starts.  Neither hand kernel launches on these paths (counted
+    launcher starts.  No hand kernel launches on these paths (counted
     in each rank from its start, asserted);
 38. runs the detector's gates (``wtracker_tpu_torch/tools/gates.py``) at the
     JAX gates' sizes: held-out AP@0.5 >= 0.80 on 24 rendered images, the
     trained checkpoint's int8 drift (median <= 1 px), the closed loop at S=1
     x 6 cycles, the int8 drift of random s weights and the s/416 parity
     against the CPU; every gate passes, K2 launches in the two int8 gates,
-    K1 in none;
+    K1 in none, K4 57 times a forward of the BN-fused detectors on the card;
 39. runs ``tools/trace_profile.py`` in process on the bf16 synthetic loop at
     S=8 x 2 cycles: a device busy share in (0, 1] and kernels listed;
 40. runs the bench's measurement (``tools/bench.py::_measure``) in process
     at S=8 x 2 cycles, one timed window, 20 decisions a latency and 8 at the
     250 ms cadence, bf16 and int8 (K1 and K3 0 launches, K2 62 a forward of
-    every int8 window and decision; each latency's 20 traced calls with a
-    card busy time in (0, the call's host time]), then
-    ``tools/bench_video.py::run`` over a 240-frame exp0 recording, whole
-    frames and ROI 512 px, in chunks of 4 cycles (no hand kernel);
+    every int8 window and decision, K4 56 a folded and 57 a standard bf16
+    forward; each latency's 20 traced calls with a card busy time in (0,
+    the call's host time]), then ``tools/bench_video.py::run`` over a
+    240-frame exp0 recording, whole frames and ROI 512 px, in chunks of 4
+    cycles (of the hand kernels only K4, 56 launches a folded forward);
 41. (run right after phase 14) holds K3 against its plain version on the
     card, 0 differing bits and one launch a call, on the polyfit replay's
     first 20 fits and on seeded fits of degree 1-5, 8, 9, 12 and 15 (y one
@@ -222,11 +229,17 @@ live loop over many streams, at full width:
     epochs): two uninterrupted runs with the card's default kernels (their
     spread: not bit-equal), then with torch's deterministic algorithms two
     uninterrupted runs and the resumed one, all three bit-equal (weights,
-    EMA weights, loss, mAP50, checkpoints).
+    EMA weights, loss, mAP50, checkpoints);
+43. (run right after phase 3) holds K4, the bf16 detector's bias + SiLU
+    pass, within one bf16 ulp of its float32 version at 360-view shapes
+    (b2.cv1 channels-last, b0 NCHW, 13 x 13 in both layouts), times it
+    beside the six-launch eager chain it replaces and its byte bound, and
+    counts its launches; its instantiations spill nothing.
 
-Prints one JSON line of kernel results, one of loop results, one for each
-of steps 7 to 42 (with ``--profile``, one more of ``torch.profiler`` runs of
-the loops, made after every timed phase), the card line, and last
+Prints one JSON line of kernel results, one of K4's, one of loop results,
+one for each of steps 7 to 42 (with ``--profile``, one more of
+``torch.profiler`` runs of the loops, made after every timed phase), the
+card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is not 0.  Needs one CUDA card and the
 repository checkout around this file; run it as ``python3 chip_smoke.py``
@@ -316,6 +329,14 @@ HETERO_TIMED_RUNS = 3
 INT8_CALIB_VIEWS = 64
 DRIFT_VIEWS = 48
 INT8_SYNTH_TIMED_RUNS = 2
+# K4, the bias + SiLU pass (phase 43), at 360-view bf16 shapes: b2.cv1's output
+# in the loop (channels-last), b0's in the mixed loop (NCHW), the smallest level
+BIAS_SILU_TIMED = (
+    ("b2.cv1", (360, 64, 104, 104), "channels_last"),
+    ("b0", (360, 32, 208, 208), "nchw"),
+    ("13x13", (360, 512, 13, 13), "channels_last"),
+    ("13x13", (360, 512, 13, 13), "nchw"),
+)
 
 
 def card_line() -> str:
@@ -346,7 +367,7 @@ def log_nvcc(reports: dict) -> None:
                 log(f"nvcc {name}: {line.strip()}")
 
 
-def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> float:
+def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20, before=None) -> float:
     """Median device time of ``fn`` in ms, one call per CUDA event pair.
 
     Before each call a write of more than the 50 MB L2 evicts the inputs (the
@@ -354,13 +375,16 @@ def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> float:
     preprocessing calls), and a spin of about 0.5 ms keeps the card busy
     while the host queues the call, so the host's own overhead does not show
     up as device time.  With ``flush_bytes=0`` the inputs stay in L2 from the
-    call before."""
+    call before.  ``before``, if given, runs ahead of each call and its
+    flush, outside the timed span (an in-place call's input put back)."""
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
+        if before is not None:
+            before()
         if flush_bytes:
             flush.zero_()
         torch.cuda._sleep(1_000_000)
@@ -369,6 +393,18 @@ def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> float:
         e.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host time to queue one call (the card is kept busy meanwhile)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def crop_letterbox_bound(n: int, cam: int, imgsz: int, out_bytes: int) -> tuple[float, str]:
@@ -439,17 +475,6 @@ def time_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, n: int, rng:
     if not lib_err <= 1e-4:  # its weights are computed in another order
         raise AssertionError(f"F.interpolate differs from the plain version by {lib_err}")
 
-    def host_ms(fn, reps: int = 50) -> float:
-        """Host time to queue one call (the card is kept busy meanwhile)."""
-        torch.cuda.synchronize()
-        torch.cuda._sleep(100_000_000)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        t = (time.perf_counter() - t0) / reps * 1e3
-        torch.cuda.synchronize()
-        return t
-
     kernel = lambda: crop_letterbox_views(frames, idx, tls, cam, imgsz, out_dtype=torch.bfloat16)
     bound_ms, bound_by = crop_letterbox_bound(n, cam, imgsz, out_bytes=2)
     return {
@@ -467,6 +492,82 @@ def time_crop_letterbox(frames: torch.Tensor, cam: int, imgsz: int, n: int, rng:
         # the same timing of a kernel that does nothing: the floor of the method
         "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0)),
     }
+
+
+def ptxas_kernels(report: str, name: str) -> dict:
+    """Registers, static shared memory and spills of each kernel whose
+    mangled name holds ``name``, from ``nvcc -Xptxas -v``'s report, by
+    mangled name."""
+    found, current = {}, None
+    for line in report.splitlines():
+        fn = re.search(r"Function properties for (\S+)", line)
+        if fn:
+            current = fn.group(1) if name in fn.group(1) else None
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            found.setdefault(current, {})["spill_stores"], found[current]["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            found.setdefault(current, {})["registers"] = int(used.group(1))
+            found[current]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return found
+
+
+def time_bias_silu(report: str) -> dict:
+    """Phase 43: K4, the bias + SiLU pass of every BN-fused convolution of
+    the bf16 detector, at the 360-view shapes of b2.cv1 (channels-last, the
+    loop cells), b0 (NCHW, the mixed cell) and the smallest (13 x 13, both
+    layouts).  Each is held within one bf16 ulp of its float32 version, then
+    timed (medians of 50 launches, L2 flushed, the input put back before
+    each) beside the six-launch eager chain it replaces (the bias ``add_``
+    and ``_silu``'s five passes) and its byte bound; the instantiations
+    spill nothing, and ``bias_silu_.launches`` counts every launch."""
+    from wtracker_tpu_torch.models.yolov8 import _silu
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
+
+    regs = ptxas_kernels(report, "bias_silu_kernel")  # empty where this checkout had built K4 before
+    if any(r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in regs.values()):
+        raise AssertionError(f"K4's instantiations must spill nothing: {regs}")
+    out = {"registers": sorted({r["registers"] for r in regs.values()}), "shapes": []}
+    bias_silu_.launches = 0
+    launches = 0
+    for name, shape, fmt in BIAS_SILU_TIMED:
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        memory_format = torch.channels_last if fmt == "channels_last" else torch.contiguous_format
+        x0 = (torch.randn(shape, generator=g, device="cuda") * 4).to(torch.bfloat16)
+        x0 = x0.contiguous(memory_format=memory_format)
+        b = (torch.randn(shape[1], generator=g, device="cuda") * 2).to(torch.bfloat16)
+        y = x0.float() + b.float().view(1, -1, 1, 1)
+        want = 0.5 * y * (torch.tanh(0.5 * y) + 1.0)
+        del y
+        x = x0.clone()
+        bias_silu_(x, b)
+        _, exp = torch.frexp(want)
+        ulps = ((x.float() - want).abs() / torch.ldexp(torch.ones_like(want), exp - 8)).max().item()
+        del want, exp
+        if not ulps <= 1.0:
+            raise AssertionError(f"K4 at {name} {shape} {fmt} is {ulps} bf16 ulps from its float32 version")
+        restore = lambda: x.copy_(x0)
+        kernel_ms = time_ms(lambda: bias_silu_(x, b), before=restore)
+        eager_ms = time_ms(lambda: _silu(x.add_(b.view(-1, 1, 1))), before=restore)
+        queue_ms = host_ms(lambda: bias_silu_(x, b))
+        bound_ms = 2 * x.numel() * x.element_size() / PEAK_BYTES_PER_S * 1e3
+        launches += 1 + 3 + 50 + 50
+        out["shapes"].append({
+            "name": name, "shape": list(shape), "layout": fmt, "max_ulps": ulps, "ms": kernel_ms,
+            "eager_chain_ms": eager_ms, "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms,
+            "speedup_vs_eager": eager_ms / kernel_ms, "host_ms": queue_ms,
+        })
+        del x, x0
+        torch.cuda.empty_cache()
+    if bias_silu_.launches != launches:
+        raise AssertionError(f"bias_silu_ launched {bias_silu_.launches} times, expected {launches}")
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -695,7 +796,8 @@ def synthetic_loop(model32):
         return logs, time.perf_counter() - t0
 
     crop_letterbox_views.launches = 0
-    logs, warm_s = run()
+    with k4_per_forward("the synthetic loop's warm-up", need=("folded",)) as k4:
+        logs, warm_s = run()
     secs = [run()[1] for _ in range(SYNTH_TIMED_RUNS)]
     launches = crop_letterbox_views.launches
     if launches != 0:
@@ -730,6 +832,7 @@ def synthetic_loop(model32):
         "warmup_s": warm_s,
         "run_s": secs,
         "crop_letterbox_launches": launches,
+        "warmup_k4": k4,
         "f32_fold_vs_standard_pos_max_abs_diff": pos32,
         "f32_fold_vs_standard_box_max_abs_diff": box32,
         **quality,
@@ -1379,24 +1482,13 @@ def k3_ptxas(report: str) -> list[dict]:
     ``nvcc -Xptxas -v``'s report of its build: the register form's and the
     wave form's instantiations (``"k"``: K = deg + 1) and the general form
     (``"k"``: None), each with its ``"form"``."""
-    found, current = {}, None
-    for line in report.splitlines():
-        name = re.search(r"Function properties for (\S+)", line)
-        if name:
-            k = re.search(r"polyfit_(kernel|wave)ILi(\d+)E", name.group(1))
-            current = (("register" if k.group(1) == "kernel" else "wave", int(k.group(2))) if k
-                       else ("general", None) if "polyfit_general" in name.group(1) else None)
-            continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill:
-            found.setdefault(current, {})["spill_stores"], found[current]["spill_loads"] = map(int, spill.groups())
-        used = re.search(r"Used (\d+) registers", line)
-        if used:
-            smem = re.search(r"(\d+) bytes smem", line)
-            found.setdefault(current, {})["registers"] = int(used.group(1))
-            found[current]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    found = {}
+    for mangled, props in ptxas_kernels(report, "polyfit_").items():
+        k = re.search(r"polyfit_(kernel|wave)ILi(\d+)E", mangled)
+        if k:
+            found["register" if k.group(1) == "kernel" else "wave", int(k.group(2))] = props
+        elif "polyfit_general" in mangled:
+            found["general", None] = props
     order = {"register": 0, "wave": 1, "general": 2}
     keys = sorted(found, key=lambda key: (order[key[0]], key[1] or 0))
     return [{"form": form, "k": k, **found[form, k]} for form, k in keys]
@@ -1778,7 +1870,8 @@ def hetero_live(models: dict, predictor, device: str = "cuda", per_geometry: int
         return logs, time.perf_counter() - t0
 
     crop_letterbox_views.launches = 0
-    logs, warm_s = run(models["bf16"])
+    with k4_per_forward("the mixed-geometry loop's warm-up", need=("standard",)) as k4:
+        logs, warm_s = run(models["bf16"])
     secs = [run(models["bf16"])[1] for _ in range(timed_runs)]
     launches = crop_letterbox_views.launches
     if launches != 0:
@@ -1820,6 +1913,7 @@ def hetero_live(models: dict, predictor, device: str = "cuda", per_geometry: int
         "warmup_s": warm_s,
         "run_s": secs,
         "crop_letterbox_launches": launches,
+        "warmup_k4": k4,
         "worst_stream_detection_rate": min(q["detection_rate"] for q in per_stream),
         "worst_stream_median_center_err_px": max(q["median_center_err_px"] for q in per_stream),
         "f32_mixed_vs_alone": groups,
@@ -2071,6 +2165,7 @@ def int8_video_loops(params, base, recording, num_frames, q, qw, predictor, cam:
     (a warm-up run, then a timed one).  Returns the phase's numbers and the
     two loops for --profile."""
     from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.sim.engine_live import LiveLoopConfig
@@ -2087,11 +2182,11 @@ def int8_video_loops(params, base, recording, num_frames, q, qw, predictor, cam:
         kw = dict(detect_fn=detect, detect_preprocessed_fn=detect_pre)
         runs[name] = lambda kw=kw: run_loop(params, cfg, recording, num_frames, det, predictor, "cuda", **kw)[1]
         warm = runs[name]()
-        crop_letterbox_views.launches = conv_s8.launches = 0
+        crop_letterbox_views.launches = conv_s8.launches = bias_silu_.launches = 0
         logs, secs = run_loop(params, cfg, recording, num_frames, det, predictor, "cuda", **kw)
-        k1, k2 = crop_letterbox_views.launches, conv_s8.launches
-        if k1 != k1_per_cycle * n_cycles or k2 != k2_per_forward * 2 * n_cycles:
-            raise AssertionError(f"int8 {name} loop: K1 {k1}, K2 {k2} launches in {n_cycles} cycles")
+        k1, k2, k4 = crop_letterbox_views.launches, conv_s8.launches, bias_silu_.launches
+        if k1 != k1_per_cycle * n_cycles or k2 != k2_per_forward * 2 * n_cycles or k4:
+            raise AssertionError(f"int8 {name} loop: K1 {k1}, K2 {k2}, K4 {k4} launches in {n_cycles} cycles")
         quality = tracking_quality(params, logs, recording)
         check_tracking(quality, cam)
         logs_by[name] = logs
@@ -2142,6 +2237,7 @@ def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, cal
     at every shape of a 360-view forward (:func:`compare_conv_classes`; the
     kernel timed, not the plain version): returned third."""
     from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.sim.engine import run_engine_streams
@@ -2180,11 +2276,12 @@ def int8_synthetic(q, qw, predictor, bf16_steps_per_s: float) -> tuple[dict, cal
     forwards = SYNTH_CHUNKS * (SYNTH_CYCLES + 1)
     if len(names) != 62 * forwards:
         raise AssertionError(f"the int8 synthetic warm-up ran {len(names)} convolutions, expected 62 x {forwards}")
-    crop_letterbox_views.launches = conv_s8.launches = 0
+    crop_letterbox_views.launches = conv_s8.launches = bias_silu_.launches = 0
     secs = [run()[1] for _ in range(INT8_SYNTH_TIMED_RUNS)]
-    k1, k2 = crop_letterbox_views.launches, conv_s8.launches
-    if k1 != 0 or k2 != 62 * forwards * INT8_SYNTH_TIMED_RUNS:
-        raise AssertionError(f"the int8 synthetic loop launched K1 {k1} and K2 {k2} times in {INT8_SYNTH_TIMED_RUNS} runs")
+    k1, k2, k4 = crop_letterbox_views.launches, conv_s8.launches, bias_silu_.launches
+    if k1 != 0 or k2 != 62 * forwards * INT8_SYNTH_TIMED_RUNS or k4:
+        raise AssertionError(f"the int8 synthetic loop launched K1 {k1}, K2 {k2} and K4 {k4} times in "
+                             f"{INT8_SYNTH_TIMED_RUNS} runs")
     quality = closed_loop_quality(params, logs, trajs)
     if not (quality["detection_rate"] >= 0.95 and quality["median_center_err_px"] <= 4.0):
         raise AssertionError(f"the int8 synthetic loop lost the worm: {quality}")
@@ -2448,9 +2545,10 @@ VIS_FRAMES = 30
 
 
 # a workflow command run as ``python -m`` runs it, whose last line of output
-# is that process's launch counts of the three hand kernels
+# is that process's launch counts of the four hand kernels
 COUNTED_COMMAND = """
 import json, runpy, sys
+from wtracker_tpu_torch.ops.bias_silu import bias_silu_
 from wtracker_tpu_torch.ops.conv_s8 import conv_s8
 from wtracker_tpu_torch.ops.polyfit import polyfit
 from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
@@ -2459,7 +2557,7 @@ try:
     runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 finally:
     print(json.dumps({"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches,
-                      "polyfit": polyfit.launches}))
+                      "polyfit": polyfit.launches, "bias_silu": bias_silu_.launches}))
 """
 
 
@@ -2474,7 +2572,7 @@ def run_module(args: list, timeout: int = 900) -> tuple[float, subprocess.Comple
 
 def run_cli(name: str, args: list, timeout: int = 600, env: dict | None = None) -> tuple[float, str, dict]:
     """``python -m wtracker_tpu_torch.workflows.<name> ARGS`` in a child
-    process: wall seconds, stdout, and the K1/K2 launches counted in that
+    process: wall seconds, stdout, and the K1-K4 launches counted in that
     process; raises on failure."""
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2496,24 +2594,61 @@ def run_clis(jobs: list[tuple[str, list]]) -> list[tuple[float, str, dict]]:
 
 
 def zero_hand_kernel_launches() -> None:
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
     from wtracker_tpu_torch.ops.polyfit import polyfit
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
 
-    crop_letterbox_views.launches = conv_s8.launches = polyfit.launches = 0
+    crop_letterbox_views.launches = conv_s8.launches = polyfit.launches = bias_silu_.launches = 0
 
 
 def check_no_hand_kernel(phase: str, commands: list[dict] = (), expect: tuple = ()) -> dict:
-    """The launch counts of K1, K2 and K3 in this process since the last
-    zeroing plus those each of ``commands`` (``run_cli``'s counts)
-    reported; raises unless the kernels named in ``expect`` launched and
-    the others did not."""
+    """The launch counts of K1-K4 in this process since the last zeroing
+    plus those each of ``commands`` (``run_cli``'s counts) reported; raises
+    unless the kernels named in ``expect`` launched and the others did
+    not."""
     launches = hand_kernel_launches()
     for counts in commands:
         launches = {k: v + counts[k] for k, v in launches.items()}
     if any(bool(v) != (k in expect) for k, v in launches.items()):
         raise AssertionError(f"{phase} launched {launches}, expected only {list(expect)}")
     return {**launches, "commands_counted": len(commands)}
+
+
+K4_PER_FORWARD = {"standard": 57, "folded": 56}  # every BN-fused ConvBN; a folded forward starts at b1
+
+
+@contextlib.contextmanager
+def k4_per_forward(phase: str, need: tuple = ()):
+    """K4 on the main path: zeroes ``bias_silu_.launches``, counts the
+    forwards of every YOLOv8 model in this process while open (by wrapping
+    ``YoloV8.forward``) that run ``ConvBN``'s route to K4 (BN-fused, on the
+    card, bfloat16 or float32, autograd off), standard and folded, and
+    raises unless K4 launched exactly 57 times a standard forward and 56 a
+    folded one, with at least one forward of each kind in ``need`` and at
+    least one in all.  Yields the counts, which take ``"bias_silu"``."""
+    from wtracker_tpu_torch.models.yolov8 import YoloV8
+    from wtracker_tpu_torch.ops.bias_silu import DTYPES, bias_silu_
+
+    counts = {"standard": 0, "folded": 0, "without_k4": 0}
+    forward = YoloV8.forward
+
+    def counted(self, x, external_stem=False):
+        k4 = self.b1.bn is None and x.is_cuda and self.compute_dtype in DTYPES and not torch.is_grad_enabled()
+        counts[("folded" if external_stem else "standard") if k4 else "without_k4"] += 1
+        return forward(self, x, external_stem)
+
+    bias_silu_.launches = 0
+    YoloV8.forward = counted
+    try:
+        yield counts
+    finally:
+        YoloV8.forward = forward
+    counts["bias_silu"] = bias_silu_.launches
+    want = sum(K4_PER_FORWARD[k] * counts[k] for k in K4_PER_FORWARD)
+    if not (want and all(counts[k] for k in need) and bias_silu_.launches == want):
+        raise AssertionError(f"{phase}: K4 launched {bias_silu_.launches} times, expected {want} "
+                             f"(57 a standard forward, 56 a folded one; forwards of {list(need)} needed): {counts}")
 
 
 def dataset_tools(hw: tuple[int, int], device: str = "cuda") -> dict:
@@ -3373,6 +3508,7 @@ def sharded_int8(q, qw, predictor) -> dict:
     slot's logs equal ``run_engine_streams`` over its streams alone bit for
     bit; K2 62 launches a forward (asserted), K1 none."""
     from wtracker_tpu_torch.models.yolov8_int8 import Int8Detector, make_detect_fns
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
     from wtracker_tpu_torch.parallel.mesh import make_mesh, run_engine_sharded
@@ -3401,12 +3537,13 @@ def sharded_int8(q, qw, predictor) -> dict:
         return logs, time.perf_counter() - t0
 
     sharded()  # warm-up
-    crop_letterbox_views.launches = conv_s8.launches = 0
+    crop_letterbox_views.launches = conv_s8.launches = bias_silu_.launches = 0
     logs, secs = sharded()
-    k1, k2 = crop_letterbox_views.launches, conv_s8.launches
+    k1, k2, k4 = crop_letterbox_views.launches, conv_s8.launches, bias_silu_.launches
     forwards = mesh.size * (cycles + 1)  # a forward a slot a step; delayed_log steps once more
-    if k1 != 0 or k2 != 62 * forwards:
-        raise AssertionError(f"the sharded int8 loop launched K1 {k1} and K2 {k2} times, expected 0 and {62 * forwards}")
+    if k1 != 0 or k2 != 62 * forwards or k4:
+        raise AssertionError(f"the sharded int8 loop launched K1 {k1}, K2 {k2} and K4 {k4} times, expected 0, "
+                             f"{62 * forwards} and 0")
     per = S // mesh.size
     for k in range(mesh.size):
         alone = run_engine_streams(params, factory(mesh.devices[k], k * per, (k + 1) * per), init[k * per : (k + 1) * per],
@@ -3524,11 +3661,13 @@ def dp_command_args(tmp: Path) -> list[str]:
 
 
 def hand_kernel_launches() -> dict:
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
     from wtracker_tpu_torch.ops.conv_s8 import conv_s8
     from wtracker_tpu_torch.ops.polyfit import polyfit
     from wtracker_tpu_torch.ops.preproc import crop_letterbox_views
 
-    return {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches, "polyfit": polyfit.launches}
+    return {"crop_letterbox": crop_letterbox_views.launches, "conv_s8": conv_s8.launches, "polyfit": polyfit.launches,
+            "bias_silu": bias_silu_.launches}
 
 
 def dp_worker(rank: int, init_method: str, out: str) -> int:
@@ -3837,7 +3976,8 @@ def detector_gates() -> dict:
     from wtracker_tpu_torch.tools import run_gates
 
     zero_hand_kernel_launches()
-    out = run_gates.run_all(run_gates.parse_args([]))
+    with k4_per_forward("phase 38") as k4:
+        out = run_gates.run_all(run_gates.parse_args([]))
     failed = {k: r["failed"] for k, r in out.items() if r["status"] != "pass"}
     if len(out) != 5 or failed:
         raise AssertionError(f"detector gates failed: {failed}: {out}")
@@ -3845,7 +3985,7 @@ def detector_gates() -> dict:
     if (launches["crop_letterbox"] or launches["polyfit"]
             or not all(out[k]["launches"]["conv_s8"] for k in ("trained_int8_drift", "int8_drift_s416"))):
         raise AssertionError(f"the gates launched K1 or K3, or an int8 gate ran without K2: {launches}")
-    return {"gates": out, "launches": launches}
+    return {"gates": out, "launches": launches, "k4": k4}
 
 
 def trace_tool() -> dict:
@@ -3894,8 +4034,8 @@ def bench_tools() -> dict:
     zero_hand_kernel_launches()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(sys.stderr):  # the bench's line is this phase's, printed at the end
-            line = bench._measure(latency_n=BENCH_LATENCY_N, cadence_n=BENCH_CADENCE_N)
+        with contextlib.redirect_stdout(sys.stderr), k4_per_forward("the bench") as k4:
+            line = bench._measure(latency_n=BENCH_LATENCY_N, cadence_n=BENCH_CADENCE_N)  # its line printed at the end
     finally:
         bench.measure_decision_latency = measure_latency
         for k, v in saved.items():
@@ -3913,8 +4053,8 @@ def bench_tools() -> dict:
     chunks8 = line["chunks"]["int8"]
     forwards = ((1 + int(BENCH_ENV["BENCH_REPEATS"])) * (cycles + 1) * chunks8
                 + 2 * (bench.DECISION_WARMUP + 2 * BENCH_LATENCY_N) + 1 + BENCH_CADENCE_N)
-    if launches != {"crop_letterbox": 0, "conv_s8": 62 * forwards, "polyfit": 0}:
-        raise AssertionError(f"the bench launched {launches}, expected K1 0, K2 62 x {forwards} and K3 0")
+    if launches != {"crop_letterbox": 0, "conv_s8": 62 * forwards, "polyfit": 0, "bias_silu": k4["bias_silu"]}:
+        raise AssertionError(f"the bench launched {launches}, expected K1 0, K2 62 x {forwards}, K3 0 and K4 {k4}")
     lat = line["latency_ms"]
     for key in ("bf16_s1", "bf16_s4", "int8_s1", "int8_s4"):
         if lat[key]["n"] != BENCH_LATENCY_N or "device" not in lat[key]:
@@ -3936,10 +4076,11 @@ def bench_tools() -> dict:
         made = recording.generate(frames, BENCH_VIDEO_FRAMES, seed=0)
         zero_hand_kernel_launches()
         t1 = time.perf_counter()
-        video = {
-            "whole": bench_video.run(frames, "bf16", chunk_cycles=BENCH_VIDEO_CHUNK_CYCLES),
-            "roi": bench_video.run(frames, "bf16", chunk_cycles=BENCH_VIDEO_CHUNK_CYCLES, roi=BENCH_VIDEO_ROI),
-        }
+        with k4_per_forward("the video bench", need=("folded",)) as video_k4:
+            video = {
+                "whole": bench_video.run(frames, "bf16", chunk_cycles=BENCH_VIDEO_CHUNK_CYCLES),
+                "roi": bench_video.run(frames, "bf16", chunk_cycles=BENCH_VIDEO_CHUNK_CYCLES, roi=BENCH_VIDEO_ROI),
+            }
         video_s = time.perf_counter() - t1
     video_launches = hand_kernel_launches()
     cycles_video = (BENCH_VIDEO_FRAMES - 1) // 15
@@ -3947,12 +4088,12 @@ def bench_tools() -> dict:
         if not (r["frames"] == BENCH_VIDEO_FRAMES and r["cycles"] == cycles_video and 0 <= r["decode_share"] <= 1
                 and r["value"] > 0):
             raise AssertionError(f"video bench {name}: {r}")
-    if video["roi"]["roi"]["window_px"] != BENCH_VIDEO_ROI or any(video_launches.values()):
+    if video["roi"]["roi"]["window_px"] != BENCH_VIDEO_ROI or any(v for k, v in video_launches.items() if k != "bias_silu"):
         raise AssertionError(f"video bench ROI {video['roi']}, launches {video_launches}")
     return {
-        "bench": line, "launches": launches, "expected_conv_s8_forwards": forwards, "traced_calls": calls,
+        "bench": line, "launches": launches, "expected_conv_s8_forwards": forwards, "k4": k4, "traced_calls": calls,
         "busy_share_of_traced_host_time": busy_share, "measure_s": measure_s,
-        "video": video, "video_launches": video_launches, "recording": {k: made[k] for k in ("frames", "bytes", "seconds")},
+        "video": video, "video_launches": video_launches, "video_k4": video_k4, "recording": {k: made[k] for k in ("frames", "bytes", "seconds")},
         "video_s": video_s,
     }
 
@@ -3985,10 +4126,10 @@ def main() -> int:
     t0 = time.perf_counter()
     k3_build = ThreadPoolExecutor(1)
     k3_report = k3_build.submit(lambda: (_build.build_all(("polyfit_f64",)), time.perf_counter() - t0))
-    reports = _build.build_all(("crop_letterbox", "conv_s8"))
+    reports = _build.build_all(("crop_letterbox", "conv_s8", "bias_silu"))
     build_s = time.perf_counter() - t0
     log_nvcc(reports)
-    log(f"built K1 and K2 in {build_s:.1f} s")
+    log(f"built K1, K2 and K4 in {build_s:.1f} s")
     k2_sass = tensor_core_sass(_build.library_path("conv_s8"))
     log(f"conv_s8 SASS: {k2_sass}")
     if k2_sass["IGMMA"] == 0 or k2_sass["IDP4A"] != 0:
@@ -4014,6 +4155,10 @@ def main() -> int:
     for n, t in times.items():
         log(f"crop_letterbox N={n}: {t}")
 
+    # -- 43. K4, the bf16 detector's bias + SiLU pass -----------------------
+    k4 = time_bias_silu(reports.get("bias_silu", ""))
+    log(f"bias_silu: {k4}")
+
     # -- 4. models ----------------------------------------------------------
     detector = YoloV8Detector.load(str(CHECKPOINT), imgsz=imgsz, device="cuda").fuse().to(torch.bfloat16)
     model = detector.model
@@ -4034,9 +4179,10 @@ def main() -> int:
     recording = Recording(num_frames, (H, W), SEED)
     base = dict(imgsz=(imgsz, imgsz), conf=0.1, ring_size=64, log_mode=True, max_dist_per_pred=40.0, fold_stem=False)
     crop_letterbox_views.launches = 0
-    logs_k, secs_k = run_loop(
-        params, LiveLoopConfig(**base, use_fused_preproc=True), recording, num_frames, model, predictor, "cuda"
-    )
+    with k4_per_forward("phase 5", need=("standard",)) as k4_video:
+        logs_k, secs_k = run_loop(
+            params, LiveLoopConfig(**base, use_fused_preproc=True), recording, num_frames, model, predictor, "cuda"
+        )
     launches = crop_letterbox_views.launches
     n_cycles = params.n_logged_cycles(num_frames)
     if launches != 2 * n_cycles:
@@ -4114,7 +4260,8 @@ def main() -> int:
     # -- 8. the video loop at the default fold_stem=None: it folds ----------
     cfg_auto = LiveLoopConfig(**{**base, "fold_stem": None}, use_fused_preproc=True)
     crop_letterbox_views.launches = 0
-    logs_f, secs_f = run_loop(params, cfg_auto, recording, num_frames, model, predictor, "cuda")
+    with k4_per_forward("phase 8", need=("folded",)) as k4_folded:
+        logs_f, secs_f = run_loop(params, cfg_auto, recording, num_frames, model, predictor, "cuda")
     launches_f = crop_letterbox_views.launches
     if launches_f != 0:
         raise AssertionError(f"the folded video loop launched crop_letterbox {launches_f} times")
@@ -4133,7 +4280,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 10. the 40 ms decision ----------------------------------------------
-    decisions = [decision_latency(flagship, s) for s in (1, 4)]
+    with k4_per_forward("phase 10") as k4_decisions:
+        decisions = [decision_latency(flagship, s) for s in (1, 4)]
     del flagship
     for d in decisions:
         log(f"decision S={d['streams']}: host {d['e2e']} device {d['device']} (budget {d['budget_ms']} ms)")
@@ -4549,6 +4697,7 @@ def main() -> int:
             "bf16_box_max_abs_diff_kernel_vs_plain": box_bf16,
             "f32_box_max_abs_diff_kernel_vs_plain": box_f32,
             **quality,
+            "k4": k4_video,
             "build_s": build_s,
             "k3_build_s": k3_build_s,
             "card": card,
@@ -4557,6 +4706,7 @@ def main() -> int:
     video_folded = {
         "video_loop_folded": {
             "crop_letterbox_launches": launches_f,
+            "k4": k4_folded,
             "cycles_per_s": n_cycles / float(np.median(secs_f)),
             "run_s": secs_f,
             "bf16_pos_max_abs_diff_vs_kernel_loop": pos_fk,
@@ -4565,11 +4715,12 @@ def main() -> int:
         }
     }
     print(json.dumps(kernels))
+    print(json.dumps({"bias_silu": {**k4, "card": card}}))
     print(json.dumps(loop))
     print(json.dumps({"folded_detect": folded}))
     print(json.dumps(video_folded))
     print(json.dumps({"synthetic_loop": synthetic}))
-    print(json.dumps({"decision_latency": decisions}))
+    print(json.dumps({"decision_latency": decisions, "k4": k4_decisions}))
     print(json.dumps({"roi_video_loop": roi}))
     print(json.dumps({"track_video_cli": cli}))
     print(json.dumps({"video_streams": streams}))

@@ -5,7 +5,10 @@ what changed and reuses what did not: the hash must change with the
 kernel's source, with any header in ``csrc/`` and with the compiler flags
 (include paths among them), and with nothing else."""
 
+import re
+
 from wtracker_tpu_torch.ops import _build
+from wtracker_tpu_torch.ops.bias_silu import MAX_CHANNELS
 
 
 def _sources(tmp_path, monkeypatch):
@@ -68,3 +71,15 @@ def test_polyfit_kernel_rounds_every_product_on_its_own():
     assert args[0] is _build._I and args[11] is _build._D and len(args) == 18
     assert args[12:14] == [_build._P] * 2 and args[14:17] == [_build._I] * 3 and args[17] is _build._P
     assert 'extern "C" int polyfit_f64(int form,' in (_build.CSRC / "polyfit_f64.cu").read_text()
+
+
+def test_bias_silu_entry_and_its_mirrored_limit():
+    """x, bias, the element count (64-bit), C, H*W, the layout, the dtype, the
+    SM count, the stream; the wrapper's channel limit mirrors the source's."""
+    args, restype = _build.SIGNATURES["bias_silu"]
+    assert args == [_build._P, _build._P, _build._L] + [_build._I] * 5 + [_build._P] and restype is _build._I
+    src = (_build.CSRC / "bias_silu.cu").read_text()
+    assert 'extern "C" int bias_silu(void* x, const void* bias, long long n, int C, int HW,' in src
+    assert int(re.search(r"constexpr int kMaxChannels = (\d+);", src).group(1)) == MAX_CHANNELS
+    # the accurate tanhf, not the approximate instruction: same mathematics, not lower precision
+    assert "tanhf(h)" in src and 'asm(' not in src and "--use_fast_math" not in _build.flags("bias_silu")

@@ -573,3 +573,143 @@ def test_polyfit_general_form_at_large_degrees_bit_for_bit(deg, n):
     grid = _polyfit_plan(2, n, deg, 3)
     assert grid.form == "general" and (grid.workspace > 0) == (deg + 1 == 72)
     _check_polyfit(*(torch.from_numpy(a).cuda() for a in (t, y)), deg, torch.from_numpy(w).cuda())
+
+
+# -- K4: the detector's bias + SiLU pass ----------------------------------------
+
+CHECKPOINT = Path(__file__).resolve().parent.parent / "models" / "yolov8s_worm416.npz"
+# the detector's shapes, views cut to a few: b2.cv1 and b0 (the largest), the
+# 26 x 26 and 13 x 13 levels (H*W = 676 and 169: NCHW vectors straddle two
+# channels), and 105 elements (C and H*W odd: a scalar tail after the vectors)
+BIAS_SILU_SHAPES = [(4, 64, 104, 104), (2, 32, 208, 208), (3, 256, 26, 26), (3, 512, 13, 13), (1, 5, 7, 3)]
+LAYOUTS = [torch.channels_last, torch.contiguous_format]
+
+
+def _bias_silu_data(shape, dtype, memory_format, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device="cuda") * 4).to(dtype).contiguous(memory_format=memory_format)
+    b = (torch.randn(shape[1], generator=g, device="cuda") * 2).to(dtype)
+    return x, b
+
+
+def _silu_f32(x, b):
+    """The pass in float32 on the card, before its one rounding."""
+    y = x.float() + b.float().view(1, -1, 1, 1)
+    return 0.5 * y * (torch.tanh(0.5 * y) + 1.0)
+
+
+def _check_bias_silu(x, b):
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
+
+    want = _silu_f32(x, b)
+    before, ptr, strides = bias_silu_.launches, x.data_ptr(), x.stride()
+    got = bias_silu_(x, b)
+    torch.cuda.synchronize()
+    assert bias_silu_.launches == before + 1
+    assert got is x and x.data_ptr() == ptr and x.stride() == strides  # in place
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:  # within one bf16 ulp of the float32 value (bf16 keeps 8 significant bits)
+        _, exp = torch.frexp(want)
+        assert ((got.float() - want).abs() <= torch.ldexp(torch.ones_like(want), exp - 8)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BIAS_SILU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("memory_format", LAYOUTS, ids=["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bias_silu_matches_float32_version(shape, memory_format, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_bias_silu(*_bias_silu_data(shape, dtype, memory_format, sum(shape)))
+
+
+@pytest.mark.cuda
+def test_bias_silu_refuses_what_it_cannot_take_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
+
+    x, b = _bias_silu_data((1, 8, 4, 4), torch.bfloat16, torch.channels_last, 3)
+    before = bias_silu_.launches
+    with pytest.raises(ValueError, match="bias must be"):
+        bias_silu_(x, b.cpu())
+    with pytest.raises(ValueError, match="dense channels-last or NCHW-contiguous"):
+        bias_silu_(x[:, :, :, :2], b)
+    # a view one element into its storage: the kernel's vectors need 16-byte alignment
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bias_silu_(flat.view(1, 4, 4, 8).permute(0, 3, 1, 2), b)
+    assert bias_silu_.launches == before
+
+
+def _worm_views(n, seed):
+    """n rendered 360 px camera views of the synthetic worm on the card."""
+    from wtracker_tpu_torch.sim.synthetic import SyntheticScene
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worms = 600 + 400 * torch.rand(n, 2, generator=g, device="cuda")
+    tls = worms - 180 + 120 * (torch.rand(n, 2, generator=g, device="cuda") - 0.5)
+    return SyntheticScene().render_views(worms, tls, (360, 360), torch.arange(n, device="cuda"))
+
+
+def _head_rel_err(program, reference):
+    """The benchmark's ``head_rel_err``: ||program - reference|| over the
+    reference's spread about each output channel's mean."""
+    num = den = 0.0
+    for p, r in zip(program[0] + program[1], reference[0] + reference[1]):
+        r = r.detach().double()
+        num += float(((p.detach().double() - r) ** 2).sum())
+        den += float(((r - r.mean(dim=(0, 1, 2))) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+@pytest.mark.cuda
+def test_detector_runs_each_fused_epilogue_through_bias_silu():
+    """57 launches a standard forward, 56 a folded one (b0 is the folded
+    stem's), none with autograd on; the heads within a third of the tighter
+    bf16 cell's ``head_rel_err`` limit (0.06) of the eager form's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector, make_folded_detect, preprocess_batch
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
+
+    model = YoloV8Detector.load(str(CHECKPOINT), imgsz=416, device="cuda").fuse().to(torch.bfloat16).model
+    views = _worm_views(12, 0)
+    x, _ = preprocess_batch(views.round().to(torch.uint8), (416, 416), dtype=torch.bfloat16)
+    before = bias_silu_.launches
+    with torch.inference_mode():
+        fused = model(x)
+    assert bias_silu_.launches - before == 57
+    with torch.enable_grad():
+        eager = model(x)
+    assert bias_silu_.launches - before == 57
+    assert _head_rel_err(fused, eager) <= 0.06 / 3
+    detect = make_folded_detect(model, (360, 360), (416, 416))
+    with torch.inference_mode():
+        detect(model, views, None, 0.1)
+    assert bias_silu_.launches - before == 57 + 56
+
+
+@pytest.mark.cuda
+def test_int8_forwards_launch_no_bias_silu():
+    """Calibration, ``QuantizedYolo.apply`` and ``apply_folded``: K2 and its
+    own epilogue, never the bf16 pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wtracker_tpu_torch.models.yolov8 import YoloV8Detector, fold_stem_matrices, preprocess_batch
+    from wtracker_tpu_torch.models.yolov8_int8 import quantize_detector
+    from wtracker_tpu_torch.ops.bias_silu import bias_silu_
+    from wtracker_tpu_torch.ops.conv_s8 import conv_s8
+
+    model32 = YoloV8Detector.load(str(CHECKPOINT), imgsz=416, device="cuda").fuse().model
+    views = _worm_views(4, 1)
+    frames = views.round().to(torch.uint8)
+    before, k2 = bias_silu_.launches, conv_s8.launches
+    q = quantize_detector(model32, frames, (416, 416))
+    qw = q.device_weights("cuda")
+    x, _ = preprocess_batch(frames, (416, 416), dtype=torch.bfloat16)
+    q.apply(qw, x)
+    q.apply_folded(qw, views, fold_stem_matrices((360, 360), (416, 416), dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.synchronize()
+    assert bias_silu_.launches == before and conv_s8.launches - k2 == 63 + 62

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wtracker_tpu_torch.models.batchnorm import flax_batch_norm
+from wtracker_tpu_torch.ops import bias_silu
 from wtracker_tpu_torch.ops.image import _interp_matrix, letterbox
 from wtracker_tpu_torch.utils import flax_init
 from wtracker_tpu_torch.utils.device import resolve_device
@@ -59,7 +60,14 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 class ConvBN(nn.Module):
     """Conv2d + BatchNorm + SiLU (NCHW).  ``fused=True``: biased conv + SiLU,
-    the deployment form after :func:`fuse_conv_bn`."""
+    the deployment form after :func:`fuse_conv_bn`.
+
+    A fused ConvBN on the card with autograd off (the engines run under
+    ``torch.inference_mode``) convolves without the bias and adds the bias
+    and applies SiLU in one pass over the convolution's output
+    (:func:`~wtracker_tpu_torch.ops.bias_silu.bias_silu_`: float32 inside,
+    one rounding); everywhere else the bias rides with the convolution and
+    SiLU is :func:`_silu`'s eager passes."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1, stride: int = 1, fused: bool = False):
         super().__init__()
@@ -70,6 +78,9 @@ class ConvBN(nn.Module):
         self.bn = None if fused else nn.BatchNorm2d(out_ch, eps=1e-3, momentum=0.03)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bn is None and x.is_cuda and x.dtype in bias_silu.DTYPES and not torch.is_grad_enabled():
+            y = F.conv2d(x, self.conv.weight, None, self.conv.stride, self.conv.padding)
+            return bias_silu.bias_silu_(y, self.conv.bias)  # a convolution's output is dense
         x = self.conv(x)
         if self.bn is not None:
             x = flax_batch_norm(x, self.bn) if self.training else self.bn(x)

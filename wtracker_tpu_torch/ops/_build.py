@@ -34,6 +34,7 @@ SIGNATURES = {
     "crop_letterbox": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "conv_s8": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "polyfit_f64": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _P, _I, _I, _I, _P], _I),
+    "bias_silu": ([_P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
 }
 
 NVCC_FLAGS = [
@@ -96,6 +97,15 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+@cache
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device`` (132 on the H100),
+    which the kernels' grids are sized by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @cache

@@ -325,11 +325,6 @@ def wave_table(k: int) -> np.ndarray:
     return np.concatenate([table, np.zeros(-len(table) % 4, np.uint16)])
 
 
-@cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _sum0(x: torch.Tensor) -> torch.Tensor:
     """Sum over the first axis as ``((x0 + x1) + x2) + …``."""
     return reduce(torch.add, x.unbind(0))
@@ -492,7 +487,7 @@ def _polyfit_kernel(x: torch.Tensor, y: torch.Tensor, deg: int, w: torch.Tensor 
     eps = torch.finfo(torch.float64).eps
     cut_factor = max((n * eps) ** 2, 16 * eps)  # lstsq_minnorm's, with polyfit's rcond
     if w.shape[0]:
-        grid = plan(w.shape[0], n, k, m, _sms(x.device), workspace)
+        grid = plan(w.shape[0], n, k, m, _build.sm_count(x.device), workspace)
         scratch = torch.empty(grid.workspace // 8, dtype=torch.float64, device=x.device) if grid.workspace else None
         table = _wave_table_on(x.device, k) if grid.form == "wave" else None
         lib = _build.load("polyfit_f64")
